@@ -1,0 +1,171 @@
+"""Delta-gated GRU (ΔGRU) — PyTorch port of ``repro/core/delta_gru.py``.
+
+A neuron transmits its activation only when the change since the last
+transmitted value exceeds Δ_TH:
+
+    Δx_t[i] = x_t[i] - x̂_{t-1}[i]      if |x_t[i] - x̂_{t-1}[i]| > Δ_TH else 0
+    x̂_t[i]  = x_t[i]                    if transmitted, else x̂_{t-1}[i]
+    (and identically for the hidden state h with memory ĥ)
+
+and the pre-activations are kept incrementally, M_t = M_{t-1} + W_x Δx_t
++ W_h Δh_t, so a zero delta skips the MAC and the weight read.  The gates
+are the type-2 GRU (reset gate on the candidate's hidden pre-activation):
+
+    r = σ(M_r), u = σ(M_u), c = tanh(M_xc + r ⊙ M_hc), h = u ⊙ h + (1-u) ⊙ c
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.delta_gru_seq import check_kernel_fits, delta_gru_seq
+from repro_torch.kernels.gru_math import delta_branch, gru_gates
+
+
+class DeltaGRUParams(NamedTuple):
+    """Weights for a single ΔGRU layer (input dim I, hidden dim H)."""
+
+    w_x: torch.Tensor  # (I, 3H)  -> [r | u | c] input kernels
+    w_h: torch.Tensor  # (H, 3H)  -> [r | u | c] hidden kernels
+    b: torch.Tensor    # (3H,)
+
+
+class DeltaState(NamedTuple):
+    """Carried state of the delta recurrence."""
+
+    h: torch.Tensor       # (B, H)  hidden state
+    x_hat: torch.Tensor   # (B, I)  last transmitted input
+    h_hat: torch.Tensor   # (B, H)  last transmitted hidden
+    m_x: torch.Tensor     # (B, 3H) accumulated input pre-activations (+ bias)
+    m_h: torch.Tensor     # (B, 3H) accumulated hidden pre-activations
+
+
+class DeltaStats(NamedTuple):
+    """Per-step op statistics (all shapes (B,) per step, (T, B) stacked)."""
+
+    nz_dx: torch.Tensor       # number of non-zero input deltas
+    nz_dh: torch.Tensor       # number of non-zero hidden deltas
+    macs: torch.Tensor        # MACs actually executed
+    macs_dense: torch.Tensor  # MACs a dense GRU would execute
+    sram_reads: torch.Tensor  # weight words read (== macs)
+
+
+def init_delta_gru(generator: torch.Generator, input_dim: int,
+                   hidden_dim: int) -> DeltaGRUParams:
+    """Scaled-normal kernels, zero bias (on the generator's device)."""
+    dev = generator.device
+    w_x = torch.randn((input_dim, 3 * hidden_dim), generator=generator,
+                      device=dev) * (1.0 / np.sqrt(input_dim))
+    w_h = torch.randn((hidden_dim, 3 * hidden_dim), generator=generator,
+                      device=dev) * (1.0 / np.sqrt(hidden_dim))
+    b = torch.zeros((3 * hidden_dim,), device=dev)
+    return DeltaGRUParams(w_x, w_h, b)
+
+
+def init_delta_state(batch: int, input_dim: int, hidden_dim: int,
+                     params: DeltaGRUParams) -> DeltaState:
+    """Zero state on the weights' device.  m_x starts at the bias so
+    M == W x̂ + W ĥ + b holds."""
+    dev = params.b.device
+    return DeltaState(
+        h=torch.zeros((batch, hidden_dim), device=dev),
+        x_hat=torch.zeros((batch, input_dim), device=dev),
+        h_hat=torch.zeros((batch, hidden_dim), device=dev),
+        m_x=params.b.float().expand(batch, 3 * hidden_dim).contiguous(),
+        m_h=torch.zeros((batch, 3 * hidden_dim), device=dev),
+    )
+
+
+def _stats_from_counts(nz_dx, nz_dh, in_dim: int,
+                       hidden_dim: int) -> DeltaStats:
+    """Rebuild DeltaStats from per-frame transmit counts (device-side)."""
+    macs = (nz_dx + nz_dh) * (3 * hidden_dim)
+    macs_dense = torch.full_like(macs, (in_dim + hidden_dim) * 3 * hidden_dim)
+    return DeltaStats(nz_dx=nz_dx, nz_dh=nz_dh, macs=macs,
+                      macs_dense=macs_dense, sram_reads=macs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaGRUCell:
+    """One ΔGRU timestep.  threshold=0 reproduces the dense GRU."""
+
+    hidden_dim: int
+    threshold: float = 0.0
+
+    def __call__(self, params: DeltaGRUParams, state: DeltaState, x
+                 ) -> tuple[DeltaState, torch.Tensor, DeltaStats]:
+        H = self.hidden_dim
+        dx, x_hat, mx = delta_branch(x, state.x_hat, self.threshold)
+        dh, h_hat, mh = delta_branch(state.h, state.h_hat, self.threshold)
+        m_x = state.m_x + dx @ params.w_x          # (B, 3H)
+        m_h = state.m_h + dh @ params.w_h          # (B, 3H)
+        h = gru_gates(m_x, m_h, state.h, H)
+        stats = _stats_from_counts(mx.sum(-1, dtype=torch.int32),
+                                   mh.sum(-1, dtype=torch.int32),
+                                   x.shape[-1], H)
+        return DeltaState(h, x_hat, h_hat, m_x, m_h), h, stats
+
+
+def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
+                   state: DeltaState | None = None, *,
+                   backend: str = "xla"
+                   ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
+    """Run a ΔGRU over ``xs`` of shape (T, B, I).
+
+    Args:
+      params: ``DeltaGRUParams`` (w_x (I, 3H), w_h (H, 3H), b (3H,)).
+      xs: (T, B, I) frame-major inputs.
+      threshold: Δ_TH — the transmit deadband (0.0 = dense GRU).
+      state: carried ``DeltaState`` (None = fresh stream).
+      backend: "xla" — a Python loop over ``DeltaGRUCell`` (the name of
+        the reference's per-step path) — or "pallas" — ``delta_gru_seq``,
+        ONE launch of the hand-written kernel per chunk on a CUDA tensor
+        (its plain version on a CPU tensor).  "pallas" raises when the
+        weights exceed the kernel's shared memory; the block-sparse
+        fallback of the reference is not ported yet.
+
+    Returns:
+      (hs (T, B, H), final ``DeltaState``, ``DeltaStats`` stacked over T).
+      Scanning [a|b] with the state carried equals one scan of the
+      concatenation.
+    """
+    T, B, I = xs.shape
+    H = params.w_h.shape[0]
+    if state is None:
+        state = init_delta_state(B, I, H, params)
+    if backend == "pallas":
+        check_kernel_fits(I, H)
+        hs, final, nz_dx, nz_dh = delta_gru_seq(
+            xs.contiguous(), *state, params.w_x, params.w_h, threshold)
+        return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)
+    if backend != "xla":
+        raise ValueError(f"unknown ΔGRU backend: {backend!r}")
+    cell = DeltaGRUCell(hidden_dim=H, threshold=threshold)
+    hs, per_step = [], []
+    for t in range(T):
+        state, h, stats = cell(params, state, xs[t])
+        hs.append(h)
+        per_step.append(stats)
+    if T == 0:
+        z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
+        return (xs.new_zeros((0, B, H)), state,
+                _stats_from_counts(z, z, I, H))
+    stats = DeltaStats(*(torch.stack(f) for f in zip(*per_step)))
+    return torch.stack(hs), state, stats
+
+
+def dense_gru_scan(params: DeltaGRUParams, xs, h0=None) -> torch.Tensor:
+    """Reference dense GRU (identical math to ΔGRU at threshold=0)."""
+    T, B, _ = xs.shape
+    H = params.w_h.shape[0]
+    h = xs.new_zeros((B, H)) if h0 is None else h0
+    hs = []
+    for t in range(T):
+        zx = xs[t] @ params.w_x + params.b
+        zh = h @ params.w_h
+        h = gru_gates(zx, zh, h, H)
+        hs.append(h)
+    return torch.stack(hs) if hs else xs.new_zeros((0, B, H))

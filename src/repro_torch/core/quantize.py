@@ -1,0 +1,54 @@
+"""Fixed-point quantization utilities (Qm.n) for the serving path.
+
+Mirrors ``repro/core/quantize.py``: symmetric two's-complement fixed
+point, value ∈ [-2^(int_bits), 2^(int_bits) - 2^-frac_bits], step
+2^-frac_bits, total width = 1 (sign) + int_bits + frac_bits.  The
+training helpers (straight-through estimators) come with the training
+slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class QFormat:
+    """Two's-complement fixed-point format Q(int_bits).(frac_bits)."""
+
+    int_bits: int
+    frac_bits: int
+
+    @property
+    def step(self) -> float:
+        return float(2.0 ** -self.frac_bits)
+
+    @property
+    def max_val(self) -> float:
+        return float(2.0 ** self.int_bits - 2.0 ** -self.frac_bits)
+
+    @property
+    def min_val(self) -> float:
+        return float(-(2.0 ** self.int_bits))
+
+    def quantize(self, x):
+        """Round-to-nearest (half to even) + saturate; torch or numpy."""
+        xp = torch if isinstance(x, torch.Tensor) else np
+        q = xp.round(x / self.step) * self.step
+        return xp.clip(q, self.min_val, self.max_val)
+
+
+def qformat_for(max_abs: float, total_bits: int) -> QFormat:
+    """Pick integer bits from the dynamic range, give the rest to fraction
+    (the paper's procedure: integer bits for a and b from their maximum
+    values, then the fraction bits from the remaining budget)."""
+    int_bits = max(0, int(np.ceil(np.log2(max(max_abs, 1e-12) + 1e-12))))
+    frac_bits = max(0, total_bits - 1 - int_bits)
+    return QFormat(int_bits=int_bits, frac_bits=frac_bits)
+
+
+def quantize_audio_12b(x: torch.Tensor) -> torch.Tensor:
+    """12-bit ADC model: x in [-1, 1) → Q0.11."""
+    return QFormat(0, 11).quantize(torch.clip(x, -1.0, 1.0 - 2.0 ** -11))

@@ -1,0 +1,121 @@
+"""Build the CUDA kernels in ``repro_torch/csrc`` with nvcc and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
+into ``_build/<name>-<hash>.so`` (``.gitignore`` lists ``_build/``) on
+first use, then loaded with ``ctypes``.  No PyTorch headers are included,
+so a build takes seconds, not the minutes of
+``torch.utils.cpp_extension.load``.  The hash covers the source and the
+flags, so an edited kernel is never served from a stale library.  Only
+sources in the repository are compiled; nothing is fetched.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false``: nvcc would
+otherwise fuse ``a*b + c`` into one FMA, which PyTorch's separate eager
+ops do not do, and the FEx recursion would drift from its plain version
+over thousands of samples.  ``-Xptxas -v`` keeps each kernel's register
+and shared-memory report in the build log.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+KERNELS = ("iir_fex", "delta_gru_seq")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    """One compiled kernel library: its path, build seconds (0 when it
+    was already built) and nvcc's output (ptxas register report)."""
+
+    path: pathlib.Path
+    seconds: float
+    log: str
+
+
+def nvcc_path() -> str:
+    """The nvcc to use: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or PATH."""
+    candidates = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                  "/usr/local/cuda"]
+    for home in filter(None, candidates):
+        p = pathlib.Path(home) / "bin" / "nvcc"
+        if p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME, "
+                           "/usr/local/cuda and PATH): the CUDA kernels "
+                           "cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(names=KERNELS) -> dict[str, Built]:
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    per source, all started together.  Raises with nvcc's output if any
+    build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: dict[str, Built] = {}
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            out[name] = Built(lib, 0.0, "")
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        running[name] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (lib, tmp, proc) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = Built(lib, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name].path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``: a refused
+    launch never runs, and a later synchronize would not report it."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

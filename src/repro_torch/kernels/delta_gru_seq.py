@@ -1,0 +1,162 @@
+"""Full-sequence fused ΔGRU: one kernel launch per chunk of frames.
+
+``delta_gru_seq`` is the wrapper of the CUDA kernel
+``csrc/delta_gru_seq.cu`` (the port of the Pallas kernel
+``repro/kernels/delta_gru_seq.py::delta_gru_seq``).  ``delta_gru_seq_ref``
+is its plain PyTorch version: a Python loop over frames of
+``delta_branch`` → ``m += d @ W`` → ``gru_gates``.  The wrapper takes the
+plain version only for tensors on the CPU; for a CUDA tensor it launches
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.gru_math import delta_branch, gru_gates
+
+# Shared memory one Hopper thread block may use (227 KB).
+MAX_SMEM_BYTES = 232_448
+MAX_THREADS = 1024
+
+
+def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel: W_x, W_h, x̂, ĥ, h,
+    the compacted deltas, the M staging rows and 64 warp counts (the
+    layout of ``smem_words`` in ``csrc/delta_gru_seq.cu``)."""
+    I, H = input_dim, hidden_dim
+    N = 3 * H
+    return 4 * ((I + H) * N + I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
+
+
+def check_kernel_fits(input_dim: int, hidden_dim: int) -> None:
+    """Raise ``ValueError`` when the kernel cannot hold this ΔGRU: its
+    weights must fit one thread block's shared memory, 3H columns one
+    block's threads, and the input width the block's threads."""
+    smem = seq_kernel_smem_bytes(input_dim, hidden_dim)
+    threads = -(-3 * hidden_dim // 32) * 32
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"ΔGRU I={input_dim}, H={hidden_dim} needs {smem} bytes of "
+            f"shared memory per block; the delta_gru_seq kernel holds at "
+            f"most {MAX_SMEM_BYTES} (227 KB on Hopper).  The block-sparse "
+            f"delta_matvec fallback is not ported yet (ROADMAP queue 1)")
+    if threads > MAX_THREADS or input_dim > threads:
+        raise ValueError(
+            f"ΔGRU I={input_dim}, H={hidden_dim} needs 3H <= {MAX_THREADS} "
+            f"and I <= 3H rounded up to a warp ({threads})")
+
+
+def _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h):
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (T, B, I), got {tuple(xs.shape)}")
+    T, B, I = xs.shape
+    H = h0.shape[1]
+    expect = {"h0": (B, H), "x_hat0": (B, I), "h_hat0": (B, H),
+              "m_x0": (B, 3 * H), "m_h0": (B, 3 * H), "w_x": (I, 3 * H),
+              "w_h": (H, 3 * H)}
+    got = {"h0": h0, "x_hat0": x_hat0, "h_hat0": h_hat0, "m_x0": m_x0,
+           "m_h0": m_h0, "w_x": w_x, "w_h": w_h}
+    for name, shape in expect.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"delta_gru_seq: {name} has shape "
+                             f"{tuple(got[name].shape)}, expected {shape}")
+        if got[name].device != xs.device:
+            raise ValueError(f"delta_gru_seq: {name} is on "
+                             f"{got[name].device}, xs on {xs.device}")
+
+
+def delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
+                      threshold):
+    """Plain PyTorch version of ``delta_gru_seq`` (same arguments and
+    returns), one frame at a time."""
+    _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    T, B, _ = xs.shape
+    H = h0.shape[1]
+    h, x_hat, h_hat, m_x, m_h = (a.float() for a in
+                                 (h0, x_hat0, h_hat0, m_x0, m_h0))
+    w_x, w_h = w_x.float(), w_h.float()
+    hs, nz_dx, nz_dh = [], [], []
+    for t in range(T):
+        dx, x_hat, mx_mask = delta_branch(xs[t].float(), x_hat, threshold)
+        dh, h_hat, mh_mask = delta_branch(h, h_hat, threshold)
+        m_x = m_x + dx @ w_x
+        m_h = m_h + dh @ w_h
+        h = gru_gates(m_x, m_h, h, H)
+        hs.append(h)
+        nz_dx.append(mx_mask.sum(-1, dtype=torch.int32))
+        nz_dh.append(mh_mask.sum(-1, dtype=torch.int32))
+    if T == 0:
+        z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
+        return (torch.zeros((0, B, H), device=xs.device),
+                (h, x_hat, h_hat, m_x, m_h), z, z)
+    return (torch.stack(hs), (h, x_hat, h_hat, m_x, m_h),
+            torch.stack(nz_dx), torch.stack(nz_dh))
+
+
+def _launcher():
+    lib = build.load("delta_gru_seq")
+    fn = lib.delta_gru_seq_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 8 + [ctypes.c_float] + [p] * 8
+                       + [i, i, i, i, p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
+    """Run a ΔGRU over a whole chunk of frames in ONE kernel launch.
+
+    Args:
+      xs:      (T, B, I) inputs, one row per 16 ms frame.
+      h0, x_hat0, h_hat0, m_x0, m_h0: initial delta state (see
+        ``core.delta_gru.DeltaState``; m_x0 carries the bias).
+      w_x: (I, 3H); w_h: (H, 3H); threshold: Δ_TH (a Python float).
+
+    Returns ``(hs, (h, x_hat, h_hat, m_x, m_h), nz_dx, nz_dh)`` with
+    hs (T, B, H) and nz_* (T, B) int32 per-frame transmit counts.  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/delta_gru_seq.cu`` (contiguous float32 only).
+    """
+    _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    if xs.device.type == "cpu":
+        return delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
+                                 w_h, threshold)
+    if xs.device.type != "cuda":
+        raise ValueError(f"delta_gru_seq runs on cuda or cpu, not "
+                         f"{xs.device}")
+    args = (xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    names = ("xs", "h0", "x_hat0", "h_hat0", "m_x0", "m_h0", "w_x", "w_h")
+    for name, t in zip(names, args):
+        if t.dtype != torch.float32:
+            raise TypeError(f"delta_gru_seq: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"delta_gru_seq: {name} must be contiguous")
+    T, B, I = xs.shape
+    H = h0.shape[1]
+    check_kernel_fits(I, H)
+    dev = xs.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    nz_dx = torch.empty((T, B), dtype=torch.int32, device=dev)
+    nz_dh = torch.empty((T, B), dtype=torch.int32, device=dev)
+    final = (torch.empty_like(h0), torch.empty_like(x_hat0),
+             torch.empty_like(h_hat0), torch.empty_like(m_x0),
+             torch.empty_like(m_h0))
+    if B == 0:
+        return hs, (h0, x_hat0, h_hat0, m_x0, m_h0), nz_dx, nz_dh
+    lib, fn = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() for a in args), float(threshold),
+                 hs.data_ptr(), nz_dx.data_ptr(), nz_dh.data_ptr(),
+                 *(a.data_ptr() for a in final), T, B, I, H, stream)
+    build.check(lib, err, "delta_gru_seq kernel launch")
+    delta_gru_seq.launches += 1
+    return hs, final, nz_dx, nz_dh
+
+
+delta_gru_seq.launches = 0

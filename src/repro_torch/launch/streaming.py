@@ -1,0 +1,556 @@
+"""Streaming KWS sessions — raw audio in, decisions out (float32 path).
+
+PyTorch port of the float, unsharded, detector-free part of
+``repro/launch/streaming.py``.  The session keeps FEx state, ΔGRU state
+and op-count telemetry on the device between chunks; the host hands over
+a chunk of raw audio and gets device tensors back.  One chunk is one call
+of ``_process_audio_chunk``: 12-bit quantize → FEx (``batched_iir_fex``,
+one kernel launch) → ΔGRU (``delta_gru_seq``, one kernel launch) → FC +
+argmax → telemetry and per-slot health flags.  Nothing in the step calls
+``.item()`` or ``.cpu()``; only the caller's fetch of the results syncs.
+
+    sess = StreamingKwsSession(params, cfg, threshold=0.1, batch=32)
+    for audio in chunks:                       # (32, samples) raw audio
+        votes = sess.process_audio(audio).votes.cpu()   # one fetch
+    print(sess.summary())                      # one fetch for telemetry
+
+Chunk boundaries are invisible: samples past the last whole 16 ms frame
+are carried host-side and prepended to the next chunk.  Without
+``device=`` the session runs on the GPU and raises when there is none.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import delta_gru as dg
+from repro_torch.core.energy_model import fex_energy_nj, frame_cost
+from repro_torch.core.quantize import quantize_audio_12b
+from repro_torch.frontend.fex import (FeatureExtractor, FExConfig, FExState,
+                                      fex_scan, init_fex_state)
+from repro_torch.kernels.platform import resolve_device
+from repro_torch.models import kws
+
+
+class ChunkResult(NamedTuple):
+    """Device-side per-chunk outputs — nothing here has been synced."""
+
+    logits: torch.Tensor   # (frames, batch, n_classes) per-frame logits
+    votes: torch.Tensor    # (frames, batch) int32 per-frame argmax
+    nz: torch.Tensor       # (frames, batch) transmitted deltas per frame
+
+
+class StreamInputError(ValueError):
+    """Typed rejection at the ``process_audio`` boundary: non-finite
+    samples, un-decodable dtypes, or out-of-range integer codes.  Raised
+    before anything reaches the device."""
+
+
+# --------------------------------------------------------- health bitmask --
+# Per-slot health flags computed inside the serving step (pure reads of
+# the carried state).  The bits keep the reference's values.
+HEALTH_INPUT = 1 << 0      # non-finite samples entered this chunk
+HEALTH_FEX = 1 << 1        # biquad registers non-finite / blown up
+HEALTH_GRU = 1 << 2        # ΔGRU x̂/ĥ/M/h non-finite
+_FEX_MAG_BOUND = 1e6       # float biquad register blow-up bound
+
+
+def _slot_any(bad: torch.Tensor) -> torch.Tensor:
+    """(B, ...) bool → per-slot (B,) any-reduction."""
+    return bad.reshape(bad.shape[0], -1).any(dim=1)
+
+
+def _flag(bit: int, bad: torch.Tensor) -> torch.Tensor:
+    return bad.to(torch.int32) * bit
+
+
+def slot_health(input_bad, fex_state: FExState | None,
+                gru_state: dg.DeltaState | None) -> torch.Tensor:
+    """Fuse the per-slot health predicates into one (B,) int32 bitmask:
+    the pre-quantizer non-finite-input flag, FEx registers non-finite or
+    above ``_FEX_MAG_BOUND``, ΔGRU state non-finite."""
+    flags = _flag(HEALTH_INPUT, input_bad)
+    if fex_state is not None:
+        bad = _slot_any(~torch.isfinite(fex_state.filt)
+                        | (torch.abs(fex_state.filt) > _FEX_MAG_BOUND))
+        bad |= _slot_any(~torch.isfinite(fex_state.env))
+        flags |= _flag(HEALTH_FEX, bad)
+    if gru_state is not None:
+        bad = _slot_any(~torch.isfinite(gru_state.h))
+        for leaf in (gru_state.x_hat, gru_state.h_hat, gru_state.m_x,
+                     gru_state.m_h):
+            bad |= _slot_any(~torch.isfinite(leaf))
+        flags |= _flag(HEALTH_GRU, bad)
+    return flags
+
+
+# ------------------------------------------------------ exact telemetry --
+# Counters are int64 scalars on the device.  They saturate at the
+# capacity of the reference's split int32 counters (hi < 2^31 - 8 carries
+# of 2^30), so ``overflowed`` keeps its meaning: a counter hit its rail.
+_COUNT_SAT = ((1 << 31) - 8) << 30
+
+
+class _Accum(NamedTuple):
+    """Device-resident telemetry accumulated across chunks, summed over
+    all streams of the batch."""
+
+    macs: torch.Tensor         # ΔGRU MACs actually executed
+    macs_dense: torch.Tensor   # dense-equivalent MACs
+    frames: torch.Tensor       # decisions made
+    fex_samples: torch.Tensor  # raw audio samples through the FEx
+
+
+def _zero_accum(device) -> _Accum:
+    return _Accum(*[torch.zeros((), dtype=torch.int64, device=device)
+                    for _ in _Accum._fields])
+
+
+def _count_add(c: torch.Tensor, d) -> torch.Tensor:
+    return torch.clamp(c + d, max=_COUNT_SAT)
+
+
+@dataclasses.dataclass
+class StreamSummary:
+    frames: int            # decisions made = frames × streams
+    chunks: int
+    sparsity: float
+    energy_nj_per_decision: float
+    latency_ms: float
+    dense_energy_nj: float
+    fex_samples: int = 0
+    fex_energy_nj_per_decision: float = 0.0
+    overflowed: bool = False               # any telemetry counter saturated
+    # Serve-loop timing attached by ``launch.engine.run_audio_requests``.
+    slo: dict = dataclasses.field(default_factory=dict)
+
+
+def _classify(w_fc, b_fc, hs, stats):
+    logits = hs @ w_fc + b_fc                     # (F, B, K)
+    votes = torch.argmax(logits, -1).to(torch.int32)
+    return ChunkResult(logits=logits, votes=votes,
+                       nz=stats.nz_dx + stats.nz_dh)
+
+
+def _bump(acc: _Accum, stats, n_frames: int, n_samples: int) -> _Accum:
+    """Accumulate one chunk's telemetry (int64 sums, no host sync)."""
+    return _Accum(
+        macs=_count_add(acc.macs, stats.macs.sum(dtype=torch.int64)),
+        macs_dense=_count_add(acc.macs_dense,
+                              stats.macs_dense.sum(dtype=torch.int64)),
+        frames=_count_add(acc.frames, n_frames),
+        fex_samples=_count_add(acc.fex_samples, n_samples),
+    )
+
+
+def _feats_bad(feats) -> torch.Tensor:
+    """(F, B, C) frame-major features → per-slot (B,) non-finite flag."""
+    return (~torch.isfinite(feats)).any(dim=2).any(dim=0)
+
+
+def _process_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, state: dg.DeltaState,
+                   acc: _Accum, feats, *, threshold: float):
+    """Chunk step on features:
+    (state, acc, feats (F,B,C)) -> (state', acc', out, health)."""
+    in_bad = _feats_bad(feats)
+    hs, state, stats = dg.delta_gru_scan(gru, feats.contiguous(), threshold,
+                                         state, backend="pallas")
+    out = _classify(w_fc, b_fc, hs, stats)
+    health = slot_health(in_bad, None, state)
+    return (state, _bump(acc, stats, feats.shape[0] * feats.shape[1], 0),
+            out, health)
+
+
+def _process_audio_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
+                         fex_state: FExState, state: dg.DeltaState,
+                         acc: _Accum, audio, *, threshold: float,
+                         frame_shift: int, env_alpha: float, log_eps: float):
+    """Audio→decision step: FEx kernel → ΔGRU kernel → FC.
+
+    audio: (B, S) raw samples on the device, S a multiple of frame_shift.
+    Returns (fex_state', state', acc', ChunkResult, health), all on the
+    device.
+    """
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    feats, fex_state = fex_scan(
+        audio, coef, fex_state, frame_shift=frame_shift,
+        env_alpha=env_alpha, log_eps=log_eps, compress=True,
+        backend="pallas")
+    xs = feats.movedim(1, 0).contiguous()            # (F, B, C)
+    hs, state, stats = dg.delta_gru_scan(gru, xs, threshold, state,
+                                         backend="pallas")
+    out = _classify(w_fc, b_fc, hs, stats)
+    decisions = xs.shape[0] * xs.shape[1]            # frames × streams
+    acc = _bump(acc, stats, decisions, decisions * frame_shift)
+    health = slot_health(in_bad, fex_state, state)
+    return fex_state, state, acc, out, health
+
+
+def _reset_gru_slots(state: dg.DeltaState, bias, mask) -> dg.DeltaState:
+    """Fresh-stream ΔGRU state for every slot where ``mask`` is True: one
+    mask-select per field resets a whole admission wave."""
+    m = mask[:, None]
+    zero = torch.zeros((), dtype=state.h.dtype, device=state.h.device)
+    return dg.DeltaState(
+        h=torch.where(m, zero, state.h),
+        x_hat=torch.where(m, zero, state.x_hat),
+        h_hat=torch.where(m, zero, state.h_hat),
+        m_x=torch.where(m, bias.to(state.m_x.dtype), state.m_x),
+        m_h=torch.where(m, zero, state.m_h))
+
+
+def _reset_fex_slots(state: FExState, mask) -> FExState:
+    """Quiescent filters for every slot where ``mask`` is True."""
+    zero = torch.zeros((), dtype=state.filt.dtype, device=state.filt.device)
+    return FExState(filt=torch.where(mask[:, None, None], zero, state.filt),
+                    env=torch.where(mask[:, None], zero, state.env))
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
+        f"item {item}); use the JAX package repro for it")
+
+
+class StreamingKwsSession:
+    """Carries FEx + ΔGRU state and telemetry on the device across chunks.
+
+    Args:
+      params: the KWS parameter dict (``models.kws.init_kws`` or
+        ``models.kws.params_from_numpy``).
+      cfg: an ``ArchConfig`` (``d_model`` = GRU width).
+      threshold: Δ_TH override (default ``cfg.delta_threshold``).
+      batch: number of parallel streams (slots) sharing the session.
+      input_dim: feature channels per frame (default: from the FEx, or
+        from the first feature chunk).
+      fex: a ``FeatureExtractor`` (or ``FExConfig``) for raw-audio chunks;
+        default-constructed on first use.
+      device: where the session runs.  ``None`` = CUDA; raises when CUDA
+        is missing.  ``"cpu"`` runs the kernels' plain versions.
+      mesh, numerics="int8", detector, vad, cascade, supervisor: parts
+        of the reference session that later slices of the port add;
+        setting any of them raises ``NotImplementedError``.
+      input_policy: what ``process_audio`` does with hostile samples —
+        "reject" (default) raises ``StreamInputError`` on non-finite
+        samples, "sanitize" squashes NaN to silence and clamps ±Inf to
+        the 12-bit rails, "trust" forwards them untouched.  Un-decodable
+        dtypes and out-of-range integer codes always reject.
+    """
+
+    def __init__(self, params, cfg, *, threshold: float | None = None,
+                 batch: int = 1, input_dim: int | None = None,
+                 fex: FeatureExtractor | FExConfig | None = None,
+                 device=None, mesh=None, numerics: str = "float32",
+                 detector=None, vad=None, cascade=None, supervisor=None,
+                 input_policy: str = "reject"):
+        if mesh is not None:
+            raise _not_ported("slot sharding over a device mesh", "9")
+        if numerics == "int8":
+            raise _not_ported("the int8 serving datapath", "5")
+        if numerics != "float32":
+            raise ValueError(f"unknown numerics: {numerics!r}")
+        if detector is not None or vad is not None:
+            raise _not_ported("detection mode (detector / VAD)", "6")
+        if cascade is not None:
+            raise _not_ported("the two-stage wake cascade", "7")
+        if supervisor is not None:
+            raise _not_ported("the self-healing supervisor", "8")
+        if input_policy not in ("reject", "sanitize", "trust"):
+            raise ValueError(f"unknown input_policy: {input_policy!r} "
+                             f"(choose reject / sanitize / trust)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch = batch
+        self.threshold = float(cfg.delta_threshold if threshold is None
+                               else threshold)
+        self.input_policy = input_policy
+        self._fex = (FeatureExtractor(fex) if isinstance(fex, FExConfig)
+                     else fex)
+        params = {k: v.to(self.device, torch.float32)
+                  for k, v in params.items()}
+        self._gru, self._w_fc, self._b_fc = kws.serving_weights(params)
+        self.n_classes = int(self._b_fc.shape[-1])
+        self._state: dg.DeltaState | None = None
+        self._coef = None
+        self._fex_state: FExState | None = None
+        self._audio_rem: np.ndarray | None = None   # carried tail samples
+        self._acc = _zero_accum(self.device)
+        self._chunks = 0
+        self._input_dim = input_dim
+        self._last_health: torch.Tensor | None = None
+        self._slo: dict = {}
+        if input_dim is not None:
+            self._init_state(input_dim)
+
+    def _init_state(self, input_dim: int):
+        self._input_dim = input_dim
+        self._state = dg.init_delta_state(self.batch, input_dim,
+                                          self.cfg.d_model, self._gru)
+
+    def _require_fex(self) -> FeatureExtractor:
+        if self._fex is None:
+            self._fex = FeatureExtractor()
+        fcfg = self._fex.cfg
+        if self._input_dim is None:
+            self._init_state(fcfg.n_active)
+        elif self._input_dim != fcfg.n_active:
+            raise ValueError(f"FEx emits {fcfg.n_active} channels, session "
+                             f"state is {self._input_dim}-wide")
+        if self._fex_state is None:
+            self._coef = self._fex.coef.to(self.device)
+            self._fex_state = init_fex_state(self.batch, fcfg.n_active,
+                                             self.device)
+            self._audio_rem = np.zeros((self.batch, 0), np.float32)
+        return self._fex
+
+    def _coerce_audio(self, audio) -> np.ndarray:
+        """Decode + police one raw-audio chunk per ``input_policy``.
+
+        Integer arrays are ADC codes: range-checked against int16 and
+        decoded to float.  Float arrays are policed for non-finite samples
+        according to the policy; any other dtype raises
+        ``StreamInputError``.
+        """
+        arr = np.asarray(audio)
+        if arr.dtype.kind in "iu":
+            if arr.size and (int(arr.min()) < -32768
+                             or int(arr.max()) > 32767):
+                raise StreamInputError(
+                    f"integer audio must be int16-range ADC codes in "
+                    f"[-32768, 32767]; got values in "
+                    f"[{int(arr.min())}, {int(arr.max())}]")
+            return arr.astype(np.float32) / 32768.0
+        if arr.dtype.kind != "f":
+            raise StreamInputError(
+                f"audio dtype {arr.dtype} is not decodable: pass float "
+                f"samples in [-1, 1) or int16-range integer codes")
+        arr = arr.astype(np.float32)
+        if self.input_policy == "trust":
+            return arr
+        n_bad = int(np.count_nonzero(~np.isfinite(arr)))
+        if n_bad:
+            if self.input_policy == "reject":
+                raise StreamInputError(
+                    f"{n_bad} non-finite samples in audio chunk "
+                    f"(input_policy='reject'; use 'sanitize' to squash "
+                    f"them instead)")
+            arr = np.nan_to_num(arr, nan=0.0, posinf=1.0 - 2.0 ** -11,
+                                neginf=-1.0)
+        return arr
+
+    def process_audio(self, audio) -> ChunkResult:
+        """Run a chunk of RAW audio through FEx → ΔGRU → FC.
+
+        ``audio``: (samples,) for a single stream, or (batch, samples)
+        float in [-1, 1) — or int16-range integer ADC codes, which are
+        decoded.  Hostile inputs are policed per ``input_policy``.
+        Samples past the last whole 16 ms frame are buffered host-side
+        and prepended to the next chunk, so chunk boundaries are
+        invisible.  Returns DEVICE tensors with one row per completed
+        frame (possibly zero rows).
+        """
+        fex = self._require_fex()
+        audio = self._coerce_audio(audio)
+        if audio.ndim == 1:
+            audio = audio[None]
+        if audio.shape[0] != self.batch:
+            raise ValueError(f"audio carries {audio.shape[0]} streams, "
+                             f"session was created with batch={self.batch}")
+        audio = np.concatenate([self._audio_rem, audio], axis=1)
+        shift = fex.cfg.frame_shift
+        n_frames = audio.shape[1] // shift
+        self._audio_rem = audio[:, n_frames * shift:]
+        if n_frames == 0:
+            z = torch.zeros((0, self.batch), dtype=torch.int32,
+                            device=self.device)
+            return ChunkResult(
+                logits=torch.zeros((0, self.batch, self.n_classes),
+                                   device=self.device), votes=z, nz=z)
+        block = torch.from_numpy(
+            np.ascontiguousarray(audio[:, :n_frames * shift])).to(self.device)
+        fcfg = fex.cfg
+        (self._fex_state, self._state, self._acc, out,
+         self._last_health) = _process_audio_chunk(
+            self._gru, self._w_fc, self._b_fc, self._coef, self._fex_state,
+            self._state, self._acc, block, threshold=self.threshold,
+            frame_shift=shift, env_alpha=fcfg.env_alpha,
+            log_eps=fcfg.log_eps)
+        self._chunks += 1
+        return out
+
+    def process_chunk(self, feats) -> ChunkResult:
+        """Run one chunk of pre-computed FRAMES through the ΔGRU.
+
+        ``feats``: (frames, channels) for a single stream, or
+        (frames, batch, channels).  Returns DEVICE tensors.
+        """
+        feats = torch.as_tensor(np.asarray(feats, np.float32),
+                                device=self.device)
+        if feats.dim() == 2:
+            feats = feats[:, None, :]                 # (F, 1, C)
+        if feats.shape[0] == 0:
+            raise ValueError("empty chunk: need at least one frame")
+        if feats.shape[1] != self.batch:
+            raise ValueError(f"chunk carries {feats.shape[1]} streams, "
+                             f"session was created with batch={self.batch}")
+        if self._state is None:
+            self._init_state(feats.shape[-1])
+        elif feats.shape[-1] != self._input_dim:
+            raise ValueError(f"chunk has {feats.shape[-1]} feature channels,"
+                             f" session state is {self._input_dim}-wide")
+        self._state, self._acc, out, self._last_health = _process_chunk(
+            self._gru, self._w_fc, self._b_fc, self._state, self._acc, feats,
+            threshold=self.threshold)
+        self._chunks += 1
+        return out
+
+    @property
+    def state(self) -> dg.DeltaState | None:
+        return self._state
+
+    @property
+    def fex_state(self) -> FExState | None:
+        return self._fex_state
+
+    def reset(self):
+        """Forget stream state + telemetry (keeps weights)."""
+        if self._input_dim is not None:
+            self._init_state(self._input_dim)
+        if self._fex_state is not None:
+            self._fex_state = init_fex_state(self.batch, self._input_dim,
+                                             self.device)
+            self._audio_rem = np.zeros((self.batch, 0), np.float32)
+        self._acc = _zero_accum(self.device)
+        self._chunks = 0
+        self._last_health = None
+        self._slo = {}
+
+    def reset_stream(self, i: int):
+        """Reset ONE stream slot to fresh-stream state (see
+        ``reset_streams``)."""
+        self.reset_streams([i])
+
+    def reset_streams(self, slots):
+        """Reset a wave of stream slots to fresh-stream state: one
+        mask-select per state field, on the device, no sync.
+
+        Caveat: the carried sample remainder's LENGTH is shared across
+        streams, so the reset zeroes a slot's buffered samples but cannot
+        drop them.  Feed frame-aligned chunks (the serve launcher's
+        default) to keep resets exactly fresh."""
+        slots = list(slots)
+        for i in slots:
+            if not (0 <= i < self.batch):
+                raise ValueError(f"stream {i} out of range [0, {self.batch})")
+        if not slots:
+            return
+        mask = np.zeros((self.batch,), bool)
+        mask[slots] = True
+        mask = torch.from_numpy(mask).to(self.device)
+        if self._state is not None:
+            self._state = _reset_gru_slots(self._state, self._gru.b, mask)
+        if self._fex_state is not None:
+            self._fex_state = _reset_fex_slots(self._fex_state, mask)
+        if self._audio_rem is not None and self._audio_rem.shape[1]:
+            self._audio_rem[slots] = 0.0
+
+    def unhealthy_slots(self) -> dict[int, int]:
+        """Slots flagged by the LAST processed chunk: {slot: HEALTH_*
+        bitmask}, empty when everything is healthy (one host fetch)."""
+        if self._last_health is None:
+            return {}
+        flags = self._last_health.cpu().numpy()
+        return {int(i): int(flags[i]) for i in np.flatnonzero(flags)}
+
+    def attach_slo(self, report: dict):
+        """Attach a serve-loop timing block; ``summary().slo`` carries it.
+        Cleared by ``reset``."""
+        self._slo = dict(report)
+
+    def summary(self) -> StreamSummary:
+        """Fetch the device telemetry ONCE and price it with the IC model."""
+        totals = dict(zip(_Accum._fields,
+                          torch.stack(list(self._acc)).cpu().tolist()))
+        overflow = any(v >= _COUNT_SAT for v in totals.values())
+        if totals["frames"] == 0:
+            return StreamSummary(frames=0, chunks=0, sparsity=0.0,
+                                 energy_nj_per_decision=0.0, latency_ms=0.0,
+                                 dense_energy_nj=0.0, overflowed=overflow,
+                                 slo=dict(self._slo))
+        frames = totals["frames"]
+        n_ch = self._fex.cfg.n_active if self._fex is not None else 10
+        c = frame_cost(totals["macs"] / frames, n_channels=n_ch)
+        return StreamSummary(
+            frames=frames, chunks=self._chunks,
+            sparsity=1.0 - totals["macs"] / max(totals["macs_dense"], 1),
+            energy_nj_per_decision=c.energy_nj_per_decision,
+            latency_ms=c.latency_ms,
+            dense_energy_nj=frame_cost(totals["macs_dense"] / frames,
+                                       n_channels=n_ch).energy_nj_per_decision,
+            fex_samples=totals["fex_samples"],
+            fex_energy_nj_per_decision=fex_energy_nj(
+                float(totals["fex_samples"]), n_ch) / frames,
+            overflowed=overflow, slo=dict(self._slo))
+
+
+class SlotScheduler:
+    """Admission/eviction queue mapping live streams onto the session's
+    slots (host-side bookkeeping; the only device work is the batched
+    ``reset_streams`` of each admission wave).
+
+    Usage::
+
+        sched = SlotScheduler(sess)
+        sched.submit(request_id)          # any payload
+        for slot, req in sched.admit():   # fills free slots, resets them
+            ...
+        sched.evict(slot)                 # stream finished; slot is free
+    """
+
+    def __init__(self, session: StreamingKwsSession):
+        self._sess = session
+        self.n_slots = session.batch
+        self._queue: collections.deque = collections.deque()
+        self._free = list(range(self.n_slots - 1, -1, -1))  # pop(): low first
+        self.live: dict[int, Any] = {}               # slot -> payload
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    @property
+    def idle(self) -> bool:
+        return not self.live and not self._queue
+
+    def submit(self, payload: Any):
+        """Enqueue one stream request (admitted at the next ``admit()``)."""
+        self._queue.append(payload)
+
+    def admit(self) -> list[tuple[int, Any]]:
+        """Map queued requests onto free slots (the most recently freed
+        slot first, like the reference) and reset the whole wave with ONE
+        batched ``reset_streams``.  Returns the (slot, payload) pairs."""
+        admitted = []
+        while self._queue and self._free:
+            slot = self._free.pop()
+            payload = self._queue.popleft()
+            self.live[slot] = payload
+            admitted.append((slot, payload))
+        if admitted:
+            self._sess.reset_streams([slot for slot, _ in admitted])
+        return admitted
+
+    def evict(self, slot: int) -> Any:
+        """Free a finished stream's slot; returns its payload.  Evicting a
+        slot that is not live raises ``ValueError`` naming its state."""
+        if slot not in self.live:
+            state = ("already free (double evict?)" if slot in self._free
+                     else f"out of range [0, {self.n_slots})")
+            raise ValueError(f"cannot evict slot {slot}: {state}")
+        payload = self.live.pop(slot)
+        self._free.append(slot)
+        return payload

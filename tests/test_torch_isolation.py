@@ -1,0 +1,90 @@
+"""The port stands alone: repro_torch imports neither jax nor repro, its
+entry points default to the GPU and raise without one, and its kernel
+wrappers count launches only when they launch a CUDA kernel."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    src = str(PKG.parent)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[-1]) >= 20      # the whole package
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_module_imports_jax_or_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs.deltakws import SMOKE_CONFIG
+    from repro_torch.launch import serve
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models import kws
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = kws.init_kws(torch.Generator().manual_seed(0), SMOKE_CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingKwsSession(params, SMOKE_CONFIG)
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.serve_kws_audio(serve.build_parser().parse_args([]))
+
+
+def test_cpu_wrappers_run_plain_versions_without_counting():
+    from repro_torch.kernels import delta_gru_seq as dgs
+    from repro_torch.kernels import iir_fex
+    iir_fex.batched_iir_fex.launches = 0
+    dgs.delta_gru_seq.launches = 0
+    coef = torch.rand(6, 3)
+    feats, _ = iir_fex.batched_iir_fex(torch.rand(2, 256), coef,
+                                       iir_fex.init_fex_kernel_state(2, 3))
+    ref, _ = iir_fex.batched_iir_fex_ref(torch.rand(2, 256) * 0, coef,
+                                         iir_fex.init_fex_kernel_state(2, 3))
+    assert feats.shape == ref.shape == (2, 2, 3)
+    I, H, B = 4, 8, 2
+    z = torch.zeros
+    hs, *_ = dgs.delta_gru_seq(torch.rand(3, B, I), z(B, H), z(B, I),
+                               z(B, H), z(B, 3 * H), z(B, 3 * H),
+                               torch.rand(I, 3 * H), torch.rand(H, 3 * H),
+                               0.1)
+    assert hs.shape == (3, B, H) and np.isfinite(hs.numpy()).all()
+    assert iir_fex.batched_iir_fex.launches == 0
+    assert dgs.delta_gru_seq.launches == 0
