@@ -2,8 +2,8 @@
 
 Mirrors ``repro/core/quantize.py``: symmetric two's-complement fixed
 point, value ∈ [-2^(int_bits), 2^(int_bits) - 2^-frac_bits], step
-2^-frac_bits, total width = 1 (sign) + int_bits + frac_bits.  The
-training helpers (straight-through estimators) come with the training
+2^-frac_bits, total width = 1 (sign) + int_bits + frac_bits; ``WEIGHT_Q``
+is the ΔRNN's 8-bit weight code.  The training helpers (straight-through estimators) come with the training
 slice of the port.
 """
 from __future__ import annotations
@@ -20,6 +20,10 @@ class QFormat:
 
     int_bits: int
     frac_bits: int
+
+    @property
+    def total_bits(self) -> int:
+        return 1 + self.int_bits + self.frac_bits
 
     @property
     def step(self) -> float:
@@ -39,6 +43,17 @@ class QFormat:
         q = xp.round(x / self.step) * self.step
         return xp.clip(q, self.min_val, self.max_val)
 
+    def to_int(self, x):
+        """Integer code, rounded half to even and saturated to the word:
+        int32 for a tensor, int64 for a numpy array (as the reference)."""
+        xp = torch if isinstance(x, torch.Tensor) else np
+        lim = 2 ** (self.total_bits - 1)
+        c = xp.clip(xp.round(x / self.step), -lim, lim - 1)
+        return c.to(torch.int32) if xp is torch else c.astype(np.int64)
+
+    def from_int(self, code):
+        return code * self.step
+
 
 def qformat_for(max_abs: float, total_bits: int) -> QFormat:
     """Pick integer bits from the dynamic range, give the rest to fraction
@@ -47,6 +62,10 @@ def qformat_for(max_abs: float, total_bits: int) -> QFormat:
     int_bits = max(0, int(np.ceil(np.log2(max(max_abs, 1e-12) + 1e-12))))
     frac_bits = max(0, total_bits - 1 - int_bits)
     return QFormat(int_bits=int_bits, frac_bits=frac_bits)
+
+
+# 8-bit weight format of the ΔRNN accelerator (two weights per 16-bit word).
+WEIGHT_Q = QFormat(int_bits=0, frac_bits=7)           # Q0.7 ∈ [-1, 1)
 
 
 def quantize_audio_12b(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,7 @@ Pipeline (paper Fig. 4):  12-bit audio @ 8 kHz
   → 12-bit feature vectors (C channels per 16 ms frame).
 
 Two float paths, the same arithmetic in the same order (the reference's
-``repro/frontend/fex.py`` op order):
+``repro/frontend/fex.py`` op order), and the integer datapath:
 
   * ``backend="xla"``    — the plain loop (``batched_iir_fex_ref``):
     frames outer, samples inner, one ``fex_sample_step`` per sample.  The
@@ -16,6 +16,9 @@ Two float paths, the same arithmetic in the same order (the reference's
   * ``backend="pallas"`` — ``batched_iir_fex``: on a CUDA tensor ONE
     launch of the hand-written kernel per chunk; on a CPU tensor the
     plain loop.
+  * ``backend="pallas-int"`` — the integer-code kernel
+    (``batched_iir_fex_int``) on quantized coefficients, audio and state;
+    returns grid-exact floats.
 
 Both carry an explicit ``FExState`` so audio can be streamed in chunks
 with invisible boundaries.  The channel geometry and coefficient
@@ -76,15 +79,18 @@ class FExState(NamedTuple):
     env: torch.Tensor
 
 
-def init_fex_state(batch: int, n_channels: int, device="cpu") -> FExState:
-    """Quiescent filters, zero envelope."""
+def init_fex_state(batch: int, n_channels: int, device="cpu",
+                   dtype=torch.float32) -> FExState:
+    """Quiescent filters, zero envelope: float32 registers on the float
+    path, int16 codes in the int8 serving engine."""
     return FExState(
-        filt=torch.zeros((batch, 4, n_channels), device=device),
-        env=torch.zeros((batch, n_channels), device=device))
+        filt=torch.zeros((batch, 4, n_channels), dtype=dtype, device=device),
+        env=torch.zeros((batch, n_channels), dtype=dtype, device=device))
 
 
 def _pack_state(state: FExState) -> torch.Tensor:
-    """FExState → the kernels' contiguous (B, 5, C) buffer layout."""
+    """FExState → the kernels' contiguous (B, 5, C) buffer layout
+    (dtype-preserving)."""
     return torch.cat([state.filt, state.env[:, None, :]], dim=1)
 
 
@@ -95,7 +101,8 @@ def _unpack_state(buf: torch.Tensor) -> FExState:
 def fex_scan(audio, coef, state: FExState | None = None, *,
              frame_shift: int = FRAME_SHIFT, env_alpha: float = 0.0606,
              log_eps: float = 2.0 ** -11, compress: bool = True,
-             backend: str = "xla") -> tuple[torch.Tensor, FExState]:
+             backend: str = "xla", b_bits: int = 12, a_bits: int = 8,
+             coef_formats=None) -> tuple[torch.Tensor, FExState]:
     """Run the FEx over a chunk of audio, carrying explicit state.
 
     Args:
@@ -110,7 +117,16 @@ def fex_scan(audio, coef, state: FExState | None = None, *,
       log_eps: log₂-compression epsilon (one 12-bit LSB).
       compress: log₂ + normalize + 12-bit quantization (the serving
         output format); False returns raw envelopes.
-      backend: "xla" (the plain loop) or "pallas" (the kernel wrapper).
+      backend: "xla" (the plain loop), "pallas" (the kernel wrapper) or
+        "pallas-int" (the integer-code kernel wrapper: 12-bit audio,
+        16-bit registers, mixed-precision coefficient codes; returns
+        grid-exact floats, bit-true against ``core.fixed_point.
+        int_fex_scan``).
+      b_bits / a_bits: coefficient word widths for the "pallas-int"
+        format derivation when ``coef_formats`` is not given.
+      coef_formats: the ``sos_formats`` pair (what ``FeatureExtractor``
+        passes); without it "pallas-int" derives the formats from the
+        packed rows (equivalent for symmetric-form banks).
 
     Returns:
       (features (B, T // frame_shift, C), new ``FExState``).  Processing
@@ -125,13 +141,48 @@ def fex_scan(audio, coef, state: FExState | None = None, *,
     if backend == "pallas":
         feats, buf = batched_iir_fex(audio.float().contiguous(), coef,
                                      _pack_state(state), **kw)
+    elif backend == "pallas-int":
+        feats, buf = _fex_scan_int(audio, coef, _pack_state(state),
+                                   frame_shift=frame_shift,
+                                   env_alpha=env_alpha, log_eps=log_eps,
+                                   compress=compress, b_bits=b_bits,
+                                   a_bits=a_bits, coef_formats=coef_formats)
     elif backend == "xla":
         feats, buf = batched_iir_fex_ref(audio, coef, _pack_state(state),
                                          **kw)
     else:
-        raise ValueError(f"unknown FEx backend: {backend!r} (the integer "
-                         f"'pallas-int' backend is not ported yet)")
+        raise ValueError(f"unknown FEx backend: {backend!r}")
     return feats, _unpack_state(buf)
+
+
+def _fex_scan_int(audio, coef, buf, *, frame_shift, env_alpha, log_eps,
+                  compress, b_bits, a_bits, coef_formats):
+    """``fex_scan(backend="pallas-int")``: quantize the coefficient bank
+    onto its mixed-precision grids, run the integer kernel wrapper on
+    codes, and hand back grid-exact floats so the float state carry
+    round-trips bit-true."""
+    from repro_torch.core import fixed_point as fp
+    if not compress:
+        raise ValueError("pallas-int FEx always compresses (the 12-bit "
+                         "feature grid IS its output format)")
+    coef_np = coef.detach().cpu().numpy().astype(np.float64)
+    if coef_formats is not None:
+        b_fmt, a_fmt = coef_formats
+    else:
+        # Rows [0, 3] are the b family (b1 = 0, b2 = −b0, so max |b| is
+        # the bank's), [1, 2, 4, 5] the a family.
+        b_fmt = qformat_for(float(np.max(np.abs(coef_np[[0, 3]]))), b_bits)
+        a_fmt = qformat_for(float(np.max(np.abs(coef_np[[1, 2, 4, 5]]))),
+                            a_bits)
+    coef_codes, ffmt = fp.quantize_fex(coef_np, env_alpha, b_fmt.frac_bits,
+                                       a_fmt.frac_bits, log_eps=log_eps)
+    audio_codes = fp.to_code(audio.float(), ffmt.feat_frac, 16, torch.int16)
+    feats_c, codes = fp.int_fex_scan(
+        audio_codes.contiguous(), coef_codes.to(audio.device),
+        fp.fex_state_to_codes(buf.float(), ffmt).contiguous(), ffmt,
+        frame_shift=frame_shift, backend="pallas")
+    return (fp.from_code(feats_c, ffmt.feat_frac),
+            fp.fex_state_from_codes(codes, ffmt))
 
 
 def build_sos_bank(cfg: FExConfig) -> np.ndarray:
@@ -166,13 +217,17 @@ class FeatureExtractor:
     """Callable FEx: audio (B, T) float in [-1,1) → 12-bit features (B, F, C)
     through the kernel wrapper (``batched_iir_fex``).  The coefficients are
     kept on the CPU and moved to the audio's device per call; a serving
-    session keeps its own device copy.
+    session keeps its own device copy.  ``coef_formats`` are the
+    mixed-precision coefficient formats of the float32 bank, as the
+    reference derives them.
     """
 
     def __init__(self, cfg: FExConfig | None = None):
         self.cfg = cfg or FExConfig()
         self.sos = build_sos_bank(self.cfg).astype(np.float32)
         self.coef = pack_coefficients(self.sos)
+        self.coef_formats = sos_formats(self.sos, self.cfg.b_bits,
+                                        self.cfg.a_bits)
 
     def __call__(self, audio) -> torch.Tensor:
         feats, _ = self.scan(audio, None)

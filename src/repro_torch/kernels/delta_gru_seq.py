@@ -4,9 +4,16 @@
 ``csrc/delta_gru_seq.cu`` (the port of the Pallas kernel
 ``repro/kernels/delta_gru_seq.py::delta_gru_seq``).  ``delta_gru_seq_ref``
 is its plain PyTorch version: a Python loop over frames of
-``delta_branch`` → ``m += d @ W`` → ``gru_gates``.  The wrapper takes the
-plain version only for tensors on the CPU; for a CUDA tensor it launches
-the kernel or raises.
+``delta_branch`` → ``m += d @ W`` → ``gru_gates``.
+
+``delta_gru_seq_int`` is the int8-weight / int16-state variant, the
+wrapper of ``csrc/delta_gru_seq_int.cu`` (the port of
+``delta_gru_seq_int``); its plain version ``delta_gru_seq_int_ref`` runs
+one ``core.fixed_point.gru_frame_step`` per frame on the fused
+``[m_x | m_h]`` accumulator, as the reference's golden scan does.
+
+Each wrapper takes its plain version only for tensors on the CPU; for a
+CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -29,6 +36,17 @@ def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
     I, H = input_dim, hidden_dim
     N = 3 * H
     return 4 * ((I + H) * N + I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
+
+
+def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
+    """Dynamic shared memory of one CTA of the int kernel: the int8 W_x and
+    W_h (padded to 4 bytes), then 32-bit words for x̂, ĥ, h, the
+    compacted deltas, the M staging rows and 64 warp counts (the layout
+    of ``smem_bytes`` in ``csrc/delta_gru_seq_int.cu``)."""
+    I, H = input_dim, hidden_dim
+    N = 3 * H
+    weights = -(-(I + H) * N // 4) * 4
+    return weights + 4 * (I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
 
 
 def check_kernel_fits(input_dim: int, hidden_dim: int) -> None:
@@ -160,3 +178,164 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
 
 
 delta_gru_seq.launches = 0
+
+
+# --------------------------------------------------------------- int variant
+def _th_pair(th) -> tuple:
+    """``th``: a pair of numbers or a (1, 2) / (2,) tensor → a 2-tuple of
+    Python numbers (reading a CUDA tensor synchronises)."""
+    vals = th.reshape(-1).tolist() if isinstance(th, torch.Tensor) else \
+        list(th)
+    if len(vals) != 2:
+        raise ValueError(f"th must hold [th_x, th_h], got {vals}")
+    return vals[0], vals[1]
+
+
+def delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th,
+                          *, fmt):
+    """Plain PyTorch version of ``delta_gru_seq_int`` with an integer
+    ``fmt`` (same arguments and returns): one ``gru_frame_step`` per frame
+    on the fused ``[m_x | m_h]`` block, int16 codes carried."""
+    from repro_torch.core.fixed_point import gru_frame_step
+    _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    T, B, _ = xs.shape
+    H = h0.shape[1]
+    th_x, th_h = _th_pair(th)
+    h, xh, hh = (a.to(torch.int16) for a in (h0, x_hat0, h_hat0))
+    m = torch.cat([m_x0, m_h0], dim=-1).to(torch.int32)
+    hs, nz_dx, nz_dh = [], [], []
+    for t in range(T):
+        h, xh, hh, m, mask_x, mask_h = gru_frame_step(
+            fmt, xs[t], h, xh, hh, m, w_x, w_h, th_x, th_h)
+        h, xh, hh = (a.to(torch.int16) for a in (h, xh, hh))
+        hs.append(h)
+        nz_dx.append(mask_x.sum(-1, dtype=torch.int32))
+        nz_dh.append(mask_h.sum(-1, dtype=torch.int32))
+    final = (h, xh, hh, m[:, :3 * H], m[:, 3 * H:])
+    if T == 0:
+        z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
+        return (torch.zeros((0, B, H), dtype=torch.int16, device=xs.device),
+                final, z, z)
+    return torch.stack(hs), final, torch.stack(nz_dx), torch.stack(nz_dh)
+
+
+def check_int_kernel_fits(input_dim: int, hidden_dim: int) -> None:
+    """Raise ``ValueError`` when the int kernel cannot hold this ΔGRU (its
+    int8 weights and state in one block's shared memory, 3H columns and
+    the input width on one block's threads)."""
+    smem = int_seq_kernel_smem_bytes(input_dim, hidden_dim)
+    threads = -(-3 * hidden_dim // 32) * 32
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"int8 ΔGRU I={input_dim}, H={hidden_dim} needs {smem} bytes of "
+            f"shared memory per block; the delta_gru_seq_int kernel holds at "
+            f"most {MAX_SMEM_BYTES} (227 KB on Hopper)")
+    if threads > MAX_THREADS or input_dim > threads:
+        raise ValueError(
+            f"int8 ΔGRU I={input_dim}, H={hidden_dim} needs 3H <= "
+            f"{MAX_THREADS} and I <= 3H rounded up to a warp ({threads})")
+
+
+def _check_int_formats(fmt) -> None:
+    if not 2 <= fmt.acc_bits <= 31:
+        raise ValueError(f"delta_gru_seq_int: acc_bits must lie in [2, 31], "
+                         f"got {fmt.acc_bits}")
+    if not 1 <= fmt.hid_frac <= 15 or not 0 <= fmt.acc_frac <= 126:
+        raise ValueError(f"delta_gru_seq_int: hid_frac {fmt.hid_frac} or "
+                         f"acc_frac {fmt.acc_frac} out of range")
+    for name in ("shift_x", "shift_h"):
+        if not -30 <= getattr(fmt, name) <= 30:
+            raise ValueError(f"delta_gru_seq_int: {name} "
+                             f"{getattr(fmt, name)} out of [-30, 30]")
+
+
+def _int_launcher():
+    lib = build.load("delta_gru_seq_int")
+    fn = lib.delta_gru_seq_int_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 4 + [p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
+                      fmt=None, packed: bool | None = None):
+    """Run the integer ΔGRU over a whole chunk of frames in ONE launch.
+
+    With ``fmt`` a ``core.fixed_point.GruFormats``: xs (T, B, I), h0,
+    x_hat0, h_hat0 int16 codes, m_x0/m_h0 (B, 3H) int32 on the 24-bit
+    saturating accumulator grid, w_x/w_h int8, ``th`` the integer
+    [th_x, th_h] (a pair or a (1, 2) tensor).  Returns ``(hs (T, B, H)
+    int16, (h, x̂, ĥ, m_x, m_h), nz_dx, nz_dh)``.  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/delta_gru_seq_int.cu``
+    (contiguous, exact dtypes only).
+
+    ``fmt=None`` is the identity-quant mode: float operands through the
+    float ΔGRU (``delta_gru_seq``), which the reference defines as bit-
+    identical to its float kernel; both ``th`` entries must be Δ_TH.
+
+    ``packed`` is the reference's byte-plane float32 dot, a way round
+    XLA's slow integer dot; it changes no numerics and the kernel, which
+    accumulates int32 directly, ignores it.  Its argument checks stay.
+    """
+    from repro_torch.core.fixed_point import PACKED_DOT_MAX_K
+    _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    T, B, I = xs.shape
+    H = h0.shape[1]
+    if packed:
+        if fmt is None:
+            raise ValueError("delta_gru_seq_int: packed=True requires an "
+                             "integer GruFormats (fmt is None — the "
+                             "identity-quant mode has no int8 image)")
+        if max(I, H) > PACKED_DOT_MAX_K:
+            raise ValueError(
+                f"delta_gru_seq_int: packed=True is only exact for "
+                f"contraction dims <= {PACKED_DOT_MAX_K}, got I={I}, H={H}")
+    th_x, th_h = _th_pair(th)
+    if fmt is None:
+        if th_x != th_h:
+            raise ValueError(f"delta_gru_seq_int: the identity-quant mode "
+                             f"takes one Δ_TH, got {th_x} and {th_h}")
+        return delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
+                             float(th_x))
+    if xs.device.type == "cpu":
+        return delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0,
+                                     w_x, w_h, (th_x, th_h), fmt=fmt)
+    if xs.device.type != "cuda":
+        raise ValueError(f"delta_gru_seq_int runs on cuda or cpu, not "
+                         f"{xs.device}")
+    args = (xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    names = ("xs", "h0", "x_hat0", "h_hat0", "m_x0", "m_h0", "w_x", "w_h")
+    dtypes = (torch.int16,) * 4 + (torch.int32,) * 2 + (torch.int8,) * 2
+    for name, t, dt in zip(names, args, dtypes):
+        if t.dtype != dt:
+            raise TypeError(f"delta_gru_seq_int: {name} must be {dt}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"delta_gru_seq_int: {name} must be contiguous")
+    check_int_kernel_fits(I, H)
+    _check_int_formats(fmt)
+    dev = xs.device
+    hs = torch.empty((T, B, H), dtype=torch.int16, device=dev)
+    nz_dx = torch.empty((T, B), dtype=torch.int32, device=dev)
+    nz_dh = torch.empty((T, B), dtype=torch.int32, device=dev)
+    final = (torch.empty_like(h0), torch.empty_like(x_hat0),
+             torch.empty_like(h_hat0), torch.empty_like(m_x0),
+             torch.empty_like(m_h0))
+    if B == 0:
+        return hs, (h0, x_hat0, h_hat0, m_x0, m_h0), nz_dx, nz_dh
+    lib, fn = _int_launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() for a in args), int(th_x), int(th_h),
+                 fmt.shift_x, fmt.shift_h, fmt.acc_bits, fmt.acc_frac,
+                 fmt.hid_frac, hs.data_ptr(), nz_dx.data_ptr(),
+                 nz_dh.data_ptr(), *(a.data_ptr() for a in final), T, B, I,
+                 H, stream)
+    build.check(lib, err, "delta_gru_seq_int kernel launch")
+    delta_gru_seq_int.launches += 1
+    return hs, final, nz_dx, nz_dh
+
+
+delta_gru_seq_int.launches = 0

@@ -4,9 +4,16 @@
 (the port of the Pallas kernel ``repro/kernels/iir_fex.py::
 batched_iir_fex``).  ``batched_iir_fex_ref`` is its plain PyTorch version:
 a Python loop over samples calling ``fex_sample_step``, frames outer and
-samples inner, exactly like the JAX package's ``_fex_scan_xla``.  The
-wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises.
+samples inner, exactly like the JAX package's ``_fex_scan_xla``.
+
+``batched_iir_fex_int`` is the integer-code variant, the wrapper of
+``csrc/iir_fex_int.cu`` (the port of ``batched_iir_fex_int``); its plain
+version ``batched_iir_fex_int_ref`` loops over
+``core.fixed_point.int_fex_sample_step`` and ``int_compress_env`` in the
+order of the reference's ``_int_fex_scan_xla``.
+
+Each wrapper takes its plain version only for tensors on the CPU; for a
+CUDA tensor it launches its kernel or raises.
 
 State layout (B, 5, C) float32, rows = [s0_1, s0_2, s1_1, s1_2, env]
 (section-0 DF2T registers, section-1 DF2T registers, envelope).
@@ -171,6 +178,107 @@ def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
 
 
 batched_iir_fex.launches = 0
+
+
+# --------------------------------------------------------------- int variant
+def batched_iir_fex_int_ref(x, coef, state, *, fmt, frame_shift: int = 128):
+    """Plain PyTorch version of ``batched_iir_fex_int`` (same arguments
+    and returns): frames outer, one ``int_fex_sample_step`` per sample,
+    ``int_compress_env`` after each frame, int32 arithmetic."""
+    from repro_torch.core.fixed_point import (int_compress_env,
+                                              int_fex_sample_step)
+    _check_args(x, coef, state)
+    B, T = x.shape
+    C = coef.shape[1]
+    n_frames = T // frame_shift
+    if n_frames == 0:
+        return (torch.zeros((B, 0, C), dtype=torch.int16, device=x.device),
+                state.to(torch.int16))
+    xi = x[:, :n_frames * frame_shift].to(torch.int32)
+    coef = coef.to(torch.int32)
+    s = state.to(torch.int32)
+    feats = []
+    for f in range(n_frames):
+        for k in range(f * frame_shift, (f + 1) * frame_shift):
+            s = int_fex_sample_step(xi[:, k], s, coef, fmt)
+        feats.append(int_compress_env(s[:, STATE_ROWS - 1], fmt))
+    return torch.stack(feats, dim=1).to(torch.int16), s.to(torch.int16)
+
+
+def _int_launcher():
+    lib = build.load("iir_fex_int")
+    fn = lib.iir_fex_int_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 5 + [i] * 12 + [f] * 4 + [p]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_int_formats(fmt) -> None:
+    for name in ("b_frac", "a_frac", "alpha_frac"):
+        if not 1 <= getattr(fmt, name) <= 30:
+            raise ValueError(f"batched_iir_fex_int: fmt.{name} must lie in "
+                             f"[1, 30], got {getattr(fmt, name)}")
+    for lo, hi in (("feat_frac", "sig_frac"), ("sig_frac", "env_frac")):
+        if not 0 <= getattr(fmt, hi) - getattr(fmt, lo) <= 15:
+            raise ValueError(f"batched_iir_fex_int: fmt.{hi} - fmt.{lo} "
+                             f"must lie in [0, 15]")
+
+
+def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128):
+    """The integer FEx over a chunk of audio codes in ONE kernel launch.
+
+    x: (B, T) int16 Q0.11 audio codes (trailing ``T % frame_shift``
+    samples ignored); coef: (6, C) int32 coefficient codes
+    (``core.fixed_point.quantize_fex``); state: (B, 5, C) int16 register
+    codes; ``fmt``: the ``FexFormats``.  Returns (feature codes
+    (B, T // frame_shift, C) int16, new state (B, 5, C) int16).  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/iir_fex_int.cu`` (contiguous, exact dtypes only).
+    """
+    _check_args(x, coef, state)
+    if x.device.type == "cpu":
+        return batched_iir_fex_int_ref(x, coef, state, fmt=fmt,
+                                       frame_shift=frame_shift)
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_iir_fex_int runs on cuda or cpu, not "
+                         f"{x.device}")
+    for name, t, dt in (("x", x, torch.int16), ("coef", coef, torch.int32),
+                        ("state", state, torch.int16)):
+        if t.dtype != dt:
+            raise TypeError(f"batched_iir_fex_int: {name} must be {dt}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"batched_iir_fex_int: {name} must be "
+                             f"contiguous")
+    _check_int_formats(fmt)
+    B, T = x.shape
+    C = coef.shape[1]
+    n_frames = T // frame_shift
+    feats = torch.empty((B, n_frames, C), dtype=torch.int16, device=x.device)
+    if n_frames == 0 or B == 0 or C == 0:
+        return feats, state
+    state_out = torch.empty_like(state)
+    lib, fn = _int_launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # The float constants are powers of two (exact in float32) and
+        # log_range, rounded to float32 once, as the plain version's
+        # float32 tensor holds it.
+        err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
+                 feats.data_ptr(), state_out.data_ptr(), B, T, n_frames, C,
+                 frame_shift, fmt.sig_frac - fmt.feat_frac, fmt.b_frac,
+                 fmt.a_frac, fmt.env_frac - fmt.sig_frac, fmt.alpha_frac,
+                 fmt.alpha_code, fmt.eps_code, 2.0 ** -fmt.env_frac,
+                 fmt.log_range, float(1 << fmt.feat_frac),
+                 1.0 - 2.0 ** -fmt.feat_frac, stream)
+    build.check(lib, err, "iir_fex_int kernel launch")
+    batched_iir_fex_int.launches += 1
+    return feats, state_out
+
+
+batched_iir_fex_int.launches = 0
 
 
 def init_fex_kernel_state(batch: int, n_channels: int,

@@ -8,8 +8,15 @@ checkpoint's ``arrays.npz``, as the JAX package writes it) or, without
 it, from the seeded ``models.kws.init_kws``.  Runs on ``--device``
 (default ``cuda``; raises without a GPU).
 
-Training, ``--numerics int8``, ``--devices``, the admission controller,
-faults and the pipelined engine are later slices of the port.
+``--numerics int8`` serves the deployed integer datapath (integer FEx →
+int8-weight ΔGRU → integer FC, one launch of each integer kernel per
+step): the float weights are promoted into the integer bundle at session
+creation, or ``--bundle X.npz`` serves a promoted bundle as
+``train.promote.save_bundle`` writes it (one the JAX package wrote loads
+unchanged) and implies ``--numerics int8``.
+
+Training, ``--devices``, the admission controller, faults and the
+pipelined engine are later slices of the port.
 """
 from __future__ import annotations
 
@@ -43,6 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--params", default="",
                     help="arrays.npz of a KWS checkpoint (default: random "
                          "weights from --seed)")
+    ap.add_argument("--numerics", choices=["float32", "int8"],
+                    default="float32",
+                    help="serving datapath: the float kernels or the "
+                         "bit-true integer pipeline (weights promoted at "
+                         "session creation)")
+    ap.add_argument("--bundle", default="",
+                    help="a promoted int8 bundle (.npz of "
+                         "train.promote.save_bundle, or of the JAX "
+                         "package's); implies --numerics int8")
     return ap
 
 
@@ -78,7 +94,12 @@ def serve_kws_audio(args):
 
     device = resolve_device(args.device)
     fex = FeatureExtractor()
-    if args.params:
+    bundle = params = None
+    if args.bundle:
+        from repro_torch.train.promote import load_bundle
+        args.numerics = "int8"                  # a bundle IS int8 weights
+        bundle = load_bundle(args.bundle)
+    elif args.params:
         params = kws.load_npz_params(args.params, device)
     else:
         gen = torch.Generator().manual_seed(args.seed)
@@ -86,7 +107,8 @@ def serve_kws_audio(args):
     audio_q, label_q = synth_batch(np.random.default_rng(args.seed + 1),
                                    args.requests)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
-                               batch=args.slots, fex=fex, device=device)
+                               batch=args.slots, fex=fex, device=device,
+                               numerics=args.numerics, bundle=bundle)
     sched = SlotScheduler(sess)
     for req in range(args.requests):
         sched.submit(req)
@@ -117,7 +139,8 @@ def main(argv=None) -> int:
     steady_s = max(slo["steady_state_s"], 1e-9)
     print(f"served {len(done)} utterances ({audio_s:.0f} s audio) on "
           f"{args.slots} slots in {dt:.2f} s end-to-end (warm-up "
-          f"{stats['warmup_s']:.2f} s) on {name}: "
+          f"{stats['warmup_s']:.2f} s) on {name} [{sess.numerics}, Δ_TH "
+          f"{sess.threshold}]: "
           f"{correct}/{len(done)} correct")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
           f"{stats['frames_served'] / steady_s:.0f} decisions/s, step "

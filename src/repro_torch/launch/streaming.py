@@ -1,13 +1,19 @@
-"""Streaming KWS sessions — raw audio in, decisions out (float32 path).
+"""Streaming KWS sessions — raw audio in, decisions out.
 
-PyTorch port of the float, unsharded, detector-free part of
-``repro/launch/streaming.py``.  The session keeps FEx state, ΔGRU state
-and op-count telemetry on the device between chunks; the host hands over
-a chunk of raw audio and gets device tensors back.  One chunk is one call
-of ``_process_audio_chunk``: 12-bit quantize → FEx (``batched_iir_fex``,
-one kernel launch) → ΔGRU (``delta_gru_seq``, one kernel launch) → FC +
-argmax → telemetry and per-slot health flags.  Nothing in the step calls
-``.item()`` or ``.cpu()``; only the caller's fetch of the results syncs.
+PyTorch port of the unsharded, detector-free part of
+``repro/launch/streaming.py``, in both numerics.  The session keeps FEx
+state, ΔGRU state and op-count telemetry on the device between chunks;
+the host hands over a chunk of raw audio and gets device tensors back.
+One float32 chunk is one call of ``_process_audio_chunk``: 12-bit
+quantize → FEx (``batched_iir_fex``, one kernel launch) → ΔGRU
+(``delta_gru_seq``, one kernel launch) → FC + argmax → telemetry and
+per-slot health flags.  ``numerics="int8"`` runs the deployed integer
+datapath instead (``_process_audio_chunk_int``): 12-bit ADC codes →
+integer FEx (``batched_iir_fex_int``) → int8-weight / int16-state ΔGRU
+with the 24-bit saturating accumulator (``delta_gru_seq_int``) → integer
+FC, decisions as argmaxes over int32 logit codes.  Nothing in the step
+calls ``.item()`` or ``.cpu()``; only the caller's fetch of the results
+syncs.
 
     sess = StreamingKwsSession(params, cfg, threshold=0.1, batch=32)
     for audio in chunks:                       # (32, samples) raw audio
@@ -28,10 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import delta_gru as dg
+from repro_torch.core import fixed_point as fp
 from repro_torch.core.energy_model import fex_energy_nj, frame_cost
 from repro_torch.core.quantize import quantize_audio_12b
 from repro_torch.frontend.fex import (FeatureExtractor, FExConfig, FExState,
-                                      fex_scan, init_fex_state)
+                                      _pack_state, _unpack_state, fex_scan,
+                                      init_fex_state)
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.models import kws
 
@@ -55,8 +63,12 @@ class StreamInputError(ValueError):
 # the carried state).  The bits keep the reference's values.
 HEALTH_INPUT = 1 << 0      # non-finite samples entered this chunk
 HEALTH_FEX = 1 << 1        # biquad registers non-finite / blown up
-HEALTH_GRU = 1 << 2        # ΔGRU x̂/ĥ/M/h non-finite
+HEALTH_GRU = 1 << 2        # ΔGRU x̂/ĥ/M/h non-finite / x̂ off-grid (int)
+HEALTH_SAT = 1 << 5        # int accumulator at the 24-bit saturation rail
 _FEX_MAG_BOUND = 1e6       # float biquad register blow-up bound
+_INT16_RAIL = 32767        # int16 register saturation rail
+_FEAT_CODE_BOUND = 1 << 12  # 12-bit feature grid + 1 bit of slack
+_ACC_RAIL = (1 << 23) - 1  # 24-bit saturating accumulator rail
 
 
 def _slot_any(bad: torch.Tensor) -> torch.Tensor:
@@ -71,20 +83,39 @@ def _flag(bit: int, bad: torch.Tensor) -> torch.Tensor:
 def slot_health(input_bad, fex_state: FExState | None,
                 gru_state: dg.DeltaState | None) -> torch.Tensor:
     """Fuse the per-slot health predicates into one (B,) int32 bitmask:
-    the pre-quantizer non-finite-input flag, FEx registers non-finite or
-    above ``_FEX_MAG_BOUND``, ΔGRU state non-finite."""
+    the pre-quantizer non-finite-input flag, then the state predicates.
+    Float state: FEx registers non-finite or above ``_FEX_MAG_BOUND``,
+    ΔGRU state non-finite.  Integer state cannot go non-finite, so the
+    int8 engine checks rails instead: FEx registers at the int16 rail
+    (``HEALTH_FEX``), x̂ off the 12-bit feature grid (``HEALTH_GRU``) and
+    an accumulator at the 24-bit rail (``HEALTH_SAT``, telemetry: a
+    saturating accumulator is the fixed-point design working)."""
     flags = _flag(HEALTH_INPUT, input_bad)
     if fex_state is not None:
-        bad = _slot_any(~torch.isfinite(fex_state.filt)
-                        | (torch.abs(fex_state.filt) > _FEX_MAG_BOUND))
-        bad |= _slot_any(~torch.isfinite(fex_state.env))
+        if fex_state.filt.is_floating_point():
+            bad = _slot_any(~torch.isfinite(fex_state.filt)
+                            | (torch.abs(fex_state.filt) > _FEX_MAG_BOUND))
+            bad |= _slot_any(~torch.isfinite(fex_state.env))
+        else:
+            bad = _slot_any(torch.abs(fex_state.filt.to(torch.int32))
+                            >= _INT16_RAIL)
+            bad |= _slot_any(torch.abs(fex_state.env.to(torch.int32))
+                             >= _INT16_RAIL)
         flags |= _flag(HEALTH_FEX, bad)
     if gru_state is not None:
-        bad = _slot_any(~torch.isfinite(gru_state.h))
-        for leaf in (gru_state.x_hat, gru_state.h_hat, gru_state.m_x,
-                     gru_state.m_h):
-            bad |= _slot_any(~torch.isfinite(leaf))
-        flags |= _flag(HEALTH_GRU, bad)
+        if gru_state.h.is_floating_point():
+            bad = _slot_any(~torch.isfinite(gru_state.h))
+            for leaf in (gru_state.x_hat, gru_state.h_hat, gru_state.m_x,
+                         gru_state.m_h):
+                bad |= _slot_any(~torch.isfinite(leaf))
+            flags |= _flag(HEALTH_GRU, bad)
+        else:
+            x32 = gru_state.x_hat.to(torch.int32)
+            flags |= _flag(HEALTH_GRU,
+                           _slot_any(torch.abs(x32) > _FEAT_CODE_BOUND))
+            sat = _slot_any(torch.abs(gru_state.m_x) >= _ACC_RAIL)
+            sat |= _slot_any(torch.abs(gru_state.m_h) >= _ACC_RAIL)
+            flags |= _flag(HEALTH_SAT, sat)
     return flags
 
 
@@ -191,21 +222,82 @@ def _process_audio_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
     return fex_state, state, acc, out, health
 
 
+def _classify_int(w_fc, b_fc, hs_codes, stats, logit_frac: int):
+    """FC + argmax on integer codes: the decision is the argmax over the
+    int32 logit codes (bit-true); the dequantized logits fill the
+    float-typed ``ChunkResult.logits``."""
+    codes = fp.int_fc(hs_codes, w_fc, b_fc)           # (F, B, K) int32
+    votes = torch.argmax(codes, -1).to(torch.int32)
+    return ChunkResult(logits=fp.from_code(codes, logit_frac), votes=votes,
+                       nz=stats.nz_dx + stats.nz_dh)
+
+
+def _process_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc,
+                       state: dg.DeltaState, acc: _Accum, feats, *,
+                       threshold: float, gfmt: fp.GruFormats):
+    """Integer mirror of ``_process_chunk``: feats (F, B, C) floats on the
+    12-bit grid → codes → int ΔGRU kernel → int FC.  ``state`` carries
+    int16/int32 codes."""
+    in_bad = _feats_bad(feats)
+    xs = fp.to_code(feats, gfmt.feat_frac, 16, torch.int16).contiguous()
+    hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs, threshold,
+                                              state, backend="pallas")
+    stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
+                                  gru.w_h.shape[0])
+    out = _classify_int(w_fc, b_fc, hs, stats, gfmt.logit_frac)
+    health = slot_health(in_bad, None, state)
+    return (state, _bump(acc, stats, feats.shape[0] * feats.shape[1], 0),
+            out, health)
+
+
+def _process_audio_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
+                             fex_state: FExState, state: dg.DeltaState,
+                             acc: _Accum, audio, *, threshold: float,
+                             frame_shift: int, gfmt: fp.GruFormats,
+                             ffmt: fp.FexFormats):
+    """The deployed INTEGER audio→decision step: 12-bit ADC codes → int
+    FEx kernel → int ΔGRU kernel → int FC.  ``fex_state`` holds int16
+    register codes, ``state`` int16/int32 ΔGRU codes.  Returns
+    (fex_state', state', acc', ChunkResult, health), all on the device.
+    """
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
+    feats, fex_buf = fp.int_fex_scan(
+        audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
+        frame_shift=frame_shift, backend="pallas")
+    xs = feats.movedim(1, 0).contiguous()            # (F, B, C) codes
+    hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs, threshold,
+                                              state, backend="pallas")
+    stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
+                                  gru.w_h.shape[0])
+    out = _classify_int(w_fc, b_fc, hs, stats, gfmt.logit_frac)
+    decisions = xs.shape[0] * xs.shape[1]            # frames × streams
+    acc = _bump(acc, stats, decisions, decisions * frame_shift)
+    fex_state = _unpack_state(fex_buf)
+    health = slot_health(in_bad, fex_state, state)
+    return fex_state, state, acc, out, health
+
+
 def _reset_gru_slots(state: dg.DeltaState, bias, mask) -> dg.DeltaState:
     """Fresh-stream ΔGRU state for every slot where ``mask`` is True: one
-    mask-select per field resets a whole admission wave."""
+    mask-select per field resets a whole admission wave.  Dtype-
+    preserving: float state, or the int8 engine's int16/int32 codes."""
     m = mask[:, None]
-    zero = torch.zeros((), dtype=state.h.dtype, device=state.h.device)
+
+    def zero(t):
+        return torch.where(m, torch.zeros((), dtype=t.dtype,
+                                          device=t.device), t)
+
     return dg.DeltaState(
-        h=torch.where(m, zero, state.h),
-        x_hat=torch.where(m, zero, state.x_hat),
-        h_hat=torch.where(m, zero, state.h_hat),
+        h=zero(state.h), x_hat=zero(state.x_hat), h_hat=zero(state.h_hat),
         m_x=torch.where(m, bias.to(state.m_x.dtype), state.m_x),
-        m_h=torch.where(m, zero, state.m_h))
+        m_h=zero(state.m_h))
 
 
 def _reset_fex_slots(state: FExState, mask) -> FExState:
-    """Quiescent filters for every slot where ``mask`` is True."""
+    """Quiescent filters for every slot where ``mask`` is True (dtype-
+    preserving: float registers or int16 codes)."""
     zero = torch.zeros((), dtype=state.filt.dtype, device=state.filt.device)
     return FExState(filt=torch.where(mask[:, None, None], zero, state.filt),
                     env=torch.where(mask[:, None], zero, state.env))
@@ -232,9 +324,19 @@ class StreamingKwsSession:
         default-constructed on first use.
       device: where the session runs.  ``None`` = CUDA; raises when CUDA
         is missing.  ``"cpu"`` runs the kernels' plain versions.
-      mesh, numerics="int8", detector, vad, cascade, supervisor: parts
-        of the reference session that later slices of the port add;
-        setting any of them raises ``NotImplementedError``.
+      numerics: "float32" (default) or "int8" — the deployed integer
+        datapath: 12-bit ADC → integer FEx → int8-weight/int16-state ΔGRU
+        → integer FC, bit-true against the golden fixed-point model
+        (``core.fixed_point``).  All stream state is carried as integer
+        codes; decisions are argmaxes over int32 logit codes.
+      bundle: a promoted ``IntKwsBundle`` (``train.promote``; a bundle
+        the JAX package saved loads with ``load_bundle``) to serve.  With
+        a bundle, ``params`` may be None and the bundle's Δ_TH is
+        authoritative; without one (numerics="int8"), ``params`` is
+        promoted at session creation.
+      mesh, detector, vad, cascade, supervisor: parts of the reference
+        session that later slices of the port add; setting any of them
+        raises ``NotImplementedError``.
       input_policy: what ``process_audio`` does with hostile samples —
         "reject" (default) raises ``StreamInputError`` on non-finite
         samples, "sanitize" squashes NaN to silence and clamps ±Inf to
@@ -246,13 +348,12 @@ class StreamingKwsSession:
                  batch: int = 1, input_dim: int | None = None,
                  fex: FeatureExtractor | FExConfig | None = None,
                  device=None, mesh=None, numerics: str = "float32",
+                 bundle: fp.IntKwsBundle | None = None,
                  detector=None, vad=None, cascade=None, supervisor=None,
                  input_policy: str = "reject"):
         if mesh is not None:
             raise _not_ported("slot sharding over a device mesh", "9")
-        if numerics == "int8":
-            raise _not_ported("the int8 serving datapath", "5")
-        if numerics != "float32":
+        if numerics not in ("float32", "int8"):
             raise ValueError(f"unknown numerics: {numerics!r}")
         if detector is not None or vad is not None:
             raise _not_ported("detection mode (detector / VAD)", "6")
@@ -271,9 +372,20 @@ class StreamingKwsSession:
         self.input_policy = input_policy
         self._fex = (FeatureExtractor(fex) if isinstance(fex, FExConfig)
                      else fex)
-        params = {k: v.to(self.device, torch.float32)
-                  for k, v in params.items()}
-        self._gru, self._w_fc, self._b_fc = kws.serving_weights(params)
+        self.numerics = numerics
+        self._bundle = bundle
+        if numerics == "int8":
+            if bundle is None:
+                self._bundle = fp.promote_kws(params, self.threshold,
+                                              fex=self._fex)
+            self.threshold = float(self._bundle.threshold)
+            on_dev = fp.bundle_to(self._bundle, self.device)
+            self._gru, self._w_fc, self._b_fc = (on_dev.gru, on_dev.w_fc,
+                                                 on_dev.b_fc)
+        else:
+            params = {k: v.to(self.device, torch.float32)
+                      for k, v in params.items()}
+            self._gru, self._w_fc, self._b_fc = kws.serving_weights(params)
         self.n_classes = int(self._b_fc.shape[-1])
         self._state: dg.DeltaState | None = None
         self._coef = None
@@ -289,8 +401,16 @@ class StreamingKwsSession:
 
     def _init_state(self, input_dim: int):
         self._input_dim = input_dim
-        self._state = dg.init_delta_state(self.batch, input_dim,
-                                          self.cfg.d_model, self._gru)
+        if self.numerics == "int8":
+            self._state = fp.init_int_delta_state(
+                self.batch, input_dim, self.cfg.d_model, self._gru)
+        else:
+            self._state = dg.init_delta_state(self.batch, input_dim,
+                                              self.cfg.d_model, self._gru)
+
+    def _fresh_fex_state(self, n_channels: int) -> FExState:
+        dtype = torch.int16 if self.numerics == "int8" else torch.float32
+        return init_fex_state(self.batch, n_channels, self.device, dtype)
 
     def _require_fex(self) -> FeatureExtractor:
         if self._fex is None:
@@ -302,9 +422,14 @@ class StreamingKwsSession:
             raise ValueError(f"FEx emits {fcfg.n_active} channels, session "
                              f"state is {self._input_dim}-wide")
         if self._fex_state is None:
-            self._coef = self._fex.coef.to(self.device)
-            self._fex_state = init_fex_state(self.batch, fcfg.n_active,
-                                             self.device)
+            if self.numerics == "int8":
+                # Fold the FEx bank into the bundle if the promotion had
+                # none (fold_fex copies: a shared bundle is untouched).
+                self._bundle = fp.fold_fex(self._bundle, self._fex)
+                self._coef = self._bundle.coef.to(self.device)
+            else:
+                self._coef = self._fex.coef.to(self.device)
+            self._fex_state = self._fresh_fex_state(fcfg.n_active)
             self._audio_rem = np.zeros((self.batch, 0), np.float32)
         return self._fex
 
@@ -374,12 +499,17 @@ class StreamingKwsSession:
         block = torch.from_numpy(
             np.ascontiguousarray(audio[:, :n_frames * shift])).to(self.device)
         fcfg = fex.cfg
+        if self.numerics == "int8":
+            step = _process_audio_chunk_int
+            kw = dict(gfmt=self._bundle.gfmt, ffmt=self._bundle.ffmt)
+        else:
+            step = _process_audio_chunk
+            kw = dict(env_alpha=fcfg.env_alpha, log_eps=fcfg.log_eps)
         (self._fex_state, self._state, self._acc, out,
-         self._last_health) = _process_audio_chunk(
+         self._last_health) = step(
             self._gru, self._w_fc, self._b_fc, self._coef, self._fex_state,
             self._state, self._acc, block, threshold=self.threshold,
-            frame_shift=shift, env_alpha=fcfg.env_alpha,
-            log_eps=fcfg.log_eps)
+            frame_shift=shift, **kw)
         self._chunks += 1
         return out
 
@@ -403,9 +533,11 @@ class StreamingKwsSession:
         elif feats.shape[-1] != self._input_dim:
             raise ValueError(f"chunk has {feats.shape[-1]} feature channels,"
                              f" session state is {self._input_dim}-wide")
-        self._state, self._acc, out, self._last_health = _process_chunk(
+        step, kw = ((_process_chunk_int, {"gfmt": self._bundle.gfmt})
+                    if self.numerics == "int8" else (_process_chunk, {}))
+        self._state, self._acc, out, self._last_health = step(
             self._gru, self._w_fc, self._b_fc, self._state, self._acc, feats,
-            threshold=self.threshold)
+            threshold=self.threshold, **kw)
         self._chunks += 1
         return out
 
@@ -422,8 +554,7 @@ class StreamingKwsSession:
         if self._input_dim is not None:
             self._init_state(self._input_dim)
         if self._fex_state is not None:
-            self._fex_state = init_fex_state(self.batch, self._input_dim,
-                                             self.device)
+            self._fex_state = self._fresh_fex_state(self._input_dim)
             self._audio_rem = np.zeros((self.batch, 0), np.float32)
         self._acc = _zero_accum(self.device)
         self._chunks = 0

@@ -1,0 +1,374 @@
+"""Port conformance, integer datapath: repro_torch's ``core.fixed_point``
+and its two integer kernels' plain versions against the JAX package's
+golden fixed-point model, on the same numpy inputs.
+
+The JAX side runs its golden ``backend="xla"`` scans (its own tests pin
+the Pallas kernels to them bit for bit); the port runs its kernel
+wrappers on CPU tensors, i.e. the plain versions.
+
+What must be exact: every integer step — the primitives, promotion codes
+and formats, bundles on disk, the integer FEx (registers and features),
+and the ΔGRU's Δ codes, x̂/ĥ, the 24-bit accumulators and the transmit
+counts.  What is counted instead: h codes.  The gates evaluate float32
+σ and tanh, and XLA's CPU tanh/σ differ from PyTorch's by an ulp on some
+inputs; one ulp flips a rounded Q0.15 code at a rounding boundary.
+Measured on these inputs (full width, Δ_TH 0.1, 8 utterances × 31
+frames × 64 units = 15,872 h codes): per frame, restarted from JAX's
+state, 7 differ, each by 1 LSB; over the whole scan the flips propagate
+to 82 (0.52 %), with 0 of 248 votes and 0 transmit counts different.
+The bounds below leave about 4× headroom.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.deltakws import CONFIG as J_CONFIG
+from repro.core import fixed_point as jfp
+from repro.data import gscd as jgscd
+from repro.frontend.fex import FeatureExtractor as JFex
+from repro.models import kws as jkws
+from repro.train import promote as jpromote
+from repro_torch.core import delta_gru as tdg
+from repro_torch.core import fixed_point as tfp
+from repro_torch.frontend.fex import FeatureExtractor as TFex
+from repro_torch.kernels import delta_gru_seq as tdgs
+from repro_torch.models import kws as tkws
+from repro_torch.train import promote as tpromote
+
+TH = 0.1
+# h-code bounds (fractions of all h codes compared), see the docstring.
+FRAME_H_MISMATCH = 0.005      # per frame, restarted from JAX's state
+SCAN_H_MISMATCH = 0.02        # over a whole 31-frame scan
+SCAN_VOTE_MISMATCH = 0.02     # per-frame FC argmax over the whole scan
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _eq(port, jax_arr):
+    np.testing.assert_array_equal(port.numpy() if isinstance(
+        port, torch.Tensor) else port, np.asarray(jax_arr))
+
+
+@pytest.fixture(scope="module")
+def model():
+    """The paper's full-width model (JAX init_kws, seed 0), promoted by
+    both packages at Δ_TH 0.1 with the FEx bank folded in."""
+    params, _ = jkws.init_kws(jax.random.PRNGKey(0), J_CONFIG, input_dim=10)
+    np_params = {k: np.asarray(v) for k, v in params.items()}
+    jb = jfp.promote_kws(params, TH, fex=JFex())
+    tb = tfp.promote_kws(tkws.params_from_numpy(np_params), TH, fex=TFex())
+    return jb, tb
+
+
+@pytest.fixture(scope="module")
+def feats(model):
+    """Integer feature codes (8, 31, 10) of 8 synthetic utterances from
+    the JAX golden FEx (the port's is held to it bit for bit below)."""
+    jb, _ = model
+    audio, _ = jgscd.synth_batch(np.random.default_rng(0), 8)
+    codes = jfp.to_code(jnp.asarray(audio[:, :3968], jnp.float32),
+                        jb.ffmt.feat_frac, 16, jnp.int16)
+    f, _ = jfp.int_fex_scan(codes, jb.coef, jfp.init_int_fex_state(8, 10),
+                            jb.ffmt, backend="xla")
+    return np.asarray(f)
+
+
+# ------------------------------------------------------------ primitives --
+def test_primitives_equal_jax():
+    rng = np.random.default_rng(0)
+    x = rng.integers(-(1 << 24), 1 << 24, (4, 12)).astype(np.int32)
+    for s in (1, 4, 11):
+        _eq(tfp.rshift_round(_t(x), s), jfp.rshift_round(jnp.asarray(x), s))
+    for shift in (-4, 0, 1, 3):
+        _eq(tfp.align(_t(x), shift), jfp.align(jnp.asarray(x), shift))
+    for sx, sh in ((1, -4), (-2, 3), (2, 1), (-3, -5), (-1, -1)):
+        _eq(tfp.align_pair(_t(x), sx, sh),
+            jfp.align_pair(jnp.asarray(x), sx, sh))
+    for bits in (8, 16, 24):
+        _eq(tfp.sat(_t(x), bits), jfp.sat(jnp.asarray(x), bits))
+    v = rng.uniform(-20, 20, (5, 7)).astype(np.float32)
+    v[0, :3] = [0.5 / 2048, 1.5 / 2048, -2.5 / 2048]          # ties
+    for frac, bits in ((11, 16), (18, 24), (15, 16)):
+        _eq(tfp.to_code(_t(v), frac, bits, torch.int32),
+            jfp.to_code(jnp.asarray(v), frac, bits))
+        _eq(tfp.to_code(v, frac, bits, torch.int16),
+            jfp.to_code(v, frac, bits, np.int16))
+        _eq(tfp.from_code(tfp.to_code(_t(v), frac, bits), frac),
+            jfp.from_code(jfp.to_code(jnp.asarray(v), frac, bits), frac))
+    for th in (0.0, 0.1, 0.2, 0.37, 1.0):
+        assert (tfp.GruFormats(e_x=1).th_codes(th)
+                == jfp.GruFormats(e_x=1).th_codes(th))
+
+
+def test_promote_codes_and_formats_equal_jax(model):
+    jb, tb = model
+    assert dataclasses.asdict(tb.gfmt) == dataclasses.asdict(jb.gfmt)
+    assert dataclasses.asdict(tb.ffmt) == dataclasses.asdict(jb.ffmt)
+    assert tb.threshold == jb.threshold == TH
+    for got, want in ((tb.gru.w_x, jb.gru.w_x), (tb.gru.w_h, jb.gru.w_h),
+                      (tb.gru.b, jb.gru.b), (tb.w_fc, jb.w_fc),
+                      (tb.b_fc, jb.b_fc), (tb.coef, jb.coef)):
+        assert got.numpy().dtype == np.asarray(want).dtype
+        _eq(got, want)
+    # The formats of this model (the kernels accept both shift signs).
+    assert (tb.gfmt.shift_x, tb.gfmt.shift_h) == (1, -4)
+    assert (tb.ffmt.b_frac, tb.ffmt.a_frac) == (11, 6)
+
+
+def test_bundles_cross_both_ways(model, tmp_path):
+    jb, tb = model
+    jpath = jpromote.save_bundle(tmp_path / "jax", jb)
+    tpath = tpromote.save_bundle(tmp_path / "port", tb)
+    assert jpath.suffix == tpath.suffix == ".npz"
+    with np.load(jpath) as jz, np.load(tpath) as tz:
+        assert sorted(jz.files) == sorted(tz.files)
+        for k in jz.files:                 # same dtypes, same bytes
+            assert jz[k].dtype == tz[k].dtype and jz[k].shape == tz[k].shape
+            assert jz[k].tobytes() == tz[k].tobytes(), k
+    from_jax = tpromote.load_bundle(jpath)
+    from_port = jpromote.load_bundle(tpath)
+    assert from_jax.gfmt == tb.gfmt and from_jax.ffmt == tb.ffmt
+    assert from_port.gfmt == jb.gfmt and from_port.ffmt == jb.ffmt
+    for a, b in ((from_jax.gru.w_x, from_port.gru.w_x),
+                 (from_jax.gru.b, from_port.gru.b),
+                 (from_jax.w_fc, from_port.w_fc),
+                 (from_jax.coef, from_port.coef)):
+        _eq(a, b)
+
+
+# -------------------------------------------------------------- int FEx --
+def test_int_fex_two_carried_chunks_bit_exact(model):
+    """B=3, chunks of 1024 and 640 samples with the int16 state carried:
+    feature codes and registers equal JAX's golden scan."""
+    jb, tb = model
+    audio, _ = jgscd.synth_batch(np.random.default_rng(3), 3)
+    codes = np.asarray(jfp.to_code(jnp.asarray(audio[:, 2000:3664]),
+                                   11, 16, jnp.int16))
+    js = jfp.init_int_fex_state(3, 10)
+    ts = tfp.init_int_fex_state(3, 10)
+    for lo, hi in ((0, 1024), (1024, 1664)):
+        jf, js = jfp.int_fex_scan(jnp.asarray(codes[:, lo:hi]), jb.coef, js,
+                                  jb.ffmt, backend="xla")
+        tf, ts = tfp.int_fex_scan(_t(codes[:, lo:hi]), tb.coef, ts, tb.ffmt,
+                                  backend="pallas")
+        assert tf.dtype == ts.dtype == torch.int16
+        _eq(tf, jf)
+        _eq(ts, js)
+    assert int(np.abs(np.asarray(js)).max()) > 100   # the filters moved
+
+
+def test_fex_scan_pallas_int_backend_matches_jax():
+    """fex_scan(backend="pallas-int") (float in, grid-exact float out,
+    float state carry, chunk-split) equals the JAX golden composition
+    that the JAX package's backend runs: quantize_fex → to_code →
+    int_fex_scan → from_code."""
+    from repro_torch.frontend import fex as tfex
+    jf, tf = JFex(), TFex()
+    assert ([dataclasses.astuple(f) for f in tf.coef_formats]
+            == [dataclasses.astuple(f) for f in jf.coef_formats])
+    b_fmt, a_fmt = jf.coef_formats
+    cfg = jf.cfg
+    jcoef, ffmt = jfp.quantize_fex(np.asarray(jf.coef), cfg.env_alpha,
+                                   b_fmt.frac_bits, a_fmt.frac_bits,
+                                   log_eps=cfg.log_eps)
+    audio, _ = jgscd.synth_batch(np.random.default_rng(4), 2)
+    audio = (np.round(audio[:, 1500:2268] * 2048) / 2048).astype(np.float32)
+    js, ts = jfp.init_int_fex_state(2, 10), None
+    for lo, hi in ((0, 256), (256, 768)):
+        jo, js = jfp.int_fex_scan(
+            jfp.to_code(jnp.asarray(audio[:, lo:hi]), 11, 16, jnp.int16),
+            jcoef, js, ffmt, backend="xla")
+        # The second chunk derives the formats from the packed rows.
+        to, ts = tfex.fex_scan(_t(audio[:, lo:hi]), tf.coef, ts,
+                               env_alpha=cfg.env_alpha, log_eps=cfg.log_eps,
+                               backend="pallas-int",
+                               coef_formats=tf.coef_formats if lo == 0
+                               else None)
+        _eq(to, jfp.from_code(jo, 11))
+        buf = jfp.fex_state_from_codes(js, ffmt)
+        _eq(ts.filt, buf[:, :4])
+        _eq(ts.env, buf[:, 4])
+    with pytest.raises(ValueError, match="compresses"):
+        tfex.fex_scan(_t(audio[:, :128]), tf.coef, None, compress=False,
+                      backend="pallas-int")
+
+
+# ------------------------------------------------------------- int ΔGRU --
+def _j_state(b, B):
+    return jfp.init_int_delta_state(B, 10, 64, b.gru)
+
+
+def test_int_gru_per_frame_restarted_from_jax_state(model, feats):
+    """One frame at a time, each restarted from JAX's carried state: x̂,
+    ĥ, the fused accumulator and both transmit masks equal exactly; h
+    codes may differ by σ/tanh ulps, counted under FRAME_H_MISMATCH."""
+    jb, tb = model
+    xs = np.moveaxis(feats, 1, 0)                            # (F, B, C)
+    th_x, th_h = jb.gfmt.th_codes(TH)
+    st = _j_state(jb, xs.shape[1])
+    h, xh, hh = st.h, st.x_hat, st.h_hat
+    m = jnp.concatenate([st.m_x, st.m_h], axis=-1)
+    flips = worst = total = 0
+    for t in range(xs.shape[0]):
+        jout = jfp.gru_frame_step(jb.gfmt, jnp.asarray(xs[t]), h, xh, hh, m,
+                                  jb.gru.w_x, jb.gru.w_h, th_x, th_h)
+        tout = tfp.gru_frame_step(tb.gfmt, _t(xs[t]), _t(h), _t(xh), _t(hh),
+                                  _t(m), tb.gru.w_x, tb.gru.w_h, th_x, th_h)
+        for k in (1, 2, 3, 4, 5):                 # x̂, ĥ, m, mask_x, mask_h
+            _eq(tout[k], jout[k])
+        d = np.abs(tout[0].numpy() - np.asarray(jout[0]))
+        flips += int(np.count_nonzero(d))
+        worst = max(worst, int(d.max()))
+        total += d.size
+        h, xh, hh, m = (jnp.asarray(a).astype(d_) for a, d_ in zip(
+            jout[:4], (jnp.int16, jnp.int16, jnp.int16, jnp.int32)))
+    print(f"per frame: {flips} of {total} h codes differ, max {worst} LSB")
+    assert flips <= FRAME_H_MISMATCH * total, (flips, total)
+    assert worst <= 1, worst
+
+
+def test_int_gru_whole_scan_and_votes(model, feats):
+    """The whole 31-frame scan through the kernel wrapper (plain version
+    on the CPU) against JAX's golden scan: transmit counts are compared
+    where no h flip has happened yet; h codes and per-frame votes are
+    counted under their bounds; int_forward's logit codes too."""
+    jb, tb = model
+    xs = np.moveaxis(feats, 1, 0)
+    jhs, jst, jnx, jnh = jfp.int_gru_scan(jb.gru, jb.gfmt, jnp.asarray(xs),
+                                          TH, backend="xla")
+    ths, tst, tnx, tnh = tfp.int_gru_scan(tb.gru, tb.gfmt, _t(xs), TH,
+                                          backend="pallas")
+    assert ths.dtype == torch.int16 and tst.m_x.dtype == torch.int32
+    jhs, ths = np.asarray(jhs), ths.numpy()
+    flips = np.count_nonzero(jhs != ths)
+    assert flips <= SCAN_H_MISMATCH * jhs.size, (flips, jhs.size)
+    clean = ~(jhs != ths).any(axis=2)             # (F, B) frames before...
+    clean = np.cumprod(clean, axis=0).astype(bool)   # ...the first flip
+    np.testing.assert_array_equal(tnx.numpy()[clean], np.asarray(jnx)[clean])
+    np.testing.assert_array_equal(tnh.numpy()[clean], np.asarray(jnh)[clean])
+    jv = np.argmax(np.asarray(jfp.int_fc(jnp.asarray(jhs), jb.w_fc,
+                                         jb.b_fc)), -1)
+    tv = tfp.int_fc(_t(ths), tb.w_fc, tb.b_fc).argmax(-1).numpy()
+    n_nz = (np.count_nonzero(tnx.numpy() != np.asarray(jnx))
+            + np.count_nonzero(tnh.numpy() != np.asarray(jnh)))
+    print(f"whole scan: {flips} of {jhs.size} h codes, "
+          f"{np.count_nonzero(jv != tv)} of {jv.size} votes, {n_nz} of "
+          f"{2 * jv.size} transmit counts differ")
+    assert np.count_nonzero(jv != tv) <= SCAN_VOTE_MISMATCH * jv.size
+    jl, jfx, _ = jfp.int_forward(jb, jnp.asarray(feats), backend="xla")
+    tl, tfx, _ = tfp.int_forward(tb, _t(feats), backend="xla")
+    assert tl.dtype == torch.int32 and tl.shape == (8, 12)
+    assert np.count_nonzero(np.argmax(np.asarray(jl), -1)
+                            != tl.argmax(-1).numpy()) <= 1
+    _eq(tfx[0], jfx[0])                           # frame 0: before any flip
+
+
+def test_int_gru_state_carry_is_invisible(model, feats):
+    """Two carried calls of the wrapper equal one call, bit for bit."""
+    _, tb = model
+    xs = _t(np.moveaxis(feats, 1, 0))
+    one = tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, backend="pallas")
+    a = tfp.int_gru_scan(tb.gru, tb.gfmt, xs[:13], TH, backend="pallas")
+    b = tfp.int_gru_scan(tb.gru, tb.gfmt, xs[13:], TH, a[1],
+                         backend="pallas")
+    torch.testing.assert_close(torch.cat([a[0], b[0]]), one[0], rtol=0,
+                               atol=0)
+    for x, y in zip(b[1], one[1]):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+def test_accumulator_pinned_at_the_rail(model):
+    """Accumulators started within 2^10 of the 24-bit rail with full-scale
+    inputs saturate (never wrap) and drive σ/tanh to their extremes; the
+    integer state and the h codes equal JAX's exactly there."""
+    jb, tb = model
+    rng = np.random.default_rng(5)
+    B, T = 4, 6
+    rail = (1 << 23) - 1
+    mx = (np.sign(rng.standard_normal((B, 192))) * (rail - rng.integers(
+        0, 1 << 10, (B, 192)))).astype(np.int32)
+    mh = (np.sign(rng.standard_normal((B, 192))) * (rail - rng.integers(
+        0, 1 << 10, (B, 192)))).astype(np.int32)
+    xs = rng.choice([-2048, 2047], (T, B, 10)).astype(np.int16)
+    z16 = lambda d: np.zeros((B, d), np.int16)
+    jst = jfp.init_int_delta_state(B, 10, 64, jb.gru)._replace(
+        m_x=jnp.asarray(mx), m_h=jnp.asarray(mh))
+    tst = tdg.DeltaState(_t(z16(64)), _t(z16(10)), _t(z16(64)), _t(mx),
+                         _t(mh))
+    jhs, jf, *_ = jfp.int_gru_scan(jb.gru, jb.gfmt, jnp.asarray(xs), 0.0,
+                                   jst, backend="xla")
+    ths, tf, *_ = tfp.int_gru_scan(tb.gru, tb.gfmt, _t(xs), 0.0, tst,
+                                   backend="pallas")
+    _eq(ths, jhs)
+    for got, want in zip(tf, jf):
+        _eq(got, want)
+    m = torch.cat([tf.m_x, tf.m_h], -1).abs()
+    assert int(m.max()) == 1 << 23                # saturated, not wrapped
+    assert int((m >= rail).sum()) > 0
+
+
+def test_fmt_none_is_the_float_scan():
+    """delta_gru_seq_int(fmt=None) is the float ΔGRU, bit for bit."""
+    rng = np.random.default_rng(6)
+    T, B, I, H = 5, 3, 10, 16
+    p = tdg.init_delta_gru(torch.Generator().manual_seed(1), I, H)
+    xs = _t(rng.uniform(-1, 1, (T, B, I)).astype(np.float32))
+    st = tdg.init_delta_state(B, I, H, p)
+    hs, final, nzx, nzh = tdgs.delta_gru_seq_int(
+        xs, *st, p.w_x, p.w_h, torch.tensor([[0.1, 0.1]]), fmt=None)
+    ref_hs, ref_state, ref_stats = tdg.delta_gru_scan(p, xs, 0.1, st,
+                                                      backend="xla")
+    torch.testing.assert_close(hs, ref_hs, rtol=0, atol=0)
+    for x, y in zip(final, ref_state):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    torch.testing.assert_close(nzx, ref_stats.nz_dx, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="one Δ_TH"):
+        tdgs.delta_gru_seq_int(xs, *st, p.w_x, p.w_h, (0.1, 0.2), fmt=None)
+
+
+def test_packed_checks_and_refusals(model, feats):
+    jb, tb = model
+    xs = _t(np.moveaxis(feats, 1, 0)[:2])
+    st = tfp.init_int_delta_state(8, 10, 64, tb.gru)
+    with pytest.raises(ValueError, match="requires an integer"):
+        tdgs.delta_gru_seq_int(xs.float(), *(s.float() for s in st),
+                               tb.gru.w_x.float(), tb.gru.w_h.float(),
+                               (0.1, 0.1), fmt=None, packed=True)
+    # packed is numerics-invariant: same result with it on or off.
+    on = tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, backend="pallas",
+                          packed=True)
+    off = tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, backend="pallas",
+                           packed=False)
+    torch.testing.assert_close(on[0], off[0], rtol=0, atol=0)
+    big = tfp.IntGruWeights(torch.zeros((10, 3 * 600), dtype=torch.int8),
+                            torch.zeros((600, 3 * 600), dtype=torch.int8),
+                            torch.zeros(3 * 600, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tfp.int_gru_scan(big, tb.gfmt, xs, TH, backend="pallas")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, event_driven=True)
+
+
+def test_packed_int8_dot_exact_at_extremes():
+    """The byte-plane dot is exact at |d| = 2^16, w = -128/127 and
+    K = PACKED_DOT_MAX_K, and equals JAX's."""
+    K = tfp.PACKED_DOT_MAX_K
+    d = np.tile(np.array([[1 << 16, -(1 << 16), (1 << 16) - 1, -1]],
+                         np.int32).T, (1, K))
+    w = np.where(np.arange(K * 3).reshape(K, 3) % 2, 127, -128
+                 ).astype(np.int8)
+    want = d.astype(np.int64) @ w.astype(np.int64)
+    got = tfp.packed_int8_dot(_t(d), _t(w).float())
+    _eq(got, want.astype(np.int32))
+    _eq(got, jfp.packed_int8_dot(jnp.asarray(d),
+                                 jnp.asarray(w, jnp.float32)))
+    pair = tfp.packed_int8_dot_pair(_t(d), _t(d), _t(w).float(),
+                                    _t(w).float())
+    _eq(pair, np.concatenate([want, want], -1).astype(np.int32))
+    _eq(tfp._int_dot(_t(d), _t(w)), want.astype(np.int32))

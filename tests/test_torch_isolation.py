@@ -86,5 +86,22 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
                                torch.rand(I, 3 * H), torch.rand(H, 3 * H),
                                0.1)
     assert hs.shape == (3, B, H) and np.isfinite(hs.numpy()).all()
-    assert iir_fex.batched_iir_fex.launches == 0
-    assert dgs.delta_gru_seq.launches == 0
+    from repro_torch.core import fixed_point as fp
+    iir_fex.batched_iir_fex_int.launches = 0
+    dgs.delta_gru_seq_int.launches = 0
+    codes, _ = iir_fex.batched_iir_fex_int(
+        torch.randint(-2048, 2048, (2, 256), dtype=torch.int16),
+        torch.randint(-64, 64, (6, 3), dtype=torch.int32),
+        fp.init_int_fex_state(2, 3), fmt=fp.FexFormats())
+    assert codes.shape == (2, 2, 3) and codes.dtype == torch.int16
+    w = fp.IntGruWeights(torch.ones((I, 3 * H), dtype=torch.int8),
+                         torch.ones((H, 3 * H), dtype=torch.int8),
+                         torch.zeros(3 * H, dtype=torch.int32))
+    st = fp.init_int_delta_state(B, I, H, w)
+    hs, *_ = dgs.delta_gru_seq_int(
+        torch.randint(-2048, 2048, (3, B, I), dtype=torch.int16), *st,
+        w.w_x, w.w_h, (0, 0), fmt=fp.GruFormats())
+    assert hs.shape == (3, B, H) and hs.dtype == torch.int16
+    for wrapper in (iir_fex.batched_iir_fex, dgs.delta_gru_seq,
+                    iir_fex.batched_iir_fex_int, dgs.delta_gru_seq_int):
+        assert wrapper.launches == 0

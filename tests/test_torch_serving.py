@@ -167,7 +167,7 @@ def test_reset_streams_gives_fresh_slot(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": object()}, {"numerics": "int8"}, {"detector": object()},
+    {"mesh": object()}, {"vad": object()}, {"detector": object()},
     {"cascade": object()}, {"supervisor": object()}])
 def test_unported_session_options_raise(weights, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
