@@ -21,7 +21,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.delta_gru_seq import check_kernel_fits, delta_gru_seq
+from repro_torch.kernels.delta_gru_seq import (MAX_SMEM_BYTES, delta_gru_seq,
+                                               seq_kernel_fits)
+from repro_torch.kernels.delta_matvec import delta_matvec, make_block_mask
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
 
 
@@ -109,9 +111,57 @@ class DeltaGRUCell:
         return DeltaState(h, x_hat, h_hat, m_x, m_h), h, stats
 
 
+def _auto_block(n: int, target: int = 128) -> int:
+    """Largest divisor of ``n`` that is <= target."""
+    for d in range(min(n, target), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _delta_gru_scan_blocked(params: DeltaGRUParams, xs, threshold: float,
+                            state: DeltaState, block_i: int | None,
+                            block_o: int | None
+                            ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
+    """The scan over the block-sparse ``delta_matvec`` kernel, two
+    launches per frame, for a ΔGRU whose weights the sequence kernel
+    cannot hold: each frame derives the block masks from the thresholded
+    deltas on the device and skips the weight tiles (and the MACs) of
+    inactive blocks.  The state is carried as in every backend."""
+    T, B, I = xs.shape
+    H = params.w_h.shape[0]
+    # block_i describes the INPUT axis; it carries over to the hidden
+    # matvec only where it also divides H, else each axis picks its own.
+    bi_x = block_i if block_i and I % block_i == 0 else _auto_block(I)
+    bi_h = block_i if block_i and H % block_i == 0 else _auto_block(H)
+    bo = block_o if block_o and (3 * H) % block_o == 0 else _auto_block(3 * H)
+    hs, nz_dx, nz_dh = [], [], []
+    for t in range(T):
+        dx, x_hat, mx_mask = delta_branch(xs[t], state.x_hat, threshold)
+        dh, h_hat, mh_mask = delta_branch(state.h, state.h_hat, threshold)
+        m_x = delta_matvec(dx, params.w_x, state.m_x,
+                           make_block_mask(dx, bi_x), block_i=bi_x,
+                           block_o=bo)
+        m_h = delta_matvec(dh, params.w_h, state.m_h,
+                           make_block_mask(dh, bi_h), block_i=bi_h,
+                           block_o=bo)
+        h = gru_gates(m_x, m_h, state.h, H)
+        state = DeltaState(h, x_hat, h_hat, m_x, m_h)
+        hs.append(h)
+        nz_dx.append(mx_mask.sum(-1, dtype=torch.int32))
+        nz_dh.append(mh_mask.sum(-1, dtype=torch.int32))
+    if T == 0:
+        z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
+        return xs.new_zeros((0, B, H)), state, _stats_from_counts(z, z, I, H)
+    return (torch.stack(hs), state,
+            _stats_from_counts(torch.stack(nz_dx), torch.stack(nz_dh), I, H))
+
+
 def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
                    state: DeltaState | None = None, *,
-                   backend: str = "xla"
+                   backend: str = "xla", block_i: int | None = None,
+                   block_o: int | None = None,
+                   smem_budget_bytes: int = MAX_SMEM_BYTES
                    ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
     """Run a ΔGRU over ``xs`` of shape (T, B, I).
 
@@ -123,9 +173,16 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
       backend: "xla" — a Python loop over ``DeltaGRUCell`` (the name of
         the reference's per-step path) — or "pallas" — ``delta_gru_seq``,
         ONE launch of the hand-written kernel per chunk on a CUDA tensor
-        (its plain version on a CPU tensor).  "pallas" raises when the
-        weights exceed the kernel's shared memory; the block-sparse
-        fallback of the reference is not ported yet.
+        (its plain version on a CPU tensor).  Where that kernel cannot
+        hold the weights in ``smem_budget_bytes`` of shared memory (or
+        3H columns on one block's threads), "pallas" takes the
+        block-sparse path instead: ``delta_matvec`` twice per frame.
+      block_i / block_o: the block-sparse path's input block (the mask's
+        granularity) and output tile; None picks the largest divisor of
+        each axis up to 128, as the reference does.
+      smem_budget_bytes: the shared memory the sequence kernel may use
+        (the counterpart of the reference's ``vmem_budget_bytes``); 0
+        forces the block-sparse path.
 
     Returns:
       (hs (T, B, H), final ``DeltaState``, ``DeltaStats`` stacked over T).
@@ -137,7 +194,9 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
     if state is None:
         state = init_delta_state(B, I, H, params)
     if backend == "pallas":
-        check_kernel_fits(I, H)
+        if not seq_kernel_fits(I, H, smem_budget_bytes):
+            return _delta_gru_scan_blocked(params, xs, threshold, state,
+                                           block_i, block_o)
         hs, final, nz_dx, nz_dh = delta_gru_seq(
             xs.contiguous(), *state, params.w_x, params.w_h, threshold)
         return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)

@@ -19,10 +19,10 @@ Conventions (as the reference):
   * Shifts round half up (``rshift_round``); a float intermediate is
     requantized with ``torch.round`` (half to even).
   * σ/tanh are the "ideal LUT": the float function of the dequantized,
-    saturated pre-activation, requantized to the hidden grid.  They are
-    the only float steps besides the FEx's one log2, and the only place
-    where the port and the JAX reference can differ (by an ulp of the
-    libraries' σ/tanh/log2; see ``tests/test_torch_fixed_point.py``).
+    saturated pre-activation, requantized to the hidden grid.  They and
+    the FEx's one log2 are the only float steps, and they are XLA's own
+    expansions (``kernels.xla_math``), so every code equals the
+    reference's (``tests/test_torch_fixed_point.py``).
   * PyTorch has no integer matrix product on CUDA.  ``_int_dot`` forms
     the exact product in float64: every term is an integer of at most
     2^16 · 2^7 = 2^23 and every partial sum at most K · 2^23 < 2^53 for
@@ -54,6 +54,8 @@ import torch
 from repro_torch.core.delta_gru import DeltaGRUParams, DeltaState
 from repro_torch.core.quantize import WEIGHT_Q
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
+from repro_torch.kernels.xla_math import (INV_LN2, fma, xla_log, xla_sigmoid,
+                                          xla_tanh)
 
 _NP_DTYPE = {torch.int8: np.int8, torch.int16: np.int16,
              torch.int32: np.int32, torch.int64: np.int64}
@@ -228,14 +230,14 @@ def int_gru_gates(m, h, fmt: GruFormats):
     H = h.shape[-1]
     one = 1 << fmt.hid_frac
     step = float(2.0 ** -fmt.acc_frac)
-    ru_f = torch.sigmoid((m[:, :2 * H] + m[:, 3 * H:5 * H]
-                          ).to(torch.float32) * step)
+    ru_f = xla_sigmoid((m[:, :2 * H] + m[:, 3 * H:5 * H]
+                        ).to(torch.float32) * step)
     ru = torch.round(ru_f * one).to(torch.int32)
     r, u = ru[:, :H], ru[:, H:]
     c_pre = (m[:, 2 * H:3 * H].to(torch.float32)
              + r.to(torch.float32) * m[:, 5 * H:].to(torch.float32)
              * float(1.0 / one)) * step
-    c = torch.round(torch.tanh(c_pre) * one).to(torch.int32)
+    c = torch.round(xla_tanh(c_pre) * one).to(torch.int32)
     h_new = rshift_round(u * h + (one - u) * c, fmt.hid_frac)
     return sat(h_new, 16)
 
@@ -433,15 +435,14 @@ def int_fex_sample_step(x_code, s, coef, fmt: FexFormats):
 
 def int_compress_env(env_code, fmt: FexFormats):
     """log₂ + normalize + quantize onto the 12-bit feature grid (the
-    ideal-LUT log on the exact envelope code).  Divides by a tensor, not
-    a Python float: on CUDA, PyTorch turns a division by a host scalar
-    into a multiplication by its reciprocal, which can differ by an ulp
-    from the true division of the reference and the kernel."""
-    log_range = torch.full((), fmt.log_range, dtype=torch.float32,
-                           device=env_code.device)
-    v = (torch.log2((env_code + fmt.eps_code).to(torch.float32)
-                    * float(2.0 ** -fmt.env_frac))
-         + fmt.log_range) / log_range
+    ideal-LUT log on the exact envelope code), as XLA compiles the
+    reference: its log₂, the scale by 1/ln 2 fused with the
+    ``+ log_range``, and the division by the constant ``log_range``
+    rewritten into a multiplication by its float32 reciprocal."""
+    inv_range = float(np.float32(1.0) / np.float32(fmt.log_range))
+    x = (env_code + fmt.eps_code).to(torch.float32) * float(
+        2.0 ** -fmt.env_frac)
+    v = fma(xla_log(x), INV_LN2, fmt.log_range) * inv_range
     v = torch.clip(v, -1.0, 1.0 - 2.0 ** -fmt.feat_frac)
     return sat(torch.round(v * (1 << fmt.feat_frac)).to(torch.int32), 16)
 

@@ -32,15 +32,15 @@
 // The gates run on threads j < H after a barrier.
 //
 // Numerics.  Compiled with --fmad=false (multiply then add, as PyTorch's
-// eager ops); sigmoid is 1 / (1 + expf(-v)) and tanh is tanhf, the
-// formulas of PyTorch's CUDA kernels.
+// eager ops) and --ftz=true (XLA:CPU flushes denormals).  σ and tanh are
+// XLA's own float32 expansions (xla_math.cuh), and the gates fuse the two
+// products that XLA fuses: r·M_hc into the candidate's pre-activation and
+// u·h into the blend.
 #include <cuda_runtime.h>
 
-namespace {
+#include "xla_math.cuh"
 
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
+namespace {
 
 // Shared-memory layout, in 4-byte words, for input width I, hidden H,
 // N = 3H columns: W_x, W_h, x̂, ĥ, h, compacted Δx (values, indices),
@@ -167,10 +167,10 @@ __global__ void delta_gru_seq_kernel(
 
     // Type-2 GRU gates on threads j < H.
     if (j < H) {
-      const float r = sigmoidf(mxs[j] + mhs[j]);
-      const float u = sigmoidf(mxs[H + j] + mhs[H + j]);
-      const float c = tanhf(mxs[2 * H + j] + r * mhs[2 * H + j]);
-      const float h_new = u * hcur[j] + (1.0f - u) * c;
+      const float r = xla_math::sigmoid(mxs[j] + mhs[j]);
+      const float u = xla_math::sigmoid(mxs[H + j] + mhs[H + j]);
+      const float c = xla_math::tanh(fmaf(r, mhs[2 * H + j], mxs[2 * H + j]));
+      const float h_new = fmaf(u, hcur[j], (1.0f - u) * c);
       hcur[j] = h_new;
       hs[row * H + j] = h_new;
     }

@@ -40,12 +40,15 @@
 // the accumulator add are done in unsigned arithmetic, which wraps like
 // XLA's int32 (and the plain version's float64 → int64 → int32 product)
 // instead of being undefined.  Right shifts of negative values are
-// arithmetic.  σ is 1 / (1 + expf(-v)) and tanh is tanhf, the formulas of
-// PyTorch's CUDA kernels for float32; no fast math; the r·m_hc product is
-// one rounded float32 multiply, then the exact power-of-two scalings, in
-// the plain version's order.  rintf rounds half to even like torch.round.
+// arithmetic.  σ and tanh are XLA's own float32 expansions
+// (xla_math.cuh), so the codes equal the JAX reference's; no fast math;
+// the r·m_hc product is one rounded float32 multiply, then the exact
+// power-of-two scalings, in the plain version's order (XLA contracts
+// nothing there).  rintf rounds half to even like torch.round.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "xla_math.cuh"
 
 namespace {
 
@@ -66,10 +69,6 @@ __device__ __forceinline__ int32_t align(int32_t x, int shift) {
 
 __device__ __forceinline__ int32_t sat(int32_t x, int32_t lim) {
   return x < -lim ? -lim : (x > lim - 1 ? lim - 1 : x);
-}
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.0f / (1.0f + expf(-v));
 }
 
 // Shared-memory layout for input width I, hidden H, N = 3H columns: int8
@@ -221,14 +220,17 @@ __global__ void delta_gru_seq_int_kernel(
       const float pr = static_cast<float>(wrap_add(mxs[j], mhs[j])) * step;
       const float pu =
           static_cast<float>(wrap_add(mxs[H + j], mhs[H + j])) * step;
-      const int32_t r = static_cast<int32_t>(rintf(sigmoidf(pr) * one_f));
-      const int32_t u = static_cast<int32_t>(rintf(sigmoidf(pu) * one_f));
+      const int32_t r =
+          static_cast<int32_t>(rintf(xla_math::sigmoid(pr) * one_f));
+      const int32_t u =
+          static_cast<int32_t>(rintf(xla_math::sigmoid(pu) * one_f));
       const float c_pre =
           (static_cast<float>(mxs[2 * H + j]) +
            static_cast<float>(r) * static_cast<float>(mhs[2 * H + j]) *
                inv_one) *
           step;
-      const int32_t c = static_cast<int32_t>(rintf(tanhf(c_pre) * one_f));
+      const int32_t c =
+          static_cast<int32_t>(rintf(xla_math::tanh(c_pre) * one_f));
       // |u·h + (one - u)·c| <= 2^hid · 2^15: a convex combination of two
       // values within 2^15, so it stays inside int32 for hid <= 15.
       const int32_t blend = u * hcur[j] + (one - u) * c;

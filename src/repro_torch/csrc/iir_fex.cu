@@ -28,18 +28,26 @@
 // buffer (_state_pipeline, iir_fex.py:94) has no counterpart because the
 // state never leaves registers.
 //
-// Numerics.  Compiled with --fmad=false so every a*b + c is a multiply
-// then an add, as in PyTorch's eager ops (a fused FMA would drift from the
-// plain version over thousands of recursive samples).  rintf rounds half
+// Numerics: those of the JAX reference as XLA compiles it on the CPU.
+// Its scan body fuses seven products into the following add or subtract
+// (of a difference of two products, the first); those are fmaf() below,
+// and the build's --fmad=false keeps every other product rounded on its
+// own.  XLA flushes denormals, and so does the build's --ftz=true, so a
+// register decaying in silence reaches 0 at the same sample.  The
+// compression is XLA's log2 (xla_math.cuh), its scale by 1/ln 2 fused
+// with the + 11, and a multiplication by float32(1/11).  rintf rounds half
 // to even like torch.round; the clamps propagate NaN like torch.clamp.
 // 1 - env_alpha and log_eps arrive as floats rounded on the host, as the
 // reference folds its Python constants to float32.
 #include <cuda_runtime.h>
 
+#include "xla_math.cuh"
+
 namespace {
 
 constexpr float kFeatStep = 0.00048828125f;  // 2^-11, the 12-bit grid step
 constexpr float kLogRange = 11.0f;
+constexpr float kInvLogRange = 1.0f / 11.0f;  // correctly rounded
 
 __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
   // min(max(v, lo), hi) that keeps NaN, like torch.clamp / jnp.clip.
@@ -47,7 +55,9 @@ __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
 }
 
 __device__ __forceinline__ float compress_env(float env, float log_eps) {
-  float v = (log2f(env + log_eps) + kLogRange) / kLogRange;
+  float v = fmaf(xla_math::log(env + log_eps),
+                 xla_math::f32(xla_math::kInvLn2Bits), kLogRange) *
+            kInvLogRange;
   v = clamp_nan(v, -1.0f, 1.0f - kFeatStep);
   return clamp_nan(rintf(v / kFeatStep) * kFeatStep, -1.0f, 1.0f - kFeatStep);
 }
@@ -81,15 +91,15 @@ __global__ void iir_fex_kernel(const float* __restrict__ x,
     for (int k = 0; k < frame_shift; ++k) {
       const float xv = xf[k];
       // section 0 (DF2T, symmetric numerator)
-      const float y0 = b0_0 * xv + s0_1;
-      const float n0_1 = na1_0 * y0 + s0_2;
-      const float n0_2 = nb0_0 * xv - a2_0 * y0;
+      const float y0 = fmaf(b0_0, xv, s0_1);
+      const float n0_1 = fmaf(na1_0, y0, s0_2);
+      const float n0_2 = fmaf(nb0_0, xv, -(a2_0 * y0));
       // section 1
-      const float y1 = b0_1 * y0 + s1_1;
-      const float n1_1 = na1_1 * y1 + s1_2;
-      const float n1_2 = nb0_1 * y0 - a2_1 * y1;
+      const float y1 = fmaf(b0_1, y0, s1_1);
+      const float n1_1 = fmaf(na1_1, y1, s1_2);
+      const float n1_2 = fmaf(nb0_1, y0, -(a2_1 * y1));
       // envelope: full-wave rectifier + one-pole low-pass
-      env = one_minus_alpha * env + env_alpha * fabsf(y1);
+      env = fmaf(one_minus_alpha, env, env_alpha * fabsf(y1));
       s0_1 = n0_1;
       s0_2 = n0_2;
       s1_1 = n1_1;

@@ -37,12 +37,15 @@
 // principle are done in unsigned arithmetic, which wraps like XLA's int32
 // instead of being undefined.  Right shifts of negative values are
 // arithmetic, as in torch and XLA.  The one float step is the compression:
-// log2f of the exact envelope code times 2^-env_frac, + log_range, a true
-// division by log_range (no fast math), a clamp, rintf (half to even, like
-// torch.round) and a saturation to 16 bits, as the plain version does it
-// with torch.log2 on a CUDA float tensor.
+// XLA's log2 (xla_math.cuh) of the exact envelope code times 2^-env_frac,
+// its scale by 1/ln 2 fused with the + log_range, a multiplication by
+// float32(1 / log_range) (XLA's rewrite of the division by a constant), a
+// clamp, rintf (half to even, like torch.round) and a saturation to 16
+// bits, as the plain version and the JAX reference do it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "xla_math.cuh"
 
 namespace {
 
@@ -71,7 +74,9 @@ __device__ __forceinline__ int32_t compress_env(int32_t env, int eps_code,
                                                 float feat_scale,
                                                 float feat_max) {
   const float e = static_cast<float>(wrap_add(env, eps_code)) * env_step;
-  float v = (log2f(e) + log_range) / log_range;
+  const float inv_range = 1.0f / log_range;   // correctly rounded
+  float v = fmaf(xla_math::log(e), xla_math::f32(xla_math::kInvLn2Bits),
+                 log_range) * inv_range;
   v = clamp_nan(v, -1.0f, feat_max);
   return sat16(static_cast<int32_t>(rintf(v * feat_scale)));
 }

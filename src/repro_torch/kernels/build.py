@@ -8,11 +8,14 @@ so a build takes seconds, not the minutes of
 flags, so an edited kernel is never served from a stale library.  Only
 sources in the repository are compiled; nothing is fetched.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false``: nvcc would
-otherwise fuse ``a*b + c`` into one FMA, which PyTorch's separate eager
-ops do not do, and the FEx recursion would drift from its plain version
-over thousands of samples.  ``-Xptxas -v`` keeps each kernel's register
-and shared-memory report in the build log.
+Flags: ``sm_90a`` (Hopper), ``-O3``, ``--fmad=false`` and
+``--ftz=true``.  The kernels follow the JAX reference as XLA compiles it
+on the CPU: a product is fused into the following add exactly where XLA
+fuses it, written as ``fmaf`` in the source, and nowhere else (nvcc would
+otherwise contract ``a*b + c`` on its own); and denormals are flushed to
+zero, as XLA:CPU runs.  ``-Xptxas -v`` keeps each kernel's register and
+shared-memory report in the build log.  The shared header
+``csrc/xla_math.cuh`` is part of every library's hash.
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("iir_fex", "delta_gru_seq", "iir_fex_int", "delta_gru_seq_int")
+KERNELS = ("iir_fex", "delta_gru_seq", "iir_fex_int", "delta_gru_seq_int",
+           "delta_matvec", "delta_gru_cell")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "--ftz=true", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +66,7 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -49,6 +49,17 @@ def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
     return weights + 4 * (I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
 
 
+def seq_kernel_fits(input_dim: int, hidden_dim: int,
+                    smem_budget_bytes: int = MAX_SMEM_BYTES) -> bool:
+    """Whether the kernel can hold this ΔGRU within ``smem_budget_bytes``
+    of shared memory (at most the card's 227 KB) and one block's
+    threads (``check_kernel_fits`` says why not)."""
+    threads = -(-3 * hidden_dim // 32) * 32
+    smem = seq_kernel_smem_bytes(input_dim, hidden_dim)
+    return (smem <= min(smem_budget_bytes, MAX_SMEM_BYTES)
+            and threads <= MAX_THREADS and input_dim <= threads)
+
+
 def check_kernel_fits(input_dim: int, hidden_dim: int) -> None:
     """Raise ``ValueError`` when the kernel cannot hold this ΔGRU: its
     weights must fit one thread block's shared memory, 3H columns one
@@ -59,8 +70,9 @@ def check_kernel_fits(input_dim: int, hidden_dim: int) -> None:
         raise ValueError(
             f"ΔGRU I={input_dim}, H={hidden_dim} needs {smem} bytes of "
             f"shared memory per block; the delta_gru_seq kernel holds at "
-            f"most {MAX_SMEM_BYTES} (227 KB on Hopper).  The block-sparse "
-            f"delta_matvec fallback is not ported yet (ROADMAP queue 1)")
+            f"most {MAX_SMEM_BYTES} (227 KB on Hopper).  "
+            f"core.delta_gru.delta_gru_scan(backend='pallas') takes the "
+            f"block-sparse delta_matvec path for such a ΔGRU")
     if threads > MAX_THREADS or input_dim > threads:
         raise ValueError(
             f"ΔGRU I={input_dim}, H={hidden_dim} needs 3H <= {MAX_THREADS} "

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.xla_math import fma, xla_sigmoid, xla_tanh
+
 
 def delta_branch(v, v_hat, threshold):
     """Δ encoder: (delta, new_v_hat, transmitted_mask).
@@ -23,9 +25,15 @@ def delta_branch(v, v_hat, threshold):
 
 
 def gru_gates(m_x, m_h, h, hidden_dim: int):
-    """Type-2 GRU nonlinearity on accumulated pre-activations [r|u|c]."""
+    """Type-2 GRU nonlinearity on accumulated pre-activations [r|u|c].
+
+    σ and tanh are XLA's (``xla_math``), and the two products that XLA on
+    the CPU fuses into the following add are fused here too: r·M_hc into
+    the candidate's pre-activation and u·h into the blend (whose other
+    product, (1 − u)·c, rounds on its own).
+    """
     H = hidden_dim
-    r = torch.sigmoid(m_x[:, :H] + m_h[:, :H])
-    u = torch.sigmoid(m_x[:, H:2 * H] + m_h[:, H:2 * H])
-    c = torch.tanh(m_x[:, 2 * H:] + r * m_h[:, 2 * H:])
-    return u * h + (1.0 - u) * c
+    r = xla_sigmoid(m_x[:, :H] + m_h[:, :H])
+    u = xla_sigmoid(m_x[:, H:2 * H] + m_h[:, H:2 * H])
+    c = xla_tanh(fma(r, m_h[:, 2 * H:], m_x[:, 2 * H:]))
+    return fma(u, h, (1.0 - u) * c)

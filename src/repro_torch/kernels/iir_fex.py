@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.xla_math import INV_LN2, fma, ftz, xla_log
 
 STATE_ROWS = 5      # [s0_1, s0_2, s1_1, s1_2, env]
 
@@ -33,6 +34,7 @@ STATE_ROWS = 5      # [s0_1, s0_2, s1_1, s1_2, env]
 # [-11, 0] mapped to [0, 1] (one 12-bit LSB of headroom below 1.0).
 _FEAT_STEP = 2.0 ** -11
 _LOG_RANGE = 11.0
+_INV_LOG_RANGE = float(np.float32(1.0) / np.float32(_LOG_RANGE))
 
 
 def fex_sample_step(x_col, s, coef, env_alpha):
@@ -41,35 +43,46 @@ def fex_sample_step(x_col, s, coef, env_alpha):
     x_col: (B,) sample per stream; s: (B, 5, C) state; coef: (6, C) rows
     [b0_0, a1_0, a2_0, b0_1, a1_1, a2_1] in the symmetric form (b1 = 0,
     b2 = −b0).  Returns the new (B, 5, C) state.
+
+    The reference's op order, rounded where XLA on the CPU rounds: its
+    scan body contracts the products marked ``fma`` into one fused
+    multiply-add each (of a difference of two products, the first), and
+    it flushes denormal results to zero, so registers that decay in
+    silence reach exactly 0 at the same sample (see ``xla_math``).
     """
-    b0_0, a1_0, a2_0 = coef[0], coef[1], coef[2]
-    b0_1, a1_1, a2_1 = coef[3], coef[4], coef[5]
+    b0_0, a2_0, b0_1, a2_1 = coef[0], coef[2], coef[3], coef[5]
     x = x_col[:, None]                          # (B, 1) → broadcast lanes
-    # section 0 (DF2T, symmetric numerator)
-    y0 = b0_0 * x + s[:, 0]
-    ns0_1 = -a1_0 * y0 + s[:, 1]
-    ns0_2 = -b0_0 * x - a2_0 * y0
-    # section 1
-    y1 = b0_1 * y0 + s[:, 2]
-    ns1_1 = -a1_1 * y1 + s[:, 3]
-    ns1_2 = -b0_1 * y0 - a2_1 * y1
-    # envelope detector: full-wave rectifier + one-pole low-pass
-    env = (1.0 - env_alpha) * s[:, 4] + env_alpha * torch.abs(y1)
-    return torch.stack([ns0_1, ns0_2, ns1_1, ns1_2, env], dim=1)
+    # The seven multiply-adds, as XLA forms them, in three dependent
+    # levels of one batched ``fma`` each (the plain loop pays per op):
+    #   y0    = b0_0·x + s0_1
+    #   ns0_1 = −a1_0·y0 + s0_2      ns0_2 = −b0_0·x − (a2_0·y0)
+    #   y1    = b0_1·y0 + s1_1
+    #   ns1_1 = −a1_1·y1 + s1_2      ns1_2 = −b0_1·y0 − (a2_1·y1)
+    #   env   = (1−α)·env + (α·|y1|)
+    # (parenthesised products round, and flush, on their own).
+    y0 = fma(b0_0, x, s[:, 0])
+    ns0_1, ns0_2, y1 = fma(
+        torch.stack([-coef[1], -b0_0, b0_1]),
+        torch.stack([y0, x.expand_as(y0), y0], dim=1),
+        torch.stack([s[:, 1], -ftz(a2_0 * y0), s[:, 2]], dim=1)).unbind(1)
+    one_minus_alpha = torch.full_like(b0_0, 1.0 - env_alpha)
+    level3 = fma(
+        torch.stack([-coef[4], -b0_1, one_minus_alpha]),
+        torch.stack([y1, y0, s[:, 4]], dim=1),
+        torch.stack([s[:, 3], -ftz(a2_1 * y1),
+                     ftz(env_alpha * torch.abs(y1))], dim=1))
+    return torch.cat([torch.stack([ns0_1, ns0_2], dim=1), level3], dim=1)
 
 
 def compress_env(env, log_eps):
     """In-datapath feature compression: log₂ + normalize + 12-bit quantize.
 
     env (..., C) → features on the 12-bit Q0.11 grid in [-1, 1-2^-11].
+    As XLA compiles the reference: its log₂ (``xla_math``), the scale by
+    1/ln 2 fused with the ``+ 11``, and the division by 11 rewritten into
+    a multiplication by ``float32(1/11)``.
     """
-    # Divide by a tensor, not a Python float: on CUDA, PyTorch turns a
-    # division by a host scalar into a multiplication by its reciprocal,
-    # which can differ by an ulp from the true division the reference
-    # and the kernel perform.
-    log_range = torch.full((), _LOG_RANGE, dtype=env.dtype,
-                           device=env.device)
-    v = (torch.log2(env + log_eps) + _LOG_RANGE) / log_range
+    v = fma(xla_log(env + log_eps), INV_LN2, _LOG_RANGE) * _INV_LOG_RANGE
     v = torch.clip(v, -1.0, 1.0 - _FEAT_STEP)
     return torch.clip(torch.round(v / _FEAT_STEP) * _FEAT_STEP,
                       -1.0, 1.0 - _FEAT_STEP)
@@ -101,6 +114,8 @@ def batched_iir_fex_ref(x, coef, state, *, frame_shift: int = 128,
     x = x[:, :n_frames * frame_shift].float()
     coef = coef.float()
     s = state.float()
+    if n_frames:
+        s = ftz(s)                   # XLA reads denormals as zero
     feats = []
     for f in range(n_frames):
         for k in range(f * frame_shift, (f + 1) * frame_shift):

@@ -3,18 +3,13 @@ package's, on the same numpy inputs.
 
 The JAX side runs its plain reference (``backend="xla"``; the repo's own
 tests pin its Pallas kernel to it bit for bit).  The port runs its kernel
-wrapper on CPU tensors, i.e. the kernel's plain version.  Tolerances:
-coefficients are bit-exact.  Raw envelopes agree to a relative 1e-5, not
-bit for bit: XLA on the CPU contracts ``a*b + c`` into one FMA, while the
-port (like PyTorch's eager ops and its kernel, built with --fmad=false)
-rounds the product first, and the recursion carries the ulp differences
-(measured: at most 2.9e-6 relative over 1536 samples).  12-bit feature
-codes are compared by counting mismatches (an ulp of FMA drift or of log2
-can flip a code at a rounding boundary) and must count 0 on these inputs.
+wrapper on CPU tensors, i.e. the kernel's plain version.  Everything is
+compared bit for bit: coefficients, raw envelopes, registers and 12-bit
+feature codes.  The port fuses the multiply-adds that XLA on the CPU
+fuses, flushes denormals as XLA does and computes XLA's own log2
+(``kernels/xla_math.py``); XLA fuses only on a host with FMA, which the
+``xla_fma`` fixture checks (the test skips, saying so, elsewhere).
 """
-
-ENV_RTOL = 1e-5       # relative; FMA contraction drift, see above
-STATE_ATOL = 1e-7     # absolute, on registers of magnitude <= 1e-2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +18,15 @@ import torch
 from repro.frontend import fex as jfex
 from repro_torch.frontend import fex as tfex
 from repro_torch.kernels import iir_fex as tiir
+from test_torch_xla_math import xla_fma  # noqa: F401  (a fixture)
 
 SHIFT = 128
+
+
+
+def _bits_equal(port, ref):
+    np.testing.assert_array_equal(np.asarray(port).view(np.uint32),
+                                  np.asarray(ref).view(np.uint32))
 
 
 def _audio(B, T, seed):
@@ -67,24 +69,50 @@ def _both(audio, coef, cfg, compress, state=None):
             tf.numpy(), tfex._pack_state(ts).numpy())
 
 
-def test_raw_envelope_within_fma_drift(bank):
+def test_raw_envelope_within_fma_drift(bank, xla_fma):
+    """Raw envelopes and registers after 1536 samples: bit-equal (the
+    port fuses where XLA fuses, so there is no drift left)."""
     cfg, coef = bank
     audio = _audio(2, 12 * SHIFT, seed=0)
     jf, js, tf, ts = _both(audio, coef, cfg, compress=False)
     assert jf.shape == tf.shape == (2, 12, coef.shape[1])
-    np.testing.assert_allclose(tf, jf, rtol=ENV_RTOL, atol=0)
-    np.testing.assert_allclose(ts, js, rtol=ENV_RTOL, atol=STATE_ATOL)
+    _bits_equal(tf, jf)
+    _bits_equal(ts, js)
 
 
-def test_feature_codes_zero_mismatches(bank):
+def test_feature_codes_zero_mismatches(bank, xla_fma):
     cfg, coef = bank
     audio = _audio(3, 16 * SHIFT + 37, seed=1)
     jf, js, tf, ts = _both(audio, coef, cfg, compress=True)
     mismatched = int(np.count_nonzero(tf != jf))
     assert mismatched == 0, f"{mismatched} of {jf.size} 12-bit codes differ"
-    np.testing.assert_allclose(ts, js, rtol=ENV_RTOL, atol=STATE_ATOL)
+    _bits_equal(ts, js)
     codes = tf / 2.0 ** -11
     assert np.array_equal(codes, np.round(codes))   # on the 12-bit grid
+
+
+def test_registers_decaying_through_denormals_equal_jax(bank, xla_fma):
+    """Filter state seeded at ~1e-36 and silent input: the registers decay
+    below 2^-126 within a few hundred samples, where XLA flushes them to
+    zero.  Registers and raw envelopes stay bit-equal throughout."""
+    cfg, coef = bank
+    rng = np.random.default_rng(6)
+    state = (1e-36 * rng.standard_normal((3, 5, coef.shape[1]))
+             ).astype(np.float32)
+    state[:, 4] = np.abs(state[:, 4])
+    audio = np.zeros((3, 4 * SHIFT), np.float32)
+    jstate = jfex._unpack_state(jnp.asarray(state))
+    tstate = tfex._unpack_state(torch.from_numpy(state))
+    kw = dict(frame_shift=SHIFT, env_alpha=cfg.env_alpha,
+              log_eps=cfg.log_eps, compress=False)
+    jf, js = jfex.fex_scan(jnp.asarray(audio), jnp.asarray(coef), jstate,
+                           backend="xla", **kw)
+    tf, ts = tfex.fex_scan(torch.from_numpy(audio), torch.tensor(coef),
+                           tstate, backend="pallas", **kw)
+    js, ts = np.asarray(jfex._pack_state(js)), tfex._pack_state(ts).numpy()
+    _bits_equal(tf.numpy(), jf)
+    _bits_equal(ts, js)
+    assert np.count_nonzero(js == 0) > js.size // 2    # flushed, not tiny
 
 
 @pytest.mark.parametrize("cuts", [(SHIFT, 5 * SHIFT), (3 * SHIFT, 4 * SHIFT)])

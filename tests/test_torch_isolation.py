@@ -102,6 +102,17 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
         torch.randint(-2048, 2048, (3, B, I), dtype=torch.int16), *st,
         w.w_x, w.w_h, (0, 0), fmt=fp.GruFormats())
     assert hs.shape == (3, B, H) and hs.dtype == torch.int16
+    from repro_torch.kernels import ops
+    ops.delta_matvec.launches = ops.delta_gru_cell.launches = 0
+    out, mask = ops.delta_matvec_auto(torch.rand(B, 8), torch.rand(8, 6),
+                                      z(B, 6), block_i=4, block_o=3)
+    assert out.shape == (B, 6) and mask.tolist() == [1, 1]
+    h1, *_ = ops.delta_gru_cell(torch.rand(B, I), z(B, H), z(B, I), z(B, H),
+                                z(B, 3 * H), z(B, 3 * H),
+                                torch.rand(I, 3 * H), torch.rand(H, 3 * H),
+                                0.1)
+    assert h1.shape == (B, H) and np.isfinite(h1.numpy()).all()
     for wrapper in (iir_fex.batched_iir_fex, dgs.delta_gru_seq,
-                    iir_fex.batched_iir_fex_int, dgs.delta_gru_seq_int):
+                    iir_fex.batched_iir_fex_int, dgs.delta_gru_seq_int,
+                    ops.delta_matvec, ops.delta_gru_cell):
         assert wrapper.launches == 0
