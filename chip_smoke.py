@@ -6,32 +6,43 @@
                                      #   always-on serving step
 
 Phases, each exiting non-zero on failure:
-  1. the card's name and power limit; build all six CUDA kernels with
-     nvcc (one process per source, all started together) and print the
-     build seconds and ptxas reports; check the wrappers' shared-memory
-     formulas against the kernels' own;
+  1. the card's name and power limit; build all six CUDA kernels and the
+     iir_fex_int chain probe with nvcc (one process per source, all
+     started together) and print the build seconds and ptxas reports;
+     check the wrappers' shared-memory formulas against the kernels' own
+     (delta_matvec and iir_fex_int launch with the wrappers' plans and
+     refuse one they cannot run);
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving shapes.  Float FEx: 12-bit codes, raw envelopes and
      registers bit for bit.  Float ΔGRU: hs within 1e-5 absolute at
      Δ_TH 0, 0.1 and 0.2 (transmit-count mismatches are counted).
      Integer: FEx feature codes and registers over two carried chunks,
-     and the ΔGRU's hs codes, final h/x̂/ĥ/m_x/m_h and both transmit
-     counts at Δ_TH 0, 0.1, 0.2 and with accumulators started at the
+     and at ragged shapes (B = 1, 3, 33; T not a multiple of frame_shift
+     or of 8; frame_shift 100; ±full-scale audio from registers at the
+     16-bit rails; one-bit b and a shifts, whose sums pass 2^31 in the
+     offset form), and the ΔGRU's hs codes, final h/x̂/ĥ/m_x/m_h and both
+     transmit counts at Δ_TH 0, 0.1, 0.2 and with accumulators started at the
      24-bit rail — all exactly equal (tolerance 0).  delta_matvec: the
-     reference's sweep shapes in float32 and bfloat16 and the wide
-     model's two shapes within 1e-5 relative to 1 + |out|, a masked
-     block with non-zero deltas exactly 128, an all-zero mask exactly m.
+     reference's sweep shapes in float32 and bfloat16, the wide model's
+     two shapes, and the CTA tile's tails (B = 1, 17, 255; O = 640;
+     block_i = 10 and 64, each also with only the last block active)
+     within 1e-5 relative to 1 + |out|, a masked block with non-zero
+     deltas exactly 128, an all-zero mask exactly m.
      delta_gru_cell: the reference's three sweep shapes and the full
      width at B=32 and 256, at Δ_TH 0, 0.1, 0.2, x̂/ĥ equal, h and M
      within 1e-5.  The block-sparse ΔGRU path at full width (forced,
-     two carried chunks) against delta_gru_seq: hs within 1e-5, transmit
-     counts equal;
+     two carried chunks) against delta_gru_seq: hs and final state bit
+     for bit, transmit counts equal;
   3. time each kernel on the device (20 calls captured in a CUDA graph,
      replayed between CUDA events, median) and per call with its
      wrapper's host time (CUDA events around each call, the method of
      the earlier slices), its plain version and, where one PyTorch call
      computes the same function, that call, beside the bound worked out
-     from the shapes;
+     from the shapes; for delta_matvec also its FMUL+FADD bound and its
+     time by copy path (TMA, cp.async, plain loads), for iir_fex_int its
+     chain bound (the chain probe's time per sample step
+     × 4096), and for both the previous kernels' times quoted from
+     PERF.md (not measured in the run);
   4. serve 64 one-second requests on 32 slots at the paper model's full
      width through ``repro_torch.launch.serve``, once per numerics, and
      once at H=256, whose weights no thread block holds, through the
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -73,6 +85,11 @@ HS_ATOL = 1e-5                 # ΔGRU kernel vs plain, absolute
 SAT_MARGIN = 1 << 10           # int ΔGRU saturation case: start this close
 MATVEC_TOL = 1e-5              # delta_matvec vs plain, times (1 + |out|)
 WIDE_H = 256                   # a ΔGRU width no thread block holds
+# The previous delta_matvec and iir_fex_int kernels' device times on an
+# H100 80GB HBM3 at 700 W, quoted from PERF.md §6 beside this run's.
+PREVIOUS_MS = {("fex_int", 32): 0.1904, ("fex_int", 256): 0.1914,
+               ("matvec", 256): 0.0327, ("matvec", 10): 0.0043}
+CHAIN_STEPS = 1 << 20          # iir_fex_int chain probe: steps timed
 
 
 def fail(msg: str) -> None:
@@ -92,6 +109,19 @@ def card_line(torch) -> str:
     except (OSError, subprocess.TimeoutExpired):
         pass
     return f"{torch.cuda.get_device_name(0)}, power limit not readable"
+
+
+def max_sm_clock_hz(torch) -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), for bounds
+    counted in instructions per clock."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=30)
+        return float(out.stdout.strip().splitlines()[0]) * 1e6
+    except (OSError, subprocess.TimeoutExpired, ValueError, IndexError):
+        fail("nvidia-smi did not report clocks.max.sm")
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 10) -> float:
@@ -212,6 +242,40 @@ def matvec_bound(B, I, O, active_rows, n_blocks):
     return bound(moved, 2 * B * active_rows * O)
 
 
+def matvec_fmul_fadd_ms(torch, B, O, active_rows):
+    """The same products under the kernel's numerics contract: each
+    product rounded before its add, so an FMUL and an FADD (not one FFMA)
+    per multiply-add, issued 128 lanes per SM per clock at the card's
+    highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    instr = 2 * B * active_rows * O
+    return instr / (sms * 128 * max_sm_clock_hz(torch)) * 1e3
+
+
+def fex_int_chain_bound(torch, bundle, steps: int = CHUNK):
+    """The integer FEx's chain bound: csrc/iir_fex_int_chain.cu runs the
+    kernel's section step CHAIN_STEPS times on one warp (register
+    operands, nothing else on the SM) with channel 0's coefficient codes;
+    its time per step is the recursion's latency, and ``steps`` of them
+    the least time a chunk of ``steps`` samples can take.  Returns
+    (cycles per step, ms for ``steps`` steps)."""
+    from repro_torch.kernels import build
+    fn = build.load("iir_fex_int_chain").iir_fex_int_chain
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    coef = bundle.coef.cpu()
+    out = (ctypes.c_longlong * 3)()
+    err = fn(CHAIN_STEPS, int(coef[1, 0]), int(coef[2, 0]),
+             bundle.ffmt.a_frac, out)
+    if err:
+        fail(f"iir_fex_int chain probe: CUDA error {err}")
+    cycles = out[0] / CHAIN_STEPS
+    ns = out[1] / CHAIN_STEPS
+    print(f"[time] iir_fex_int chain probe: {cycles:.2f} cycles, {ns:.3f} ns "
+          f"per sample step ({out[0] / out[1]:.3f} GHz), {steps} steps = "
+          f"{ns * steps / 1e6:.5f} ms")
+    return cycles, ns * steps / 1e6
+
+
 def cell_bound(B, I, H, nz_total):
     """delta_gru_cell: x, h, x̂, ĥ, M_x, M_h in and out (x once), the
     weights once; the transmitted rows' multiply-adds and the gates."""
@@ -225,7 +289,7 @@ def cell_bound(B, I, H, nz_total):
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build()
+    built = build.build((*build.KERNELS, "iir_fex_int_chain"))
     secs = time.perf_counter() - t0
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}")
     for name, b in built.items():
@@ -233,8 +297,9 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} kernels built in {secs:.1f} s")
-    if sorted(built) != sorted(build.KERNELS) or len(built) != 6:
+    print(f"[build] {len(built)} libraries (six kernels and the "
+          f"iir_fex_int chain probe) built in {secs:.1f} s")
+    if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 6:
         fail(f"expected the six kernels {build.KERNELS}, built "
              f"{sorted(built)}")
     # The wrappers' shared-memory formulas must be the kernels' own.
@@ -447,6 +512,70 @@ def compare_fex_int(torch, x, bundle):
     return {"max_abs_err": float(err), "feats": fk, "plain_ms": plain_ms}
 
 
+def compare_fex_int_tails(torch, np, bundle):
+    """Integer FEx kernel vs its plain version where the launch plan is
+    ragged: stream groups that do not fill a CTA (B = 1, 3, 33), chunks
+    whose T is not a multiple of frame_shift or of 8 (the audio then
+    comes sample by sample), a frame_shift that splits the kernel's
+    tiles, ±full-scale audio from registers started at the 16-bit rails,
+    and one-bit b and a shifts with codes that take Q + 2^15 plus a
+    shifted product past 2^31 (the kernel's wide instance).  Every
+    feature code and register must be equal."""
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.kernels import iir_fex
+    ffmt, coef = bundle.ffmt, bundle.coef
+    C = coef.shape[1]
+    rng = np.random.default_rng(31)
+    audio, _ = synth_batch(np.random.default_rng(5), 33)
+    speech = fp.to_code(torch.from_numpy(audio).cuda(), ffmt.feat_frac, 16,
+                        torch.int16)
+
+    def rails(B, T):
+        x = np.where(rng.random((B, T)) < 0.5, 2047, -2048)
+        st = np.where(rng.random((B, 5, C)) < 0.5, 32767, -32768)
+        return (torch.from_numpy(x.astype(np.int16)).cuda(),
+                torch.from_numpy(st.astype(np.int16)).cuda())
+
+    zero = lambda B: fp.init_int_fex_state(B, C, "cuda")
+    hot = coef.clone()                 # b0 = 8 in both sections: the
+    hot[[0, 3]] = 8 << ffmt.b_frac     # registers sit on the rails
+    # b_frac = a_frac = 1 with b0 = 2^18 - 1 and 2^16 - 1, a2 = 2^16 - 1:
+    # at every -2048 sample both sections' r2 sums pass 2^31 - 2^15.
+    one_bit = dataclasses.replace(ffmt, b_frac=1, a_frac=1)
+    wide = torch.tensor([(1 << 18) - 1, -3, (1 << 16) - 1, (1 << 16) - 1, 2,
+                         (1 << 16) - 1], dtype=torch.int32, device="cuda")
+    wide = wide[:, None].expand(6, C).contiguous()
+    cases = [("B=1", speech[:1, :CHUNK], zero(1), 128, coef, ffmt),
+             ("B=3 T=4096+37", speech[:3, :CHUNK + 37], zero(3), 128, coef,
+              ffmt),
+             ("B=33 T=1000", speech[:, 3000:4000], zero(33), 128, coef,
+              ffmt),
+             ("B=5 frame_shift=100", speech[:5, :1000], zero(5), 100, coef,
+              ffmt),
+             ("rails B=4 b0=8", *rails(4, CHUNK), 128, hot, ffmt),
+             ("rails B=2 T=3 frame_shift=1", *rails(2, 3), 1, coef, ffmt),
+             ("rails B=3 one-bit shifts", *rails(3, CHUNK), 128, wide,
+              one_bit)]
+    for label, x, st, fs, cf, fmt in cases:
+        x = x.contiguous()
+        fk, sk = iir_fex.batched_iir_fex_int(x, cf, st, fmt=fmt,
+                                             frame_shift=fs)
+        fr, sr = iir_fex.batched_iir_fex_int_ref(x, cf, st, fmt=fmt,
+                                                 frame_shift=fs)
+        torch.cuda.synchronize()
+        mism = int((fk != fr).sum()) + int((sk != sr).sum())
+        at_rail = int(((sr[:, :4] == 32767) | (sr[:, :4] == -32768)).sum())
+        print(f"[compare] iir_fex_int {label}: {mism} of {fk.numel()} codes "
+              f"and {sk.numel()} registers differ (tolerance 0); filter "
+              f"registers at a 16-bit rail after the chunk: {at_rail} of "
+              f"{sr[:, :4].numel()}")
+        if mism:
+            fail(f"iir_fex_int {label} differs from its plain version")
+        if label.startswith("rails") and at_rail == 0:
+            fail(f"iir_fex_int {label} never pinned a register at a rail")
+
+
 def compare_gru_int(torch, feats, bundle):
     """Integer ΔGRU kernel vs its plain version: two chunks of T frames
     with the state carried, at three thresholds, then one chunk whose
@@ -546,14 +675,20 @@ def time_int_kernels(torch, x, gru_res, fex_bundle, fex_int_plain_ms):
             out[("gru_int_plain", SLOTS)] = cuda_ms(
                 torch, lambda: dgs.delta_gru_seq_int_ref(*args, fmt=gfmt),
                 10, warmup=2)
+    cycles, chain_ms = fex_int_chain_bound(torch, fex_bundle)
+    out["fex_int_chain"] = (cycles, chain_ms)
     for kind, steps, what in (("fex_int", CHUNK, "dependent samples"),
                               ("gru_int", 32, "dependent frames")):
         for B in (SLOTS, ALWAYS_ON_SLOTS):
             ms, bnd, by, call = out[(kind, B)]
+            extra = (f"; chain bound {chain_ms:.5f} ms ({ms / chain_ms:.2f}x"
+                     f"); previous kernel {PREVIOUS_MS[(kind, B)]:.4f} ms "
+                     f"(quoted from PERF.md, not measured here)"
+                     if kind == "fex_int" else "")
             print(f"[time] {kind} B={B}: kernel {ms:.4f} ms on the device "
                   f"({call:.4f} ms per call with the wrapper), bound "
                   f"{bnd:.5f} ms ({by}), serial chain {steps} {what}: "
-                  f"{ms * 1e6 / steps:.1f} ns per step")
+                  f"{ms * 1e6 / steps:.1f} ns per step{extra}")
         print(f"[time] {kind} B={SLOTS}: plain version "
               f"{out[(kind + '_plain', SLOTS)]:.2f} ms")
     return out
@@ -585,11 +720,21 @@ def compare_delta_matvec(torch, wide_shapes):
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(f"wide B={B} I={I} O={O}", B, I, O, bi, bo, torch.float32)
               for B, I, O, bi, bo in wide_shapes]
+    # Tails of the 16 × 64 CTA tile and of the 32-row slices: rows that do
+    # not fill a tile, block_i = 10 (slices of 10 rows), 5 blocks of 64;
+    # each also with only the last block active.
+    cases += [(f"tail B={B} I={I} O=640{last}", B, I, 640, bi, 128, dt)
+              for B in (1, 17, 255) for I, bi in ((10, 10), (320, 64))
+              for dt in (torch.float32, torch.bfloat16)
+              for last in ("", " last block only")]
     for label, B, I, O, block_i, block_o, dtype in cases:
         dx = _sparse_deltas(torch, gen, B, I, block_i, 0.5).to(dtype)
         w = torch.randn(I, O, generator=gen, device="cuda").to(dtype)
         m = torch.randn(B, O, generator=gen, device="cuda")
         mask = dm.make_block_mask(dx, block_i)
+        if label.endswith("last block only"):
+            mask = torch.zeros_like(mask)
+            mask[-1] = 1
         got = dm.delta_matvec(dx, w, m, mask, block_i=block_i,
                               block_o=block_o)
         want = dm.delta_matvec_ref(dx, w, m, mask, block_i)
@@ -686,12 +831,13 @@ def compare_blocked(torch, gru_res):
     launches = (dm.delta_matvec.launches, dgs.delta_gru_seq.launches)
     print(f"[compare] block-sparse ΔGRU (smem_budget_bytes=0) vs "
           f"delta_gru_seq, 2 chunks of T={T}, B={B}, I={I}, H={H}, Δ_TH "
-          f"0.1: hs max abs diff {hs_err:.3g} (bound {HS_ATOL}), final "
-          f"state {st_err:.3g}, transmit-count mismatches {nz_m}; launches "
-          f"delta_matvec {launches[0]}, delta_gru_seq {launches[1]}")
-    if not hs_err <= HS_ATOL or nz_m or launches != (4 * T, 2):
-        fail(f"block-sparse path: hs {hs_err}, nz {nz_m}, launches "
-             f"{launches}")
+          f"0.1: hs max abs diff {hs_err:.3g}, final state {st_err:.3g} "
+          f"(both must be 0: the same sums in the same order), "
+          f"transmit-count mismatches {nz_m}; launches delta_matvec "
+          f"{launches[0]}, delta_gru_seq {launches[1]}")
+    if hs_err != 0.0 or st_err != 0.0 or nz_m or launches != (4 * T, 2):
+        fail(f"block-sparse path: hs {hs_err}, state {st_err}, nz {nz_m}, "
+             f"launches {launches}")
     return {"max_abs_err": hs_err}
 
 
@@ -704,6 +850,41 @@ def wide_params(torch):
     cfg = dataclasses.replace(CONFIG, d_model=WIDE_H)
     return cfg, kws.init_kws(torch.Generator().manual_seed(0), cfg,
                              input_dim=CONFIG.frontend_tokens)
+
+
+def time_matvec_copy_paths(torch, dm, dx, w, m, mask, block_i, want):
+    """delta_matvec's device time with each copy path the tensors allow
+    (the launcher called directly with the wrapper's plan but another
+    copy path; these launches are not counted).  Each path must give the
+    wrapper's result bit for bit: the sums are the same."""
+    from repro_torch.kernels import build
+    B, I = dx.shape
+    O = w.shape[1]
+    plan = dm.matvec_launch_plan(B, I, O, block_i, 128)
+    lib, fn = dm._launcher()
+    out = torch.empty_like(m)
+    times = {}
+    for copy in ("tma", "cp.async", "plain"):
+        if copy == "tma" and plan["copy"] != "tma":
+            continue
+
+        def launch(copy=copy):
+            err = fn(dx.data_ptr(), w.data_ptr(), m.data_ptr(),
+                     mask.data_ptr(), out.data_ptr(), B, I, O, block_i, 0,
+                     *plan["grid"], plan["threads"], dm.COPY_CODES[copy],
+                     plan["smem_bytes"],
+                     torch.cuda.current_stream().cuda_stream)
+            build.check(lib, err, f"delta_matvec {copy} launch")
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            fail(f"delta_matvec {copy} copy path differs from the wrapper's "
+                 f"result at I={I}")
+        times[copy] = graph_ms(torch, launch)
+    print(f"[time] delta_matvec B={B} I={I} O={O} block_i={block_i} by copy "
+          f"path (the plan takes {plan['copy']}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    return times
 
 
 def time_block_sparse(torch, gru_res):
@@ -729,12 +910,19 @@ def time_block_sparse(torch, gru_res):
             dx, w, m, mask, block_i))
         lib = graph_ms(torch, lambda: torch.addmm(m, dx_m, w))
         bnd, by = matvec_bound(B, I, O, rows, mask.numel())
-        out[("matvec", I)] = (ms, plain, lib, bnd, by, call)
+        fmul = matvec_fmul_fadd_ms(torch, B, O, rows)
+        out[("matvec", I)] = (ms, plain, lib, bnd, by, call, fmul)
+        time_matvec_copy_paths(torch, dm, dx, w, m, mask, block_i,
+                               dm.delta_matvec(dx, w, m, mask,
+                                               block_i=block_i))
         print(f"[time] delta_matvec B={B} I={I} O={O} block_i={block_i} "
               f"({int(mask.sum())} of {mask.numel()} blocks active): kernel "
               f"{ms:.4f} ms on the device ({call:.4f} ms per call with the "
               f"wrapper), plain {plain:.4f} ms, torch.addmm {lib:.4f} ms "
-              f"(both on the device), bound {bnd:.5f} ms ({by})")
+              f"(both on the device; kernel/addmm {ms / lib:.2f}), bound "
+              f"{bnd:.5f} ms ({by}), FMUL+FADD bound {fmul:.5f} ms; "
+              f"previous kernel {PREVIOUS_MS[('matvec', I)]:.4f} ms "
+              f"(quoted from PERF.md, not measured here)")
     gru = gru_res["gru"]
     th = 0.1
     for B in (SLOTS, ALWAYS_ON_SLOTS):
@@ -754,7 +942,7 @@ def time_block_sparse(torch, gru_res):
         plain = cuda_ms(torch, lambda: dgc.delta_gru_cell_ref(*args), 10,
                         warmup=2)
         bnd, by = cell_bound(B, I, H, nz)
-        out[("cell", B)] = (ms, plain, None, bnd, by, call)
+        out[("cell", B)] = (ms, plain, None, bnd, by, call, None)
         print(f"[time] delta_gru_cell B={B} I={I} H={H} Δ_TH {th} "
               f"({nz} of {B * (I + H)} deltas transmitted): kernel "
               f"{ms:.4f} ms on the device ({call:.4f} ms per call with the "
@@ -1030,6 +1218,7 @@ def main() -> int:
     gru_res = compare_gru(torch, fex_res["feats"], params)
     bundle = promote(params, fex)
     fex_int_res = compare_fex_int(torch, x, bundle)
+    compare_fex_int_tails(torch, np, bundle)
     gru_int_res = compare_gru_int(torch, fex_int_res["feats"], bundle)
     times = time_kernels(torch, x, fex, gru_res, fex_res["plain_ms"])
     times.update(time_int_kernels(torch, x, gru_int_res, bundle,
@@ -1076,8 +1265,13 @@ def main() -> int:
             "bound_ms_b256": times[(kind, ALWAYS_ON_SLOTS)][1],
             "shape": (f"B={SLOTS} S={CHUNK} C={C}" if kind.startswith("fex")
                       else f"T=32 B={SLOTS} I={C} H={H}")})
-    ms, plain, lib, bnd, by, call = times[("matvec", WIDE_H)]
-    ms10, plain10, lib10, bnd10, by10, _ = times[("matvec", 10)]
+        if kind == "fex_int":
+            cycles, chain_ms = times["fex_int_chain"]
+            kernels[-1].update({
+                "chain_bound_ms": chain_ms,
+                "chain_cycles_per_sample": cycles})
+    ms, plain, lib, bnd, by, call, fmul = times[("matvec", WIDE_H)]
+    ms10, plain10, lib10, bnd10, by10, _, _ = times[("matvec", 10)]
     kernels.append({
         "name": "delta_matvec", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_matvec.cu",
@@ -1089,8 +1283,9 @@ def main() -> int:
                  f"block_i=128",
         "path": f"the ΔGRU's block-sparse path, H={WIDE_H} serve run",
         "ms_i10": ms10, "plain_ms_i10": plain10, "library_ms_i10": lib10,
-        "bound_ms_i10": bnd10, "bound_by_i10": by10})
-    ms, plain, _, bnd, by, call = times[("cell", SLOTS)]
+        "bound_ms_i10": bnd10, "bound_by_i10": by10,
+        "fmul_fadd_bound_ms": fmul})
+    ms, plain, _, bnd, by, call, _ = times[("cell", SLOTS)]
     kernels.append({
         "name": "delta_gru_cell", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_gru_cell.cu",

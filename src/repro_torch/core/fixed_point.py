@@ -444,7 +444,11 @@ def int_compress_env(env_code, fmt: FexFormats):
         2.0 ** -fmt.env_frac)
     v = fma(xla_log(x), INV_LN2, fmt.log_range) * inv_range
     v = torch.clip(v, -1.0, 1.0 - 2.0 ** -fmt.feat_frac)
-    return sat(torch.round(v * (1 << fmt.feat_frac)).to(torch.int32), 16)
+    # A negative envelope code (only a carried state can hold one) logs to
+    # NaN; XLA, like the CUDA kernel's conversion, turns it into 0, where a
+    # CPU cast would give -2^31.
+    v = torch.nan_to_num(torch.round(v * (1 << fmt.feat_frac)), nan=0.0)
+    return sat(v.to(torch.int32), 16)
 
 
 def init_int_fex_state(batch: int, n_channels: int,

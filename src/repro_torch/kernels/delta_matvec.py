@@ -55,6 +55,42 @@ def _check(dx, w, m, block_mask, block_i: int, block_o: int):
                          "one device")
 
 
+# The CUDA kernel's tiling (csrc/delta_matvec.cu): a CTA covers TILE_B
+# rows × TILE_O columns with THREADS threads (a 3 × 4 register tile each)
+# and pipelines slices of TILE_K input rows through STAGES shared-memory
+# buffers, copied by TMA, by cp.async or by plain loads.  The kernel
+# launches with the plan below and refuses one it cannot run.
+TILE_B, TILE_O, TILE_K, STAGES, THREADS = 12, 64, 32, 3, 64
+COPY_CODES = {"plain": 0, "cp.async": 1, "tma": 2}
+
+
+def matvec_launch_plan(B: int, I: int, O: int, block_i: int = 128,
+                       block_o: int = 128, dtype=torch.float32,
+                       aligned: bool = True) -> dict:
+    """The kernel's launch for a (B, I) × (I, O) call: ``grid`` (column
+    tiles, row tiles), ``threads``, ``smem_bytes`` (the slice ring and one
+    barrier per stage, which the kernel holds statically and the launcher
+    checks) and ``copy``, how slices reach shared memory: ``"tma"``
+    (float32, I and O multiples of 4, block_i a multiple of TILE_K),
+    ``"cp.async"`` (float32, O a multiple of 4) or ``"plain"`` (bfloat16
+    and the rest).  The first two also need 16-byte aligned pointers
+    (``aligned``).  Refuses what the reference refuses: I and O not
+    multiples of ``block_i`` and ``block_o``."""
+    if block_i <= 0 or block_o <= 0 or I % block_i or O % block_o:
+        raise ValueError(f"delta_matvec: I={I} and O={O} must be multiples "
+                         f"of block_i={block_i} and block_o={block_o}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"delta_matvec: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    f32 = dtype == torch.float32 and O % 4 == 0 and aligned
+    copy = ("tma" if f32 and I % 4 == 0 and block_i % TILE_K == 0
+            else "cp.async" if f32 else "plain")
+    smem = STAGES * (TILE_K * (TILE_O + TILE_B) * 4 + 8)
+    smem = -(-smem // 128) * 128              # the ring's 128-byte alignment
+    return {"grid": (-(-O // TILE_O), -(-B // TILE_B)), "threads": THREADS,
+            "smem_bytes": smem, "copy": copy}
+
+
 def make_block_mask(dx, block_i: int = 128):
     """(B, I) deltas → (I // block_i,) int32 block-activity mask: 1 where
     any delta of the block, over the whole batch, is non-zero.  Computed
@@ -81,7 +117,7 @@ def _launcher():
     fn = lib.delta_matvec_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 5 + [p]
+        fn.argtypes = [p] * 5 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -124,12 +160,16 @@ def delta_matvec(dx, w, m, block_mask, *, block_i: int = 128,
     out = torch.empty((B, O), dtype=torch.float32, device=dx.device)
     if B == 0 or O == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (dx, w, m, out))
+    plan = matvec_launch_plan(B, I, O, block_i, block_o, dx.dtype, aligned)
     lib, fn = _launcher()
     with torch.cuda.device(dx.device):
         stream = torch.cuda.current_stream(dx.device).cuda_stream
         err = fn(dx.data_ptr(), w.data_ptr(), m.data_ptr(),
                  block_mask.data_ptr(), out.data_ptr(), B, I, O, block_i,
-                 int(dx.dtype == torch.bfloat16), stream)
+                 int(dx.dtype == torch.bfloat16), *plan["grid"],
+                 plan["threads"], COPY_CODES[plan["copy"]], plan["smem_bytes"],
+                 stream)
     build.check(lib, err, "delta_matvec kernel launch")
     delta_matvec.launches += 1
     return out

@@ -220,12 +220,32 @@ def batched_iir_fex_int_ref(x, coef, state, *, fmt, frame_shift: int = 128):
     return torch.stack(feats, dim=1).to(torch.int16), s.to(torch.int16)
 
 
+# The integer kernel's pipeline (csrc/iir_fex_int.cu): a CTA serves
+# FEX_INT_LANES (stream, channel) pairs with five warps (feed, section 0,
+# mid, section 1, envelope), which hand tiles of FEX_INT_TILE samples on
+# through FEX_INT_STAGES ring slots each.  The kernel launches with the
+# plan below and refuses one it cannot run.
+FEX_INT_LANES, FEX_INT_TILE, FEX_INT_STAGES, FEX_INT_THREADS = 32, 64, 2, 160
+
+
+def fex_int_launch_plan(B: int, C: int) -> dict:
+    """The integer FEx kernel's launch for B streams of C channels:
+    ``ctas`` (one per FEX_INT_LANES pairs), ``threads`` and dynamic
+    ``smem_bytes`` (the (P0, Q0), y0, (P1, Q1) and y1 rings)."""
+    if B < 1 or C < 1:
+        raise ValueError(f"batched_iir_fex_int: needs B >= 1 and C >= 1, "
+                         f"got B={B}, C={C}")
+    ring = FEX_INT_STAGES * FEX_INT_TILE * FEX_INT_LANES
+    return {"ctas": -(-B * C // FEX_INT_LANES), "threads": FEX_INT_THREADS,
+            "smem_bytes": ring * (8 + 4 + 8 + 4)}
+
+
 def _int_launcher():
     lib = build.load("iir_fex_int")
     fn = lib.iir_fex_int_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [i] * 12 + [f] * 4 + [p]
+        fn.argtypes = [p] * 5 + [i] * 12 + [f] * 4 + [i] * 3 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -275,6 +295,7 @@ def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128):
     if n_frames == 0 or B == 0 or C == 0:
         return feats, state
     state_out = torch.empty_like(state)
+    plan = fex_int_launch_plan(B, C)
     lib, fn = _int_launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -287,7 +308,8 @@ def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128):
                  fmt.a_frac, fmt.env_frac - fmt.sig_frac, fmt.alpha_frac,
                  fmt.alpha_code, fmt.eps_code, 2.0 ** -fmt.env_frac,
                  fmt.log_range, float(1 << fmt.feat_frac),
-                 1.0 - 2.0 ** -fmt.feat_frac, stream)
+                 1.0 - 2.0 ** -fmt.feat_frac, plan["ctas"], plan["threads"],
+                 plan["smem_bytes"], stream)
     build.check(lib, err, "iir_fex_int kernel launch")
     batched_iir_fex_int.launches += 1
     return feats, state_out

@@ -106,3 +106,78 @@ def test_untileable_shapes_raise(I, O, block_i, block_o):
         tdm.delta_matvec(z(2, I), z(I, O), z(2, O),
                          z(max(I // block_i, 1), dtype=torch.int32),
                          block_i=block_i, block_o=block_o)
+
+
+# ----------------------------------------------- the kernel's launch plan --
+SMEM_PER_BLOCK = 232_448          # an H100 thread block's shared memory
+TAILS = [(B, I, 640, bi, 128) for B in (1, 17, 255)
+         for I, bi in ((10, 10), (320, 64))]
+
+
+@pytest.mark.parametrize("B,I,O,block_i,block_o",
+                         TAILS + SWEEP + [(256, 256, 768, 128, 128),
+                                          (256, 10, 768, 10, 128),
+                                          (33, 96, 100, 32, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_covers_every_output(B, I, O, block_i, block_o, dtype):
+    """The grid's CTA tiles cover all B × O outputs and no tile lies wholly
+    outside them; shared memory fits a thread block; the copy path is the
+    one the kernel takes for these shapes."""
+    plan = tdm.matvec_launch_plan(B, I, O, block_i, block_o, dtype)
+    gx, gy = plan["grid"]
+    assert (gx - 1) * tdm.TILE_O < O <= gx * tdm.TILE_O
+    assert (gy - 1) * tdm.TILE_B < B <= gy * tdm.TILE_B
+    assert plan["threads"] % 32 == 0 and plan["smem_bytes"] <= SMEM_PER_BLOCK
+    if dtype == torch.bfloat16 or O % 4:
+        assert plan["copy"] == "plain"
+    elif I % 4 == 0 and block_i % tdm.TILE_K == 0:
+        assert plan["copy"] == "tma"
+    else:
+        assert plan["copy"] == "cp.async"
+    unaligned = tdm.matvec_launch_plan(B, I, O, block_i, block_o, dtype,
+                                       aligned=False)
+    assert unaligned["copy"] == "plain"
+
+
+def test_launch_plan_at_the_fallback_shape_fills_the_card():
+    """B=256, I=256, O=768: 12 × 22 = 264 CTAs of 2 warps, 528 warps for
+    the H100's 528 SM sub-partitions, slices copied by TMA."""
+    plan = tdm.matvec_launch_plan(256, 256, 768, 128, 128)
+    assert plan["grid"] == (12, 22) and plan["threads"] == 64
+    assert plan["grid"][0] * plan["grid"][1] * plan["threads"] // 32 == 528
+    assert plan["copy"] == "tma"
+
+
+@pytest.mark.parametrize("I,O,block_i,block_o", [(100, 128, 64, 128),
+                                                 (128, 100, 64, 64),
+                                                 (128, 128, 0, 128)])
+def test_launch_plan_refuses_what_the_reference_refuses(I, O, block_i,
+                                                        block_o):
+    with pytest.raises(ValueError, match="multiples"):
+        tdm.matvec_launch_plan(4, I, O, block_i, block_o)
+
+
+@pytest.mark.parametrize("B,I,O,block_i,block_o", TAILS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("last_only", [False, True])
+def test_tails_match_jax_oracle(B, I, O, block_i, block_o, dtype,
+                                last_only):
+    """The shapes the kernel's tiles leave ragged (rows that do not fill a
+    tile, slices of 10 rows, five blocks of 64), also with only the last
+    block active: the plain version against the JAX oracle."""
+    dx, w, m = _case(B, I, O, block_i, seed=B + I)
+    t_dx, t_w = torch.from_numpy(dx), torch.from_numpy(w)
+    if dtype == "bfloat16":
+        t_dx, t_w = t_dx.bfloat16(), t_w.bfloat16()
+    j_dx = jnp.asarray(t_dx.float().numpy()).astype(dtype)
+    j_w = jnp.asarray(t_w.float().numpy()).astype(dtype)
+    t_mask = tdm.make_block_mask(t_dx, block_i)
+    if last_only:
+        t_mask = torch.zeros_like(t_mask)
+        t_mask[-1] = 1
+    got = tdm.delta_matvec(t_dx, t_w, torch.from_numpy(m), t_mask,
+                           block_i=block_i, block_o=block_o)
+    want = jref.delta_matvec_ref(j_dx, j_w, jnp.asarray(m),
+                                 jnp.asarray(t_mask.numpy()), block_i)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)

@@ -365,3 +365,87 @@ def test_packed_int8_dot_exact_at_extremes():
                                     _t(w).float())
     _eq(pair, np.concatenate([want, want], -1).astype(np.int32))
     _eq(tfp._int_dot(_t(d), _t(w)), want.astype(np.int32))
+
+
+# ------------------------------- the integer FEx kernel's launch plan --
+@pytest.mark.parametrize("B,C", [(1, 10), (3, 10), (32, 10), (33, 10),
+                                 (256, 10), (5, 7)])
+def test_fex_int_launch_plan_covers_every_pair(B, C):
+    """One CTA per 32 (stream, channel) pairs: the grid covers every pair
+    and no CTA is empty; the rings fit a thread block's 227 KB."""
+    from repro_torch.kernels import iir_fex
+    plan = iir_fex.fex_int_launch_plan(B, C)
+    lanes = iir_fex.FEX_INT_LANES
+    assert (plan["ctas"] - 1) * lanes < B * C <= plan["ctas"] * lanes
+    assert plan["threads"] == 5 * 32 and plan["smem_bytes"] <= 232_448
+    # (P0, Q0) and (P1, Q1) int32 pairs, y0 and y1 int32: 24 bytes per
+    # sample and pair, for every ring slot of every tile sample.
+    assert plan["smem_bytes"] == (24 * iir_fex.FEX_INT_STAGES
+                                  * iir_fex.FEX_INT_TILE * lanes)
+    if (B, C) == (32, 10):
+        assert plan["ctas"] == 10          # spread over 10 SMs, not 3
+
+
+def test_fex_int_launch_plan_refuses_empty_batches():
+    from repro_torch.kernels import iir_fex
+    with pytest.raises(ValueError, match="B >= 1"):
+        iir_fex.fex_int_launch_plan(0, 10)
+
+
+def test_int_fex_one_bit_shifts_bit_exact(model):
+    """b_frac = a_frac = 1 with b0 = 2^18 - 1 (section 0) and 2^16 - 1
+    (section 1) and a2 = 2^16 - 1: at every -2048 sample each section's
+    rshift_round(-b0·v) + rshift_round(-a2·y) + 2^15 passes 2^31, the
+    case for which the CUDA kernel takes its wide instance.  The format
+    is accepted, and the plain version equals JAX's golden scan."""
+    from repro_torch.kernels import iir_fex
+    jb, tb = model
+    t_fmt = dataclasses.replace(tb.ffmt, b_frac=1, a_frac=1)
+    j_fmt = dataclasses.replace(jb.ffmt, b_frac=1, a_frac=1)
+    iir_fex._check_int_formats(t_fmt)
+    col = [(1 << 18) - 1, -3, (1 << 16) - 1, (1 << 16) - 1, 2, (1 << 16) - 1]
+    coef = np.repeat(np.array(col, np.int32)[:, None], 10, axis=1)
+    xs = 1 << (t_fmt.sig_frac - t_fmt.feat_frac)
+    q0 = (col[0] * 2048 * xs + 1) >> 1         # x = -2048 → y0 = -32768
+    r0 = (col[2] * 32768 + 1) >> 1
+    assert q0 + r0 + (1 << 15) >= 1 << 31
+    rng = np.random.default_rng(7)
+    codes = np.where(rng.random((3, 300)) < 0.5, 2047, -2048).astype(np.int16)
+    state = np.zeros((3, 5, 10), np.int16)
+    jf, js = jfp.int_fex_scan(jnp.asarray(codes), jnp.asarray(coef),
+                              jnp.asarray(state), j_fmt, frame_shift=128,
+                              backend="xla")
+    tf, ts = tfp.int_fex_scan(_t(codes), _t(coef), _t(state), t_fmt,
+                              frame_shift=128, backend="pallas")
+    _eq(tf, jf)
+    _eq(ts, js)
+    assert int(((ts[:, :4] == 32767) | (ts[:, :4] == -32768)).sum()) > 0
+
+
+@pytest.mark.parametrize("B,T,frame_shift,kind", [
+    (1, 300, 128, "speech"), (3, 203, 64, "speech"), (33, 140, 128, "speech"),
+    (4, 130, 37, "speech"), (2, 300, 128, "rails")])
+def test_int_fex_ragged_shapes_bit_exact(model, B, T, frame_shift, kind):
+    """The kernel's ragged launches — stream groups that do not fill a CTA,
+    T not a multiple of frame_shift or of 8, a frame_shift that splits its
+    64-sample tiles, and ±full-scale audio from registers at the 16-bit
+    rails — through the plain version, against JAX's golden scan."""
+    jb, tb = model
+    rng = np.random.default_rng(B * T)
+    if kind == "rails":
+        codes = np.where(rng.random((B, T)) < 0.5, 2047, -2048)
+        state = np.where(rng.random((B, 5, 10)) < 0.5, 32767, -32768)
+    else:
+        audio, _ = jgscd.synth_batch(np.random.default_rng(B), B)
+        codes = np.asarray(jfp.to_code(jnp.asarray(audio[:, 2500:2500 + T]),
+                                       11, 16, jnp.int16))
+        state = rng.integers(-3000, 3000, (B, 5, 10))
+    codes, state = codes.astype(np.int16), state.astype(np.int16)
+    jf, js = jfp.int_fex_scan(jnp.asarray(codes), jb.coef,
+                              jnp.asarray(state), jb.ffmt,
+                              frame_shift=frame_shift, backend="xla")
+    tf, ts = tfp.int_fex_scan(_t(codes), tb.coef, _t(state), tb.ffmt,
+                              frame_shift=frame_shift, backend="pallas")
+    assert tf.shape == (B, T // frame_shift, 10)
+    _eq(tf, jf)
+    _eq(ts, js)
