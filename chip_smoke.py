@@ -7,22 +7,31 @@
 
 Phases, each exiting non-zero on failure:
   1. the card's name and power limit; build all six CUDA kernels and the
-     iir_fex_int chain probe with nvcc (one process per source, all
-     started together) and print the build seconds and ptxas reports;
-     check the wrappers' shared-memory formulas against the kernels' own
-     (delta_matvec and iir_fex_int launch with the wrappers' plans and
-     refuse one they cannot run);
+     three chain probes (iir_fex, iir_fex_int, delta_gru_seq_int) with
+     nvcc (one process per source, all started together) and print the
+     build seconds and ptxas reports; check the wrappers' shared-memory
+     formulas against the kernels' own (iir_fex, iir_fex_int,
+     delta_gru_seq_int and delta_matvec launch with the wrappers' plans
+     and refuse one they cannot run);
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving shapes.  Float FEx: 12-bit codes, raw envelopes and
-     registers bit for bit.  Float ΔGRU: hs within 1e-5 absolute at
-     Δ_TH 0, 0.1 and 0.2 (transmit-count mismatches are counted).
-     Integer: FEx feature codes and registers over two carried chunks,
-     and at ragged shapes (B = 1, 3, 33; T not a multiple of frame_shift
-     or of 8; frame_shift 100; ±full-scale audio from registers at the
-     16-bit rails; one-bit b and a shifts, whose sums pass 2^31 in the
-     offset form), and the ΔGRU's hs codes, final h/x̂/ĥ/m_x/m_h and both
-     transmit counts at Δ_TH 0, 0.1, 0.2 and with accumulators started at the
-     24-bit rail — all exactly equal (tolerance 0).  delta_matvec: the
+     registers bit for bit over two carried chunks at B = 32 and 256, and
+     at ragged shapes and data (B = 1, 3, 33; T = 4096 + 37, 1000, an odd
+     row stride, a base off 16-byte alignment; frame_shift 100; raw
+     envelopes; registers decaying through the denormals; ±1 full-scale
+     audio; a NaN sample, whose NaN positions and bits must match).
+     Float ΔGRU: hs within 1e-5 absolute at Δ_TH 0, 0.1 and 0.2
+     (transmit-count mismatches are counted).  Integer: FEx feature codes
+     and registers over two carried chunks, and at ragged shapes (B = 1,
+     3, 33; T not a multiple of frame_shift or of 8; frame_shift 100;
+     ±full-scale audio from registers at the 16-bit rails; one-bit b and
+     a shifts, whose sums pass 2^31 in the offset form), and the ΔGRU's
+     hs codes, final h/x̂/ĥ/m_x/m_h and both transmit counts at Δ_TH 0,
+     0.1, 0.2, with accumulators started at the 24-bit rail, at B = 1, 3,
+     33, T = 1, 3, 100, thresholds 0, -1 (every row) and above every |Δ|
+     (no row), and at other widths with random weights (3H not a
+     multiple of 4, I > H, H = 128, the widest H admitted at I = 10) —
+     all exactly equal (tolerance 0).  delta_matvec: the
      reference's sweep shapes in float32 and bfloat16, the wide model's
      two shapes, and the CTA tile's tails (B = 1, 17, 255; O = 640;
      block_i = 10 and 64, each also with only the last block active)
@@ -39,10 +48,12 @@ Phases, each exiting non-zero on failure:
      the earlier slices), its plain version and, where one PyTorch call
      computes the same function, that call, beside the bound worked out
      from the shapes; for delta_matvec also its FMUL+FADD bound and its
-     time by copy path (TMA, cp.async, plain loads), for iir_fex_int its
-     chain bound (the chain probe's time per sample step
-     × 4096), and for both the previous kernels' times quoted from
-     PERF.md (not measured in the run);
+     time by copy path (TMA, cp.async, plain loads); for both FEx
+     kernels and the int ΔGRU their chain bounds (each chain probe's
+     time per sample step × 4096, or per frame × 32; the int ΔGRU's at
+     the rows the run's busiest stream sends per frame, and beside it the
+     densest frame's, every row sent), and the previous
+     kernels' times quoted from PERF.md (not measured in the run);
   4. serve 64 one-second requests on 32 slots at the paper model's full
      width through ``repro_torch.launch.serve``, once per numerics, and
      once at H=256, whose weights no thread block holds, through the
@@ -85,11 +96,16 @@ HS_ATOL = 1e-5                 # ΔGRU kernel vs plain, absolute
 SAT_MARGIN = 1 << 10           # int ΔGRU saturation case: start this close
 MATVEC_TOL = 1e-5              # delta_matvec vs plain, times (1 + |out|)
 WIDE_H = 256                   # a ΔGRU width no thread block holds
-# The previous delta_matvec and iir_fex_int kernels' device times on an
-# H100 80GB HBM3 at 700 W, quoted from PERF.md §6 beside this run's.
+# The device times of the kernels that the current iir_fex, iir_fex_int,
+# delta_gru_seq_int and delta_matvec replaced, on an H100 80GB HBM3 at
+# 700 W, quoted from PERF.md §6 beside this run's.
 PREVIOUS_MS = {("fex_int", 32): 0.1904, ("fex_int", 256): 0.1914,
-               ("matvec", 256): 0.0327, ("matvec", 10): 0.0043}
-CHAIN_STEPS = 1 << 20          # iir_fex_int chain probe: steps timed
+               ("matvec", 256): 0.0327, ("matvec", 10): 0.0043,
+               ("fex", 32): 0.1776, ("fex", 256): 0.1807,
+               ("gru_int", 32): 0.0550, ("gru_int", 256): 0.0580}
+CHAIN_STEPS = 1 << 20          # FEx chain probes: steps timed
+CHAIN_FRAMES = 32              # int ΔGRU chain probe: frames timed (a chunk)
+PROBES = ("iir_fex_chain", "iir_fex_int_chain", "delta_gru_seq_int_chain")
 
 
 def fail(msg: str) -> None:
@@ -276,6 +292,59 @@ def fex_int_chain_bound(torch, bundle, steps: int = CHUNK):
     return cycles, ns * steps / 1e6
 
 
+def fex_chain_bound(torch, coef, steps: int = CHUNK):
+    """The float FEx's chain bound: csrc/iir_fex_chain.cu runs the
+    kernel's section step CHAIN_STEPS times on one warp (register
+    operands, nothing else on the SM) with channel 0's section-0
+    coefficients; its time per step is the recursion's latency, and
+    ``steps`` of them the least time a chunk of ``steps`` samples can
+    take.  Returns (cycles per step, ms for ``steps`` steps)."""
+    from repro_torch.kernels import build
+    fn = build.load("iir_fex_chain").iir_fex_chain
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    c = coef.cpu()
+    out = (ctypes.c_longlong * 2)()
+    err = fn(CHAIN_STEPS, float(c[0, 0]), float(c[1, 0]), float(c[2, 0]),
+             out)
+    if err:
+        fail(f"iir_fex chain probe: CUDA error {err}")
+    cycles, ns = out[0] / CHAIN_STEPS, out[1] / CHAIN_STEPS
+    print(f"[time] iir_fex chain probe: {cycles:.2f} cycles, {ns:.3f} ns per "
+          f"sample step ({out[0] / out[1]:.3f} GHz), {steps} steps = "
+          f"{ns * steps / 1e6:.5f} ms")
+    return cycles, ns * steps / 1e6
+
+
+def gru_int_chain_bound(torch, gfmt, rows=(10, 64),
+                        frames: int = CHAIN_FRAMES):
+    """The integer ΔGRU's chain bound: csrc/delta_gru_seq_int_chain.cu runs
+    the kernel's per-frame critical path (Δ-encode, a column's sum over
+    the transmitted rows split over four lanes and recombined, alignment,
+    σ(r), the candidate, tanh, the blend) ``frames`` times on one warp with
+    the serving formats and ``rows`` = (x rows, h rows) sent per frame:
+    every one of the 74 by default, the densest frame; the least of five
+    runs (the first fills the instruction cache).  Returns (cycles per
+    frame, ms for ``frames`` frames)."""
+    from repro_torch.kernels import build
+    fn = build.load("delta_gru_seq_int_chain").delta_gru_seq_int_chain
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    runs = []
+    for _ in range(5):
+        out = (ctypes.c_longlong * 2)()
+        err = fn(frames, *rows, gfmt.shift_x, gfmt.shift_h, gfmt.acc_bits,
+                 gfmt.acc_frac, gfmt.hid_frac, out)
+        if err:
+            fail(f"delta_gru_seq_int chain probe: CUDA error {err}")
+        runs.append((out[0], out[1]))
+    cyc, ns = min(runs)
+    print(f"[time] delta_gru_seq_int chain probe, {rows[0]} x + {rows[1]} h "
+          f"rows per frame: {cyc / frames:.1f} cycles, {ns / frames:.1f} ns "
+          f"per frame ({cyc / ns:.3f} GHz), {frames} frames = "
+          f"{ns / 1e6:.5f} ms (runs: {', '.join(str(c) for c, _ in runs)} "
+          f"cycles)")
+    return cyc / frames, ns / 1e6
+
+
 def cell_bound(B, I, H, nz_total):
     """delta_gru_cell: x, h, x̂, ĥ, M_x, M_h in and out (x once), the
     weights once; the transmitted rows' multiply-adds and the gates."""
@@ -289,7 +358,7 @@ def cell_bound(B, I, H, nz_total):
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build((*build.KERNELS, "iir_fex_int_chain"))
+    built = build.build((*build.KERNELS, *PROBES))
     secs = time.perf_counter() - t0
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}")
     for name, b in built.items():
@@ -297,8 +366,8 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} libraries (six kernels and the "
-          f"iir_fex_int chain probe) built in {secs:.1f} s")
+    print(f"[build] {len(built)} libraries (six kernels and three chain "
+          f"probes) built in {secs:.1f} s")
     if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 6:
         fail(f"expected the six kernels {build.KERNELS}, built "
              f"{sorted(built)}")
@@ -321,24 +390,38 @@ def build_kernels():
     return secs
 
 
+def keyword_audio(torch, np, B, seed):
+    """12-bit keyword audio for B streams, two 4096-sample chunks each."""
+    from repro_torch.core.quantize import quantize_audio_12b
+    from repro_torch.data.gscd import synth_batch
+    audio, _ = synth_batch(np.random.default_rng(seed), B)
+    audio = np.concatenate([audio, audio[::-1]], axis=1)[:, :2 * CHUNK]
+    return quantize_audio_12b(torch.from_numpy(audio).cuda())
+
+
 def make_inputs(torch, np):
     """Serving-shaped inputs: 12-bit keyword audio for SLOTS streams (two
     4096-sample chunks each), the FEx bank, the full-width model."""
     from repro_torch.configs.deltakws import CONFIG
-    from repro_torch.core.quantize import quantize_audio_12b
-    from repro_torch.data.gscd import synth_batch
     from repro_torch.frontend.fex import FeatureExtractor
     from repro_torch.models import kws
-    audio, _ = synth_batch(np.random.default_rng(0), SLOTS)
-    audio = np.concatenate([audio, audio[::-1]], axis=1)[:, :2 * CHUNK]
-    x = quantize_audio_12b(torch.from_numpy(audio).cuda())
+    x = keyword_audio(torch, np, SLOTS, 0)
     fex = FeatureExtractor()
     params = kws.init_kws(torch.Generator().manual_seed(0), CONFIG,
                           input_dim=fex.cfg.n_active)
     return x, fex, params
 
 
+def bits_differ(torch, a, b) -> int:
+    """Elements of two float32 tensors whose bit patterns differ (a NaN
+    equals only a NaN with the same bits)."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
 def compare_fex(torch, x, fex):
+    """The float FEx kernel against its plain version over two chunks
+    with the state carried, compressed and raw: every bit equal."""
     from repro_torch.kernels import iir_fex
     cfg = fex.cfg
     coef = fex.coef.cuda()
@@ -364,8 +447,7 @@ def compare_fex(torch, x, fex):
             fp_all.append(fp)
         torch.cuda.synchronize()
         fk, fp = torch.cat(fk_all, 1), torch.cat(fp_all, 1)
-        mism = int((fk.view(torch.int32) != fp.view(torch.int32)).sum())
-        st_mism = int((sk.view(torch.int32) != sp.view(torch.int32)).sum())
+        mism, st_mism = bits_differ(torch, fk, fp), bits_differ(torch, sk, sp)
         err = (fk - fp).abs().max().item()
         print(f"[compare] iir_fex compress={compress} B={x.shape[0]} "
               f"S=2x{CHUNK} C={coef.shape[1]}: {mism} of {fk.numel()} "
@@ -379,6 +461,73 @@ def compare_fex(torch, x, fex):
             res["max_abs_err"] = err
             res["feats"] = fk
     return res
+
+
+def compare_fex_edges(torch, np, fex):
+    """The float FEx kernel against its plain version where the launch
+    plan or the data is unusual, every bit equal (tolerance 0; a NaN
+    equals only a NaN with the same bits): stream groups that do not fill
+    a CTA (B = 1, 3, 33); rows whose length or start is not a multiple
+    of 4 samples (the audio then comes sample by sample: T = 4096 + 37,
+    an odd row stride, a base 4 bytes off 16-byte alignment); T = 1000; a
+    frame_shift that splits the kernel's tiles; raw envelopes; registers
+    seeded near 1e-36 decaying in silence through the denormals, which
+    flush; ±1 full-scale audio; one stream with a NaN sample."""
+    from repro_torch.kernels import iir_fex
+    cfg = fex.cfg
+    coef = fex.coef.cuda()
+    C = coef.shape[1]
+    rng = np.random.default_rng(41)
+    speech = keyword_audio(torch, np, 33, 5)[:, :CHUNK + 64]
+    zero = lambda B: iir_fex.init_fex_kernel_state(B, C, "cuda")
+    gpu = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    misaligned = torch.empty(5 * 1000 + 1, device="cuda")[1:].view(5, 1000)
+    misaligned.copy_(speech[:5, 2000:3000])
+    tiny = 1e-36 * rng.standard_normal((3, 5, C))
+    tiny[:, 4] = np.abs(tiny[:, 4])
+    nan = speech[:3, :1000].clone()
+    nan[1, 517] = float("nan")
+    full = gpu(np.where(rng.random((4, 1000)) < 0.5, 1.0, -1.0))
+    cases = [("B=1", speech[:1, :CHUNK], zero(1), 128, True),
+             ("B=3 T=4096+37", speech[:3, :CHUNK + 37], zero(3), 128, True),
+             ("B=3 T=4096+37 raw", speech[:3, :CHUNK + 37], zero(3), 128,
+              False),
+             ("B=33 T=1000", speech[:, 3000:4000], zero(33), 128, True),
+             ("B=5 T=1001 (odd row stride)", speech[:5, :1001], zero(5), 128,
+              True),
+             ("B=5 T=1000 base 4 bytes off", misaligned, zero(5), 128, True),
+             ("B=5 frame_shift=100", speech[:5, :1000], zero(5), 100, True),
+             ("B=3 denormal decay in silence", gpu(np.zeros((3, 1024))),
+              gpu(tiny), 128, False),
+             ("B=4 full-scale ±1", full, zero(4), 128, True),
+             ("B=3 NaN sample in stream 1", nan, zero(3), 128, True),
+             ("B=3 NaN sample in stream 1 raw", nan, zero(3), 128, False)]
+    for label, x, st, fs, compress in cases:
+        if label.endswith("base 4 bytes off"):
+            if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+                fail("the misaligned FEx case is aligned or not contiguous")
+        else:
+            x = x.contiguous()
+        kw = dict(frame_shift=fs, env_alpha=cfg.env_alpha,
+                  log_eps=cfg.log_eps, compress=compress)
+        fk, sk = iir_fex.batched_iir_fex(x, coef, st, **kw)
+        fr, sr = iir_fex.batched_iir_fex_ref(x, coef, st, **kw)
+        torch.cuda.synchronize()
+        mism = bits_differ(torch, fk, fr) + bits_differ(torch, sk, sr)
+        nan_pos = int((torch.isnan(fk) != torch.isnan(fr)).sum()
+                      + (torch.isnan(sk) != torch.isnan(sr)).sum())
+        zeros = int((sr == 0).sum())
+        print(f"[compare] iir_fex {label}: {mism} of {fk.numel()} "
+              f"{'codes' if compress else 'envelopes'} and {sk.numel()} "
+              f"registers differ in any bit (tolerance 0); NaN positions "
+              f"differ at {nan_pos}; NaN outputs {int(torch.isnan(fr).sum())}"
+              f", registers exactly 0 after: {zeros}")
+        if mism or nan_pos:
+            fail(f"iir_fex {label} differs from its plain version")
+        if label.startswith("B=3 denormal") and zeros <= sr.numel() // 2:
+            fail("the denormal case did not flush the registers to 0")
+        if label.startswith("B=3 NaN") and not torch.isnan(fr[1]).any():
+            fail("the NaN case produced no NaN")
 
 
 def compare_gru(torch, feats, params):
@@ -441,6 +590,7 @@ def time_kernels(torch, x, fex, gru_res, fex_plain_ms):
             xb, coef, st, **kw))
         out[("fex", B)] = (ms, *fex_bound(B, CHUNK, C), call)
     out[("fex_plain", SLOTS)] = fex_plain_ms
+    out["fex_chain"] = fex_chain_bound(torch, coef)
 
     gru = gru_res["gru"]
     th = 0.1
@@ -457,17 +607,38 @@ def time_kernels(torch, x, fex, gru_res, fex_plain_ms):
         if B == SLOTS:
             out[("gru_plain", SLOTS)] = cuda_ms(
                 torch, lambda: dgs.delta_gru_seq_ref(*args), 10, warmup=2)
-    for kind, steps, what in (("fex", CHUNK, "dependent samples"),
-                              ("gru", 32, "dependent frames")):
+    print_times(out, (("fex", CHUNK, "dependent samples"),
+                      ("gru", 32, "dependent frames")))
+    return out
+
+
+def print_times(out, kinds):
+    """One line per kernel and batch: device and per-call time, roofline
+    bound, time per chain step; for a kernel with a chain probe its chain
+    bound and ratio, and the previous kernel's time quoted from PERF.md."""
+    for kind, steps, what in kinds:
         for B in (SLOTS, ALWAYS_ON_SLOTS):
             ms, bnd, by, call = out[(kind, B)]
+            extra = ""
+            if kind + "_chain" in out:
+                chain_ms, *rows = out[kind + "_chain"][1:]
+                at = (f" at this run's rows ({rows[0][0]} x + {rows[0][1]} h "
+                      f"per frame)" if rows else "")
+                extra = (f"; chain bound{at} {chain_ms:.5f} ms "
+                         f"({ms / chain_ms:.2f}x)")
+            if kind + "_chain_every_row" in out:
+                dense_ms = out[kind + "_chain_every_row"][1]
+                extra += (f", with every row sent {dense_ms:.5f} ms "
+                          f"({ms / dense_ms:.2f}x)")
+            if (kind, B) in PREVIOUS_MS:
+                extra += (f"; previous kernel {PREVIOUS_MS[(kind, B)]:.4f} "
+                          f"ms (quoted from PERF.md, not measured here)")
             print(f"[time] {kind} B={B}: kernel {ms:.4f} ms on the device "
                   f"({call:.4f} ms per call with the wrapper), bound "
                   f"{bnd:.5f} ms ({by}), serial chain {steps} {what}: "
-                  f"{ms * 1e6 / steps:.1f} ns per step")
+                  f"{ms * 1e6 / steps:.1f} ns per step{extra}")
         print(f"[time] {kind} B={SLOTS}: plain version "
               f"{out[(kind + '_plain', SLOTS)]:.2f} ms")
-    return out
 
 
 # ------------------------------------------------------- int8 phases --
@@ -641,6 +812,93 @@ def compare_gru_int(torch, feats, bundle):
             "bundle": bundle}
 
 
+def widest_int_h(I: int) -> int:
+    """The widest hidden size check_int_kernel_fits admits at input
+    width I."""
+    from repro_torch.kernels import delta_gru_seq as dgs
+    best = 0
+    for H in range(1, dgs.MAX_THREADS // 3 + 1):
+        try:
+            dgs.check_int_kernel_fits(I, H)
+        except ValueError:
+            continue
+        best = H
+    return best
+
+
+def compare_gru_int_edges(torch, np, feats, bundle):
+    """Integer ΔGRU kernel vs its plain version where the launch or the
+    data is unusual, every output identical (tolerance 0): stream counts
+    that are not the serving batch (B = 1, 3, 33), chunks of T = 1, 3 and
+    100 frames (100 > the 32 frames staged at a time), a threshold of 0,
+    one of -1 (every row sent, zero deltas too), one above every |Δ|
+    (nothing sent), and other widths with random int8 weights and codes:
+    3H not a multiple of 4 or 16 (weights staged byte by byte), I > H,
+    H = 128, and the widest H that check_int_kernel_fits admits at
+    I = 10."""
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import delta_gru_seq as dgs
+    w, gfmt = bundle.gru, bundle.gfmt
+    xs_all = feats.movedim(1, 0).contiguous()           # (2T, B, 10)
+    th = gfmt.th_codes(0.1)
+    rng = np.random.default_rng(43)
+
+    def random_model(I, H, B, T):
+        wx = rng.integers(-128, 128, (I, 3 * H))
+        wh = rng.integers(-128, 128, (H, 3 * H))
+        b = rng.integers(-(1 << 18), 1 << 18, 3 * H)
+        steps = rng.integers(-300, 301, (T, B, I)) * (rng.random((T, B, I))
+                                                      < 0.4)
+        xs = np.clip(np.cumsum(steps, 0), -2048, 2047)
+        cuda = lambda a, dt: torch.from_numpy(a.astype(dt)).cuda()
+        return (fp.IntGruWeights(cuda(wx, np.int8), cuda(wh, np.int8),
+                                 cuda(b, np.int32)),
+                cuda(xs, np.int16))
+
+    serve = lambda T, B: xs_all[:T, :B] if B <= xs_all.shape[1] else \
+        torch.cat([xs_all[:T]] * -(-B // xs_all.shape[1]), 1)[:, :B]
+    long_xs = torch.cat([xs_all, xs_all.flip(0)])[:100]
+    cases = [("B=1", w, serve(32, 1), th),
+             ("B=3", w, serve(32, 3), th),
+             ("B=33", w, serve(32, 33), th),
+             ("T=1", w, serve(1, 32), th),
+             ("T=3", w, serve(3, 32), th),
+             ("T=100", w, long_xs, th),
+             ("th=0", w, serve(32, 32), (0, 0)),
+             ("th=-1 (every row sent)", w, serve(32, 32), (-1, -1)),
+             ("th above every |Δ| (nothing sent)", w, serve(32, 32),
+              (1 << 17, 1 << 17))]
+    for I, H, B, T in ((7, 5, 3, 32), (40, 100, 5, 32), (96, 32, 4, 40),
+                       (16, 128, 33, 32), (10, widest_int_h(10), 3, 32)):
+        wr, xr = random_model(I, H, B, T)
+        cases.append((f"I={I} H={H} B={B} T={T} random", wr, xr, th))
+    for label, wc, xs, tcodes in cases:
+        xs = xs.contiguous()
+        T, B, I = xs.shape
+        H = wc.w_h.shape[0]
+        st = tuple(fp.init_int_delta_state(B, I, H, wc))
+        hk, sk, nxk, nhk = dgs.delta_gru_seq_int(xs, *st, wc.w_x, wc.w_h,
+                                                 tcodes, fmt=gfmt)
+        hp, sp, nxp, nhp = dgs.delta_gru_seq_int_ref(xs, *st, wc.w_x,
+                                                     wc.w_h, tcodes,
+                                                     fmt=gfmt)
+        torch.cuda.synchronize()
+        mism = {"hs": int((hk != hp).sum()),
+                "state": sum(int((a != r).sum()) for a, r in zip(sk, sp)),
+                "nz": int((nxk != nxp).sum() + (nhk != nhp).sum())}
+        sent = int(nxp.sum() + nhp.sum())
+        print(f"[compare] delta_gru_seq_int {label} (codes {tcodes}): T={T} "
+              f"B={B} I={I} H={H}, mismatches {mism} (tolerance 0); "
+              f"transmitted {sent} of {T * B * (I + H)}")
+        if any(mism.values()):
+            fail(f"delta_gru_seq_int {label} differs from its plain "
+                 f"version: {mism}")
+        if label.startswith("th=-1") and sent != T * B * (I + H):
+            fail("th=-1 did not send every row")
+        if label.startswith("th above") and sent:
+            fail("a threshold above every |Δ| sent rows")
+
+
 def time_int_kernels(torch, x, gru_res, fex_bundle, fex_int_plain_ms):
     from repro_torch.core import fixed_point as fp
     from repro_torch.kernels import delta_gru_seq as dgs
@@ -667,6 +925,9 @@ def time_int_kernels(torch, x, gru_res, fex_bundle, fex_int_plain_ms):
         args = (xs, *st, w.w_x, w.w_h, th)
         _, _, nzx, nzh = dgs.delta_gru_seq_int(*args, fmt=gfmt)
         nz_total = int(nzx.sum().item() + nzh.sum().item())
+        if B == SLOTS:     # the busiest stream's rows per frame, rounded up
+            data_rows = tuple(-(-int(n.sum(0).max().item()) // T)
+                              for n in (nzx, nzh))
         ms, call = kernel_ms(torch, lambda: dgs.delta_gru_seq_int(
             *args, fmt=gfmt))
         out[("gru_int", B)] = (ms, *gru_int_bound(T, B, I, H, nz_total),
@@ -675,22 +936,12 @@ def time_int_kernels(torch, x, gru_res, fex_bundle, fex_int_plain_ms):
             out[("gru_int_plain", SLOTS)] = cuda_ms(
                 torch, lambda: dgs.delta_gru_seq_int_ref(*args, fmt=gfmt),
                 10, warmup=2)
-    cycles, chain_ms = fex_int_chain_bound(torch, fex_bundle)
-    out["fex_int_chain"] = (cycles, chain_ms)
-    for kind, steps, what in (("fex_int", CHUNK, "dependent samples"),
-                              ("gru_int", 32, "dependent frames")):
-        for B in (SLOTS, ALWAYS_ON_SLOTS):
-            ms, bnd, by, call = out[(kind, B)]
-            extra = (f"; chain bound {chain_ms:.5f} ms ({ms / chain_ms:.2f}x"
-                     f"); previous kernel {PREVIOUS_MS[(kind, B)]:.4f} ms "
-                     f"(quoted from PERF.md, not measured here)"
-                     if kind == "fex_int" else "")
-            print(f"[time] {kind} B={B}: kernel {ms:.4f} ms on the device "
-                  f"({call:.4f} ms per call with the wrapper), bound "
-                  f"{bnd:.5f} ms ({by}), serial chain {steps} {what}: "
-                  f"{ms * 1e6 / steps:.1f} ns per step{extra}")
-        print(f"[time] {kind} B={SLOTS}: plain version "
-              f"{out[(kind + '_plain', SLOTS)]:.2f} ms")
+    out["fex_int_chain"] = fex_int_chain_bound(torch, fex_bundle)
+    out["gru_int_chain"] = (*gru_int_chain_bound(torch, gfmt, data_rows),
+                            data_rows)
+    out["gru_int_chain_every_row"] = gru_int_chain_bound(torch, gfmt)
+    print_times(out, (("fex_int", CHUNK, "dependent samples"),
+                      ("gru_int", 32, "dependent frames")))
     return out
 
 
@@ -1215,11 +1466,14 @@ def main() -> int:
 
     x, fex, params = make_inputs(torch, np)
     fex_res = compare_fex(torch, x, fex)
+    compare_fex(torch, keyword_audio(torch, np, ALWAYS_ON_SLOTS, 2), fex)
+    compare_fex_edges(torch, np, fex)
     gru_res = compare_gru(torch, fex_res["feats"], params)
     bundle = promote(params, fex)
     fex_int_res = compare_fex_int(torch, x, bundle)
     compare_fex_int_tails(torch, np, bundle)
     gru_int_res = compare_gru_int(torch, fex_int_res["feats"], bundle)
+    compare_gru_int_edges(torch, np, fex_int_res["feats"], bundle)
     times = time_kernels(torch, x, fex, gru_res, fex_res["plain_ms"])
     times.update(time_int_kernels(torch, x, gru_int_res, bundle,
                                   fex_int_res["plain_ms"]))
@@ -1265,11 +1519,17 @@ def main() -> int:
             "bound_ms_b256": times[(kind, ALWAYS_ON_SLOTS)][1],
             "shape": (f"B={SLOTS} S={CHUNK} C={C}" if kind.startswith("fex")
                       else f"T=32 B={SLOTS} I={C} H={H}")})
-        if kind == "fex_int":
-            cycles, chain_ms = times["fex_int_chain"]
+        if kind + "_chain" in times:
+            cycles, chain_ms, *rows = times[kind + "_chain"]
+            unit = "frame" if kind == "gru_int" else "sample"
             kernels[-1].update({
                 "chain_bound_ms": chain_ms,
-                "chain_cycles_per_sample": cycles})
+                f"chain_cycles_per_{unit}": cycles})
+            if rows:
+                kernels[-1].update({
+                    "chain_rows_per_frame": list(rows[0]),
+                    "chain_bound_ms_every_row":
+                        times[kind + "_chain_every_row"][1]})
     ms, plain, lib, bnd, by, call, fmul = times[("matvec", WIDE_H)]
     ms10, plain10, lib10, bnd10, by10, _, _ = times[("matvec", 10)]
     kernels.append({

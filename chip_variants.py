@@ -1,0 +1,699 @@
+#!/usr/bin/env python3
+"""Time variants of the float FEx and integer ΔGRU kernels on one GPU.
+
+    python3 chip_variants.py
+
+Each variant is the committed kernel source (``src/repro_torch/csrc``)
+with a few textual replacements, listed below with what they change:
+design alternatives, which must give the committed kernel's outputs bit
+for bit, and ablations, which drop one stage's work to show what that
+stage costs (their outputs are wrong by construction and only timed).
+A variant that changes the kernel's shared-memory layout also names the
+wrapper constants its launch plan needs, set while it runs.
+Every variant is built with the repository's nvcc flags, swapped in for
+the committed library behind the same wrapper, and timed on the device
+(20 calls in a CUDA graph, the median of 20 replays, as in
+``chip_smoke.py``) in the order committed, variants, variants reversed,
+committed, at the serving shapes: the FEx on B = 32 and 256 streams of a
+4096-sample chunk, the ΔGRU on 32 frames of B = 32 and 256 streams at
+Δ_TH 0.1.  Then each kernel once more with clock64() stamps: in the
+FEx each warp's cycles and those it waits at barriers and for its
+copies, in the ΔGRU thread 0's cycles in each step of the frame (the
+stamps themselves add a little).  Prints one line per timing
+and a JSON summary as the last line.  Needs one CUDA GPU and nvcc; exits
+2 without a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+# ------------------------------------------------------- FEx variants --
+_FEED_LOOP = """        float* dst = &sm.x[slot][lane][0];
+        if (t >= kXStages) bar_sync(x_empty(slot));
+        if (a.x_vec) {
+          for (int v = 0; v < n; v += 4) cp_async16(dst + v, xb + k0 + v);
+        } else {
+          for (int k = 0; k < n; ++k) cp_async4(dst + k, xb + k0 + k);
+        }"""
+_FEED_PER_STREAM = """        if (t >= kXStages) bar_sync(x_empty(slot));
+        const int b_first = (blockIdx.x * kLanes) / C;
+        const int ns = min(a.B - 1, (blockIdx.x * kLanes + kLanes - 1) / C)
+                       - b_first + 1;
+        const int per = a.x_vec ? (n + 3) / 4 : n, w = a.x_vec ? 4 : 1;
+        for (int i = lane; i < ns * per; i += kLanes) {
+          const int r = i / per, v = (i - r * per) * w;
+          const float* src = a.x + static_cast<size_t>(b_first + r) * a.T
+                             + k0 + v;
+          if (a.x_vec) cp_async16(&sm.x[slot][r][v], src);
+          else cp_async4(&sm.x[slot][r][v], src);
+        }"""
+_SEC0_LOOP = """    for (int t = 0; t < n_tiles; ++t) {
+      const int xslot = t % kXStages, slot = t % kStages;"""
+_SEC0_OWN_COPIES = """    const float* xb = a.x + static_cast<size_t>(b) * a.T;
+    const auto issue = [&](int t) {
+      if (t < n_tiles) {
+        const int k0 = t * kTile, n = min(kTile, S - k0);
+        float* dst = &sm.x[t % kXStages][lane][0];
+        if (a.x_vec) {
+          for (int v = 0; v < n; v += 4) cp_async16(dst + v, xb + k0 + v);
+        } else {
+          for (int k = 0; k < n; ++k) cp_async4(dst + k, xb + k0 + k);
+        }
+      }
+      cp_async_commit();
+    };
+    issue(0);
+    issue(1);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int xslot = t % kXStages, slot = t % kStages;
+      issue(t + 2);
+      cp_async_wait<2>();"""
+_ENV_RUN = """        run_tile(in, [&](float4 v, int) {
+          step(v.x);
+          step(v.y);
+          step(v.z);
+          step(v.w);
+        });"""
+_SECTION4 = """  const float y0 = sec(v.x);         // one statement each: the steps are
+  const float y1 = sec(v.y);         // sequential in the state
+  const float y2 = sec(v.z);
+  const float y3 = sec(v.w);
+  *reinterpret_cast<float4*>(out) = make_float4(y0, y1, y2, y3);"""
+
+
+def _no_feed_warp(src: str) -> str:
+    """Warp 0 idles; section 0 copies its own audio, two tiles ahead."""
+    start = src.index("  if (warp == 0) {")
+    end = src.index("  } else if (warp == 1) {")
+    src = src[:start] + "  if (warp == 0) {\n" + src[end:]
+    src = src.replace(_SEC0_LOOP, _SEC0_OWN_COPIES)
+    src = src.replace("      bar_sync(x_full(xslot));\n", "")
+    return src.replace(
+        "      if (t + kXStages < n_tiles) bar_arrive(x_empty(xslot));\n", "")
+
+
+def _fex_consts(tile: int, ahead: int):
+    """Tiles of `tile` samples with `ahead` audio tiles in flight (at most
+    kXStages - 1 = 3: the feed must not wait for a slot whose tile it has
+    not yet published)."""
+    return lambda s: s.replace(
+        "constexpr int kTile = 64;", f"constexpr int kTile = {tile};").replace(
+        "constexpr int kXAhead = 2;", f"constexpr int kXAhead = {ahead};")
+
+
+# clock64() in lane 0 of each warp, summed over the CTAs in g_fex: [0]
+# the warp's whole run, [1] its time in bar.sync, [2] in cp.async.wait_group.
+FEX_ROLES = ("feed", "section 0", "section 1", "envelope")
+_FEX_STAMPS = (
+    ("__device__ __forceinline__ void bar_sync(int id) {\n"
+     '  asm volatile("bar.sync %0, 64;\\n" ::"r"(id) : "memory");\n}\n',
+     "__device__ unsigned long long g_fex[3][4];\n"
+     "__device__ __forceinline__ void stamp(int k, long long c0) {\n"
+     "  if ((threadIdx.x & 31) == 0) {\n"
+     "    atomicAdd(&g_fex[k][threadIdx.x / 32],\n"
+     "              static_cast<unsigned long long>(clock64() - c0));\n"
+     "  }\n}\n"
+     "__device__ __forceinline__ void bar_sync(int id) {\n"
+     "  const long long c0 = clock64();\n"
+     '  asm volatile("bar.sync %0, 64;\\n" ::"r"(id) : "memory");\n'
+     "  stamp(1, c0);\n}\n"),
+    ('  asm volatile("cp.async.wait_group %0;\\n" ::"n"(kPending) : '
+     '"memory");\n',
+     "  const long long c0 = clock64();\n"
+     '  asm volatile("cp.async.wait_group %0;\\n" ::"n"(kPending) : '
+     '"memory");\n  stamp(2, c0);\n'),
+    ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n",
+     "  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+     "  const long long k_start = clock64();\n"),
+    ("    if (active) st_out[4 * C] = env;\n  }\n}\n",
+     "    if (active) st_out[4 * C] = env;\n  }\n  stamp(0, k_start);\n}\n"),
+)
+_READ_FEX = """
+extern "C" int read_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_fex, sizeof(g_fex));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static const unsigned long long zero[12] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_fex, zero, sizeof(zero)));
+}
+"""
+
+
+def _fex_stamps(src: str) -> str:
+    for old, new in _FEX_STAMPS:
+        if src.count(old) != 1:
+            raise SystemExit(f"FEx stamps: anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    return src + _READ_FEX
+
+
+_RUN_TILE = """  float4 a0 = v[0], a1 = v[1];
+#pragma unroll
+  for (int g = 0; g < kTile; g += 16) {
+    const float4 b0 = v[g / 4 + 2], b1 = v[g / 4 + 3];
+    fn(a0, g);
+    fn(a1, g + 4);
+    if (g + 16 < kTile) {
+      a0 = v[g / 4 + 4];
+      a1 = v[g / 4 + 5];
+    }
+    fn(b0, g + 8);
+    fn(b1, g + 12);
+  }"""
+_RUN_TILE_16_AHEAD = """  float4 a0 = v[0], a1 = v[1], a2 = v[2], a3 = v[3];
+#pragma unroll
+  for (int g = 0; g < kTile; g += 32) {
+    const float4 b0 = v[g / 4 + 4], b1 = v[g / 4 + 5], b2 = v[g / 4 + 6],
+                 b3 = v[g / 4 + 7];
+    fn(a0, g);
+    fn(a1, g + 4);
+    fn(a2, g + 8);
+    fn(a3, g + 12);
+    if (g + 32 < kTile) {
+      a0 = v[g / 4 + 8];
+      a1 = v[g / 4 + 9];
+      a2 = v[g / 4 + 10];
+      a3 = v[g / 4 + 11];
+    }
+    fn(b0, g + 16);
+    fn(b1, g + 20);
+    fn(b2, g + 24);
+    fn(b3, g + 28);
+  }"""
+_FEED_COPIES = """        if (a.x_vec) {
+          for (int v = 0; v < n; v += 4) cp_async16(dst + v, xb + k0 + v);
+        } else {
+          for (int k = 0; k < n; ++k) cp_async4(dst + k, xb + k0 + k);
+        }"""
+
+
+def _ahead16(src: str) -> str:
+    """Ring rows read 16 samples before their use (32-sample iterations)
+    instead of 8."""
+    return src.replace(_RUN_TILE, _RUN_TILE_16_AHEAD)
+
+
+_MERGED = """  } else {                         // @WHAT and the envelope
+@SETUP
+    float env = st_in[4 * C];
+    float* fb = a.feats + static_cast<size_t>(b) * a.n_frames * C + c;
+    int f = 0, to_boundary = a.frame_shift;
+    const auto step = [&](float v) {
+      env = fex::envelope_step(env, @CHAIN, a.one_minus_alpha, a.env_alpha);
+    };
+    const auto emit = [&]() {
+      if (active) {
+        fb[static_cast<size_t>(f) * C] =
+            a.compress ? compress_env(env, a.log_eps) : env;
+      }
+      ++f;
+      to_boundary = a.frame_shift;
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      const int slot = t % @SLOTS;
+      const int n = min(kTile, S - t * kTile);
+      const float* in = &sm.@RING[slot][lane][0];
+      bar_sync(@FULL(slot));
+      if (n == kTile && to_boundary >= kTile) {   // no frame ends inside
+        run_tile(in, [&](float4 v, int) {
+          step(v.x);
+          step(v.y);
+          step(v.z);
+          step(v.w);
+        });
+        to_boundary -= kTile;
+        if (to_boundary == 0) emit();
+      } else {
+        for (int k = 0; k < n; ++k) {
+          step(in[k]);
+          if (--to_boundary == 0) emit();
+        }
+      }
+      if (t + @SLOTS < n_tiles) bar_arrive(@EMPTY(slot));
+    }
+    if (active) {
+@STORE
+      st_out[4 * C] = env;
+    }
+  }
+}
+"""
+
+
+def _section_code(name: str, k: int) -> tuple[str, str]:
+    """Set-up and state store of section k (0 or 1) held in `name`."""
+    setup = (f"    fex::Section {name};\n"
+             f"    {name}.b0 = a.coef[{3 * k} * C + c];\n"
+             f"    {name}.na1 = -a.coef[{3 * k + 1} * C + c];\n"
+             f"    {name}.nb0 = -{name}.b0;\n"
+             f"    {name}.a2 = a.coef[{3 * k + 2} * C + c];\n"
+             f"    {name}.r1 = st_in[{2 * k} * C];\n"
+             f"    {name}.r2 = st_in[{2 * k + 1} * C];")
+    store = (f"      st_out[{2 * k} * C] = {name}.r1;\n"
+             f"      st_out[{2 * k + 1} * C] = {name}.r2;")
+    return setup, store
+
+
+def _merged(first: int):
+    """One warp runs the sections from section `first` on, and the
+    envelope: all three on the audio ring (two warps in all, no y0 / y1
+    rings) for first = 0, section 1 and the envelope on the y0 ring
+    (three warps, no y1 ring) for first = 1."""
+    secs = [_section_code(f"s{k}", k) for k in range(first, 2)]
+    fields = {
+        "@WHAT": "sections 0 and 1" if first == 0 else "section 1",
+        "@SETUP": "\n".join(setup for setup, _ in secs),
+        "@STORE": "\n".join(store for _, store in secs),
+        "@CHAIN": "s1(s0(v))" if first == 0 else "s1(v)",
+        "@SLOTS": "kXStages" if first == 0 else "kStages",
+        "@RING": "x" if first == 0 else "y0",
+        "@FULL": "x_full" if first == 0 else "y_full(0, ",
+        "@EMPTY": "x_empty" if first == 0 else "y_empty(0, "}
+    code = _MERGED
+    for key, value in fields.items():
+        code = code.replace(key, value)
+    code = code.replace("y_full(0, (slot)", "y_full(0, slot)").replace(
+        "y_empty(0, (slot)", "y_empty(0, slot)")
+
+    def patch(src: str) -> str:
+        start = src.index("  } else if (warp == %d) {" % (first + 1))
+        end_mark = "    if (active) st_out[4 * C] = env;\n  }\n}\n"
+        end = src.index(end_mark) + len(end_mark)
+        src = src[:start] + code + src[end:]
+        src = src.replace("constexpr int kWarps = 4; ",
+                          f"constexpr int kWarps = {first + 2}; ")
+        for ring in ("y0", "y1")[first:]:
+            line = next(ln for ln in src.splitlines(True)
+                        if ln.startswith(f"  float {ring}[kStages]"))
+            src = src.replace(line, "")
+        return src
+    return patch
+
+
+# name: (must equal the committed kernel bit for bit, source patch[,
+# wrapper constants for the launch plan]).
+FEX_VARIANTS = {
+    "tile loop rolled (16 samples per iteration)": (True, lambda s: s.replace(
+        "#pragma unroll\n  for (int g = 0; g < kTile; g += 16) {",
+        "#pragma unroll 1\n  for (int g = 0; g < kTile; g += 16) {")),
+    "tile loop unrolled by two": (True, lambda s: s.replace(
+        "#pragma unroll\n  for (int g = 0; g < kTile; g += 16) {",
+        "#pragma unroll 2\n  for (int g = 0; g < kTile; g += 16) {")),
+    "section 1 and the envelope in one warp": (
+        True, _merged(1), {"FEX_THREADS": 96, "FEX_STAGES": 1}),
+    "one warp runs both sections and the envelope": (
+        True, _merged(0), {"FEX_THREADS": 64, "FEX_STAGES": 0}),
+    "ring loads 16 samples ahead": (True, _ahead16),
+    "ring loads 16 samples ahead, tiles of 128": (
+        True, lambda s: _ahead16(_fex_consts(128, 2)(s)), {"FEX_TILE": 128}),
+    "ablation: feed copies nothing": (
+        False, lambda s: s.replace(_FEED_COPIES, "        (void)dst;")),
+    "tiles of 128 samples": (True, _fex_consts(128, 2), {"FEX_TILE": 128}),
+    "3 audio tiles in flight": (True, _fex_consts(64, 3)),
+    "tiles of 128, 3 in flight": (True, _fex_consts(128, 3),
+                                  {"FEX_TILE": 128}),
+    "feed copies one row per stream": (True, lambda s: s.replace(
+        _FEED_LOOP, _FEED_PER_STREAM).replace(
+        "const float* in = &sm.x[xslot][lane][0];",
+        "const float* in = &sm.x[xslot][b - (blockIdx.x * kLanes) / C][0];")),
+    "no feed warp: section 0 copies its audio": (True, _no_feed_warp),
+    "ablation: envelope does no per-sample work": (
+        False, lambda s: s.replace(_ENV_RUN, "{}")),
+    "ablation: sections pass samples through, envelope idle": (
+        False, lambda s: s.replace(_ENV_RUN, "{}").replace(
+            _SECTION4, "  *reinterpret_cast<float4*>(out) = v;")),
+}
+
+# ------------------------------------------------------ ΔGRU variants --
+_GATES = """      hcur = gates(mxs[j], mhs[j], mxs[H + j], mhs[H + j], mxs[2 * H + j],
+                   mhs[2 * H + j], hcur, gc);"""
+_TRIVIAL_GATES = """      hcur = (mxs[j] + mhs[j] + mxs[H + j] + mhs[H + j] + mxs[2 * H + j]
+              + mhs[2 * H + j]) >> 12;"""
+_ROW_SUMS = """    for (int w = 0; w < L.sx; ++w) {
+      row_sums(px, lx + w * 32, cnt[w], s, wx + col_off);
+    }
+    for (int w = 0; w < L.sh; ++w) {
+      row_sums(ph, lh + w * 32, cnt[L.sx + w], s, wh + col_off);
+    }"""
+_REDUCE = """    const uint32_t sum_x = reduce_scatter(px, s);
+    const uint32_t sum_h = reduce_scatter(ph, s);"""
+
+
+_ATOMIC_COUNTS = (
+    "      if (lane == 0 && m != 0u) atomicAdd(&a.nz_dx[row], __popc(m));\n",
+    "      if (lane == 0 && m != 0u) atomicAdd(&a.nz_dh[row], __popc(m));\n",
+    "  for (int f = j; f < T; f += blockDim.x) {\n"
+    "    a.nz_dx[static_cast<size_t>(f) * B + b] = 0;\n"
+    "    a.nz_dh[static_cast<size_t>(f) * B + b] = 0;\n"
+    "  }\n")
+_SUMMED_COUNTS = """    if (COUNTER) {      // the transmit counts
+      int nx = 0, nh = 0;
+      for (int w = 0; w < L.sx; ++w) nx += cnt[w];
+      for (int w = 0; w < L.sh; ++w) nh += cnt[L.sx + w];
+      a.nz_dx[row] = nx;
+      a.nz_dh[row] = nh;
+    }
+"""
+
+
+def _summed_counts(counter: str):
+    """The transmit counts summed from the warp counts by one thread after
+    the first barrier and stored, instead of added by the encoding warps'
+    atomics."""
+    def patch(src: str) -> str:
+        for line in _ATOMIC_COUNTS:
+            if src.count(line) != 1:
+                raise SystemExit(f"summed counts: not found once: {line!r}")
+            src = src.replace(line, "")
+        anchor = "    __syncthreads();\n\n    // 2. Column sums"
+        return src.replace(anchor, "    __syncthreads();\n" + _SUMMED_COUNTS
+                           .replace("COUNTER", counter) + "\n    // 2. Column sums")
+    return patch
+
+
+_X_LAST = (          # (first warps, last warps)
+    ("  const int warp = j >> 5;\n",
+     "  const int warp = j >> 5;\n"
+     "  const int xwarp = warp - (static_cast<int>(blockDim.x >> 5) - L.sx);\n"
+     "  const int xj = xwarp * 32 + lane;   // this thread's x component\n"),
+    ("(static_cast<size_t>(t0) * B + b) * I + j;",
+     "(static_cast<size_t>(t0) * B + b) * I + xj;"),
+    ("      xst[f * I + j] = src[", "      xst[f * I + xj] = src["),
+    ("  if (j < I) {\n    xhat = a.xh0[b * I + j];",
+     "  if (xwarp >= 0 && xj < I) {\n    xhat = a.xh0[b * I + xj];"),
+    ("    if (tf == 0 && t > 0 && j < I) stage_x(t);",
+     "    if (tf == 0 && t > 0 && xwarp >= 0 && xj < I) stage_x(t);"),
+    ("""    if (warp < L.sx) {
+      int32_t d = 0;
+      const bool sent = j < I && encode(xst[tf * I + j], xhat, a.th_x, d);
+      const unsigned m = __ballot_sync(0xffffffffu, sent);
+      if (sent) lx[warp * 32 + __popc(m & lanes_below)] = make_int2(d, j * L.pitch);
+      if (lane == 0) cnt[warp] = __popc(m);""",
+     """    if (xwarp >= 0) {
+      int32_t d = 0;
+      const bool sent = xj < I && encode(xst[tf * I + xj], xhat, a.th_x, d);
+      const unsigned m = __ballot_sync(0xffffffffu, sent);
+      if (sent) lx[xwarp * 32 + __popc(m & lanes_below)] = make_int2(d, xj * L.pitch);
+      if (lane == 0) cnt[xwarp] = __popc(m);"""),
+    ("  if (j < I) a.xh_out[b * I + j] =",
+     "  if (xwarp >= 0 && xj < I) a.xh_out[b * I + xj] ="),
+)
+
+
+def _x_first(src: str) -> str:
+    """The x encoders in the CTA's first warps (thread j < I encodes x
+    component j), where the h encoders run too, one after the other."""
+    for new, old in _X_LAST:
+        if src.count(old) != 1:
+            raise SystemExit(f"x encoders first: not found once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+GRU_VARIANTS = {
+    "x encoders in the first warps": (True, _x_first),
+    "row sums unrolled by two": (True, lambda s: s.replace(
+        "#pragma unroll 1\n  for (int k = s; k < n; k += kSplit) {",
+        "#pragma unroll 2\n  for (int k = s; k < n; k += kSplit) {")),
+    "thread 0 sums the warp counts": (True, _summed_counts("j == 0")),
+    "the last thread sums the warp counts": (
+        True, _summed_counts("j == blockDim.x - 1")),
+    "ablation: trivial gates": (False, lambda s: s.replace(_GATES,
+                                                           _TRIVIAL_GATES)),
+    "ablation: no row sums": (False, lambda s: s.replace(
+        _ROW_SUMS, "    px[0] = cnt[0];\n    ph[1] = cnt[1];")),
+    "ablation: no reduce-scatter": (False, lambda s: s.replace(_REDUCE, (
+        "    const uint32_t sum_x = px[s & 3];\n"
+        "    const uint32_t sum_h = ph[s & 3];"))),
+    "ablation: trivial gates, no row sums": (False, lambda s: s.replace(
+        _GATES, _TRIVIAL_GATES).replace(
+        _ROW_SUMS, "    px[0] = cnt[0];\n    ph[1] = cnt[1];")),
+}
+
+
+# clock64() stamps in thread 0, summed over the CTAs in g_phase[k]: 0 the
+# prologue, then per frame 1 the Δ encoders, 2 the first barrier, 3 the
+# row sums, 4 the reduce-scatter and accumulate, 5 the second barrier, 6
+# the gates and the hs store.
+PHASES = ("prologue (per CTA)", "encode", "barrier 1", "row sums",
+          "reduce-scatter + accumulate", "barrier 2", "gates + store")
+_STAMPS = (
+    ("  unsigned char* wx = smem;\n",
+     "  long long c_prev = clock64();\n  unsigned char* wx = smem;\n"),
+    ('  asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
+     "  __syncthreads();\n",
+     '  asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
+     "  __syncthreads();\n  STAMP(0)\n"),
+    ("    __syncthreads();\n\n    // 2. Column sums",
+     "    STAMP(1)\n    __syncthreads();\n    STAMP(2)\n\n    // 2. Column sums"),
+    ("    const uint32_t sum_x = reduce_scatter(px, s);\n",
+     "    STAMP(3)\n    const uint32_t sum_x = reduce_scatter(px, s);\n"),
+    ("    __syncthreads();\n\n    // 3. Type-2",
+     "    STAMP(4)\n    __syncthreads();\n    STAMP(5)\n\n    // 3. Type-2"),
+    ("      a.hs[row * H + j] = static_cast<int16_t>(hcur);\n    }\n",
+     "      a.hs[row * H + j] = static_cast<int16_t>(hcur);\n    }\n"
+     "    STAMP(6)\n"),
+    ("__global__ void delta_gru_seq_int_kernel(Args a) {",
+     "__device__ unsigned long long g_phase[7];\n"
+     "#define STAMP(k) if (threadIdx.x == 0) { \\\n"
+     "  const long long c_now = clock64(); \\\n"
+     "  atomicAdd(&g_phase[k], static_cast<unsigned long long>(c_now - "
+     "c_prev)); \\\n  c_prev = c_now; }\n"
+     "__global__ void delta_gru_seq_int_kernel(Args a) {"),
+)
+_READ_PHASES = """
+extern "C" int read_phases(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static const unsigned long long zero[7] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase, zero, sizeof(zero)));
+}
+"""
+
+
+def _phase_stamps(src: str) -> str:
+    for old, new in _STAMPS:
+        if src.count(old) != 1:
+            raise SystemExit(f"phase stamps: anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    return src + _READ_PHASES
+
+
+def run_stamped(torch, build, kernel, lib, call, shapes, n, report):
+    """Run a stamped build of ``kernel`` once per shape (it must give the
+    committed kernel's outputs bit for bit) and hand its ``n`` counters,
+    read and zeroed through ``read_phases``, to ``report(label, args,
+    counters)``."""
+    committed = build.load(kernel)
+    read = lib.read_phases
+    read.argtypes = [ctypes.c_void_p]
+    buf = (ctypes.c_ulonglong * n)()
+    for label, args in shapes:
+        build._loaded[kernel] = committed
+        want = call(args)
+        build._loaded[kernel] = lib
+        call(args)                           # warm; then zero the counters
+        torch.cuda.synchronize()
+        if read(buf):
+            raise SystemExit("read_phases failed")
+        got = call(args)
+        torch.cuda.synchronize()
+        if read(buf):
+            raise SystemExit("read_phases failed")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"the stamped {kernel} changed the outputs")
+        report(label, args, list(buf))
+    build._loaded[kernel] = committed
+
+
+def gru_phase_report(results):
+    """Cycles per frame of each step of the ΔGRU frame in thread 0,
+    averaged over the CTAs and frames."""
+    def report(label, args, c):
+        T, B = args[0].shape[0], args[0].shape[1]
+        per = [c[0] / B] + [c[k] / (B * T) for k in range(1, 7)]
+        print(f"[phases] delta_gru_seq_int {label}: prologue {per[0]:.0f} "
+              f"cycles per CTA; per frame {sum(per[1:]):.0f} cycles: "
+              + ", ".join(f"{n} {v:.0f}" for n, v in zip(PHASES[1:],
+                                                         per[1:])))
+        results.setdefault("delta_gru_seq_int phases (cycles)", {})[
+            label] = dict(zip(PHASES, per))
+    return report
+
+
+def fex_phase_report(results, samples: int):
+    """Per warp of the FEx pipeline, averaged over the CTAs: its cycles,
+    those spent in bar.sync and in cp.async.wait_group, and the rest per
+    sample."""
+    def report(label, args, c):
+        ctas = -(-args[0].shape[0] * 10 // 32)
+        rows = {}
+        for w, role in enumerate(FEX_ROLES):
+            total, bar, cp = (c[4 * k + w] / ctas for k in range(3))
+            rows[role] = {"cycles": total, "bar_sync": bar, "cp_wait": cp,
+                          "rest_per_sample": (total - bar - cp) / samples}
+        print(f"[phases] iir_fex {label}: " + "; ".join(
+            f"{r} {v['cycles']:.0f} cycles, bar.sync {v['bar_sync']:.0f}, "
+            f"cp.async wait {v['cp_wait']:.0f}, the rest "
+            f"{v['rest_per_sample']:.2f} per sample" for r, v in rows.items()))
+        results.setdefault("iir_fex phases (cycles per CTA)", {})[label] = rows
+    return report
+
+
+def _inline_headers(build, src: str) -> str:
+    """The kernel source with its own headers (every csrc/*.cuh but
+    xla_math.cuh) pasted in place of their #include lines, so that a
+    variant can patch the steps they hold; it compiles to the same code."""
+    for h in sorted(build.CSRC.glob("*.cuh")):
+        line = f'#include "{h.name}"\n'
+        if h.name != "xla_math.cuh" and line in src:
+            src = src.replace(line, h.read_text().replace("#pragma once\n",
+                                                          ""))
+    return src
+
+
+def build_variants(build, kernel: str, variants: dict, out_dir: pathlib.Path):
+    """Write and compile every variant of csrc/<kernel>.cu (one nvcc each,
+    all started together); returns {name: loaded library}.  Fails when a
+    replacement does not apply (the source moved on) or nvcc fails."""
+    src = _inline_headers(build, (build.CSRC / f"{kernel}.cu").read_text())
+    procs = {}
+    for i, (name, (_, patch, *_)) in enumerate(variants.items()):
+        text = patch(src)
+        if text == src:
+            raise SystemExit(f"variant {name!r}: no replacement applied")
+        cu = out_dir / f"{kernel}_v{i}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name!r} failed to build:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def time_variants(torch, cs, build, kernel, libs, variants, module, call,
+                  outputs, shapes, results):
+    """For each shape: the committed library, then every variant, then in
+    reverse order, then the committed one again, each timed with
+    chip_smoke.graph_ms with its wrapper constants set on ``module``;
+    exact variants are compared bit for bit."""
+    committed = build.load(kernel)
+    order = ["committed", *libs, *reversed(list(libs)), "committed"]
+    exact = {k: v[0] for k, v in variants.items()}
+    for label, args in shapes:
+        build._loaded[kernel] = committed
+        want = outputs(call(args))
+        for name in order:
+            build._loaded[kernel] = (committed if name == "committed"
+                                     else libs[name])
+            consts = variants[name][2] if name != "committed" and len(
+                variants[name]) > 2 else {}
+            saved = {k: getattr(module, k) for k in consts}
+            for k, v in consts.items():
+                setattr(module, k, v)
+            got = outputs(call(args))
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            ms = cs.graph_ms(torch, lambda: call(args))
+            for k, v in saved.items():
+                setattr(module, k, v)
+            results.setdefault(kernel, {}).setdefault(name, {}).setdefault(
+                label, []).append(ms)
+            check = ("timing only" if name != "committed" and not exact[name]
+                     else f"bit-equal to the committed kernel: {same}")
+            print(f"[variant] {kernel} {label} {name}: {ms:.4f} ms ({check})")
+            if name != "committed" and exact[name] and not same:
+                raise SystemExit(f"{kernel} variant {name!r} changed the "
+                                 f"outputs")
+    build._loaded[kernel] = committed
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_variants.py needs a CUDA GPU", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    import chip_smoke as cs
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import build
+    from repro_torch.kernels import delta_gru_seq as dgs
+    from repro_torch.kernels import iir_fex
+
+    card = cs.card_line(torch)
+    print(f"[card] {card} | torch {torch.__version__}")
+    build.build(("iir_fex", "delta_gru_seq_int", "iir_fex_int"))
+    with tempfile.TemporaryDirectory() as tmp:
+        fex_libs = build_variants(
+            build, "iir_fex", {**FEX_VARIANTS, "stamps": (True, _fex_stamps)},
+            pathlib.Path(tmp))
+        fex_stamped = fex_libs.pop("stamps")
+        gru_libs = build_variants(
+            build, "delta_gru_seq_int",
+            {**GRU_VARIANTS, "stamps": (True, _phase_stamps)},
+            pathlib.Path(tmp))
+        phase_lib = gru_libs.pop("stamps")
+        x, fex, params = cs.make_inputs(torch, np)
+        coef = fex.coef.cuda()
+        kw = dict(frame_shift=fex.cfg.frame_shift, env_alpha=fex.cfg.env_alpha,
+                  log_eps=fex.cfg.log_eps)
+        bits = lambda out: [t.contiguous().view(torch.int32) for t in out]
+        results = {}
+        fex_shapes = [(f"B={B}", (x[:, :cs.CHUNK].repeat(B // cs.SLOTS, 1)
+                                  .contiguous(),
+                                  iir_fex.init_fex_kernel_state(B, 10, "cuda")))
+                      for B in (cs.SLOTS, cs.ALWAYS_ON_SLOTS)]
+        fex_call = lambda a: iir_fex.batched_iir_fex(a[0], coef, a[1], **kw)
+        time_variants(torch, cs, build, "iir_fex", fex_libs, FEX_VARIANTS,
+                      iir_fex, fex_call, bits, fex_shapes, results)
+        run_stamped(torch, build, "iir_fex", fex_stamped,
+                    lambda a: bits(fex_call(a)), fex_shapes, 12,
+                    fex_phase_report(results, cs.CHUNK))
+
+        bundle = cs.promote(params, fex)
+        codes = fp.to_code(x[:, :cs.CHUNK], bundle.ffmt.feat_frac, 16,
+                           torch.int16)
+        feats, _ = iir_fex.batched_iir_fex_int(
+            codes, bundle.coef, fp.init_int_fex_state(cs.SLOTS, 10, "cuda"),
+            fmt=bundle.ffmt)
+        xs = feats.movedim(1, 0).contiguous()
+        w, gfmt = bundle.gru, bundle.gfmt
+        th = gfmt.th_codes(0.1)
+        gru_shapes = [(f"B={B}", (xs.repeat(1, B // cs.SLOTS, 1).contiguous(),
+                                  fp.init_int_delta_state(B, 10, 64, w)))
+                      for B in (cs.SLOTS, cs.ALWAYS_ON_SLOTS)]
+        gru_call = lambda a: dgs.delta_gru_seq_int(a[0], *a[1], w.w_x, w.w_h,
+                                                   th, fmt=gfmt)
+        gru_out = lambda out: [out[0], *out[1], out[2], out[3]]
+        time_variants(torch, cs, build, "delta_gru_seq_int", gru_libs,
+                      GRU_VARIANTS, dgs, gru_call, gru_out, gru_shapes,
+                      results)
+        run_stamped(torch, build, "delta_gru_seq_int", phase_lib,
+                    lambda a: gru_out(gru_call(a)), gru_shapes, 7,
+                    gru_phase_report(results))
+    print(card)
+    print(json.dumps({"card": card, "device_ms": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,15 +38,44 @@ def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
     return 4 * ((I + H) * N + I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
 
 
-def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
-    """Dynamic shared memory of one CTA of the int kernel: the int8 W_x and
-    W_h (padded to 4 bytes), then 32-bit words for x̂, ĥ, h, the
-    compacted deltas, the M staging rows and 64 warp counts (the layout
-    of ``smem_bytes`` in ``csrc/delta_gru_seq_int.cu``)."""
+def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
+                              x_frames: int = 1) -> int:
+    """Dynamic shared memory of one CTA of the int kernel staging x codes
+    for blocks of ``x_frames`` frames (the layout of ``layout`` in
+    ``csrc/delta_gru_seq_int.cu``): the int8 W_x and W_h at a row pitch
+    of 3H rounded up to 4 bytes, the compacted (Δ, row offset) lists (an
+    entry per component, a segment per warp), the m_x and m_h rows,
+    the segment counts and the block's int16 x codes, each part rounded
+    up to 16 bytes.  With the default one frame: the least the kernel
+    runs with."""
     I, H = input_dim, hidden_dim
-    N = 3 * H
-    weights = -(-(I + H) * N // 4) * 4
-    return weights + 4 * (I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
+    pitch = -(-3 * H // 4) * 4
+    segments = -(-I // 32) + -(-H // 32)
+    r16 = lambda v: -(-v // 16) * 16
+    return (r16((I + H) * pitch) + 8 * (I + H) + 8 * pitch
+            + r16(4 * segments) + r16(2 * x_frames * I))
+
+
+# The int kernel stages x codes for blocks of at most this many frames.
+INT_X_FRAMES = 32
+
+
+def gru_int_launch_plan(B: int, I: int, H: int, T: int) -> dict:
+    """The int ΔGRU kernel's launch for B streams, input width I, hidden
+    H and T frames: ``ctas`` (one per stream), ``threads`` (a warp
+    multiple covering the 3H columns, four per column group, and the I
+    x encoders), ``x_frames`` (frames of x codes staged at a time: up to
+    INT_X_FRAMES, fewer where shared memory is short) and dynamic
+    ``smem_bytes``.  Raises ``ValueError`` for a ΔGRU the kernel cannot
+    hold (``check_int_kernel_fits``)."""
+    check_int_kernel_fits(I, H)
+    x_frames = max(1, min(INT_X_FRAMES, T))
+    while (x_frames > 1 and int_seq_kernel_smem_bytes(I, H, x_frames)
+           > MAX_SMEM_BYTES):
+        x_frames -= 1
+    return {"ctas": B, "threads": -(-3 * H // 32) * 32,
+            "x_frames": x_frames,
+            "smem_bytes": int_seq_kernel_smem_bytes(I, H, x_frames)}
 
 
 def seq_kernel_fits(input_dim: int, hidden_dim: int,
@@ -266,7 +295,7 @@ def _int_launcher():
     fn = lib.delta_gru_seq_int_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 4 + [p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -326,7 +355,7 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"delta_gru_seq_int: {name} must be contiguous")
-    check_int_kernel_fits(I, H)
+    plan = gru_int_launch_plan(B, I, H, T)
     _check_int_formats(fmt)
     dev = xs.device
     hs = torch.empty((T, B, H), dtype=torch.int16, device=dev)
@@ -344,7 +373,8 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
                  fmt.shift_x, fmt.shift_h, fmt.acc_bits, fmt.acc_frac,
                  fmt.hid_frac, hs.data_ptr(), nz_dx.data_ptr(),
                  nz_dh.data_ptr(), *(a.data_ptr() for a in final), T, B, I,
-                 H, stream)
+                 H, plan["ctas"], plan["threads"], plan["smem_bytes"],
+                 plan["x_frames"], stream)
     build.check(lib, err, "delta_gru_seq_int kernel launch")
     delta_gru_seq_int.launches += 1
     return hs, final, nz_dx, nz_dh

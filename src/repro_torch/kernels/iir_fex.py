@@ -127,12 +127,33 @@ def batched_iir_fex_ref(x, coef, state, *, frame_shift: int = 128,
     return torch.stack(feats, dim=1), s
 
 
+# The float kernel's pipeline (csrc/iir_fex.cu): a CTA serves FEX_LANES
+# (stream, channel) pairs with four warps (feed, section 0, section 1,
+# envelope), which hand tiles of FEX_TILE samples on through rings of
+# FEX_X_STAGES (audio) and FEX_STAGES (y0, y1) slots, each lane's row
+# padded by 4 floats.  The kernel launches with the plan below and
+# refuses one it cannot run.
+FEX_LANES, FEX_TILE, FEX_X_STAGES, FEX_STAGES, FEX_THREADS = 32, 64, 4, 2, 128
+
+
+def fex_launch_plan(B: int, C: int) -> dict:
+    """The float FEx kernel's launch for B streams of C channels: ``ctas``
+    (one per FEX_LANES pairs), ``threads`` and dynamic ``smem_bytes``
+    (the audio, y0 and y1 rings, float32)."""
+    if B < 1 or C < 1:
+        raise ValueError(f"batched_iir_fex: needs B >= 1 and C >= 1, "
+                         f"got B={B}, C={C}")
+    slots = FEX_X_STAGES + 2 * FEX_STAGES
+    return {"ctas": -(-B * C // FEX_LANES), "threads": FEX_THREADS,
+            "smem_bytes": 4 * slots * FEX_LANES * (FEX_TILE + 4)}
+
+
 def _launcher():
     lib = build.load("iir_fex")
     fn = lib.iir_fex_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, i, p]
+        fn.argtypes = [p] * 5 + [i] * 5 + [f] * 3 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -178,6 +199,7 @@ def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
     if n_frames == 0 or B == 0 or C == 0:
         return feats, state
     state_out = torch.empty_like(state)
+    plan = fex_launch_plan(B, C)
     lib, fn = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -186,7 +208,8 @@ def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
         err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
                  feats.data_ptr(), state_out.data_ptr(), B, T, n_frames, C,
                  frame_shift, env_alpha, 1.0 - env_alpha, log_eps,
-                 int(compress), stream)
+                 int(compress), plan["ctas"], plan["threads"],
+                 plan["smem_bytes"], stream)
     build.check(lib, err, "iir_fex kernel launch")
     batched_iir_fex.launches += 1
     return feats, state_out

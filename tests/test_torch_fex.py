@@ -153,3 +153,27 @@ def test_short_chunk_consumes_no_frame():
     f, s = tfex.fex_scan(torch.zeros(2, SHIFT - 1), c, st, backend="pallas")
     assert f.shape == (2, 0, c.shape[1])
     torch.testing.assert_close(tfex._pack_state(s), tfex._pack_state(st))
+
+
+# ------------------------------- the float FEx kernel's launch plan --
+@pytest.mark.parametrize("B,C", [(1, 10), (3, 10), (32, 10), (33, 10),
+                                 (256, 10), (5, 7), (1, 1)])
+def test_fex_launch_plan_covers_every_pair(B, C):
+    """One CTA per 32 (stream, channel) pairs: the grid covers every pair
+    and no CTA is empty; four warps (feed, section 0, section 1,
+    envelope); the audio ring and the y0 / y1 rings fit a thread block's
+    227 KB."""
+    plan = tiir.fex_launch_plan(B, C)
+    lanes = tiir.FEX_LANES
+    assert (plan["ctas"] - 1) * lanes < B * C <= plan["ctas"] * lanes
+    assert plan["threads"] == 4 * 32 and plan["smem_bytes"] <= 232_448
+    # 4 audio slots and 2 slots each for y0 and y1, every slot a tile of
+    # 64 samples (+ 4 floats of padding) per lane, float32.
+    assert plan["smem_bytes"] == 4 * (4 + 2 + 2) * lanes * 68
+    if (B, C) in ((32, 10), (256, 10)):
+        assert plan["ctas"] == B * C // 32      # 10 and 80 CTAs
+
+
+def test_fex_launch_plan_refuses_empty_batches():
+    with pytest.raises(ValueError, match="B >= 1"):
+        tiir.fex_launch_plan(0, 10)

@@ -392,6 +392,71 @@ def test_fex_int_launch_plan_refuses_empty_batches():
         iir_fex.fex_int_launch_plan(0, 10)
 
 
+# ------------------------------- the integer ΔGRU kernel's launch plan --
+def _first_int_smem_bytes(I, H):
+    """The shared memory the first int ΔGRU kernel needed (weights, then
+    32-bit words for the state, the compacted deltas, the M rows and 64
+    warp counts): the shapes it admitted are the ones the redesigned
+    kernel must still run."""
+    N = 3 * H
+    return -(-(I + H) * N // 4) * 4 + 4 * (3 * I + 4 * H + 2 * N + 64)
+
+
+def _widest_h(I):
+    """The widest H the first kernel's layout admitted at input width I."""
+    return max(H for H in range(1, 342)
+               if _first_int_smem_bytes(I, H) <= tdgs.MAX_SMEM_BYTES
+               and I <= -(-3 * H // 32) * 32)
+
+
+@pytest.mark.parametrize("I,H", [(10, 64), (10, 16), (7, 5), (40, 100),
+                                 (40, 128), (1, 1), (96, 32), (10, None)])
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 3), (32, 32), (33, 100)])
+def test_gru_int_launch_plan_covers_every_stream_and_column(I, H, B, T):
+    """One CTA per stream; a warp multiple of threads that gives every
+    column group of four its four lanes and every x component its encoder,
+    within 1024; x codes staged for up to 32 frames; shared memory as the
+    kernel lays it out, within 227 KB."""
+    H = H or _widest_h(I)
+    plan = tdgs.gru_int_launch_plan(B, I, H, T)
+    threads = plan["threads"]
+    assert plan["ctas"] == B
+    assert threads % 32 == 0 and threads <= tdgs.MAX_THREADS
+    assert threads >= -(-3 * H // 4) * 4 and threads >= max(I, H)
+    assert 1 <= plan["x_frames"] <= min(T, tdgs.INT_X_FRAMES)
+    assert plan["smem_bytes"] == tdgs.int_seq_kernel_smem_bytes(
+        I, H, plan["x_frames"]) <= tdgs.MAX_SMEM_BYTES
+    if (I, H, T) == (10, 64, 32):
+        assert plan["x_frames"] == 32 and plan["smem_bytes"] < 20_000
+
+
+def test_gru_int_launch_plan_refuses_nothing_admitted():
+    """Every shape the first kernel ran (its shared memory and 3H <= 1024
+    threads, I within the threads) still gets a plan, at every width, each
+    input width from 1 to the most the threads allow; and
+    check_int_kernel_fits admits it."""
+    admitted = 0
+    for H in range(1, 342):
+        threads = -(-3 * H // 32) * 32
+        for I in sorted({1, 10, 32, 33, 3 * H, threads}):
+            if I > threads or _first_int_smem_bytes(I, H) > \
+                    tdgs.MAX_SMEM_BYTES:
+                continue
+            tdgs.check_int_kernel_fits(I, H)
+            plan = tdgs.gru_int_launch_plan(4, I, H, 32)
+            assert plan["smem_bytes"] <= tdgs.MAX_SMEM_BYTES
+            admitted += 1
+    assert admitted > 1000
+    assert _widest_h(10) >= 260            # the widest at I = 10
+
+
+def test_gru_int_launch_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="227 KB"):
+        tdgs.gru_int_launch_plan(1, 10, 341, 32)
+    with pytest.raises(ValueError, match="rounded up to a warp"):
+        tdgs.gru_int_launch_plan(1, 100, 10, 32)
+
+
 def test_int_fex_one_bit_shifts_bit_exact(model):
     """b_frac = a_frac = 1 with b0 = 2^18 - 1 (section 0) and 2^16 - 1
     (section 1) and a2 = 2^16 - 1: at every -2048 sample each section's
