@@ -7,12 +7,12 @@
 
 Phases, each exiting non-zero on failure:
   1. the card's name and power limit; build all six CUDA kernels and the
-     three chain probes (iir_fex, iir_fex_int, delta_gru_seq_int) with
-     nvcc (one process per source, all started together) and print the
-     build seconds and ptxas reports; check the wrappers' shared-memory
-     formulas against the kernels' own (iir_fex, iir_fex_int,
-     delta_gru_seq_int and delta_matvec launch with the wrappers' plans
-     and refuse one they cannot run);
+     four chain probes (iir_fex, iir_fex_int, delta_gru_seq,
+     delta_gru_seq_int) with nvcc (one process per source, all started
+     together) and print the build seconds and ptxas reports; check the
+     wrappers' shared-memory formulas against the kernels' own (iir_fex,
+     iir_fex_int, both ΔGRU kernels and delta_matvec launch with the
+     wrappers' plans and refuse one they cannot run);
   2. hold each kernel against its plain PyTorch version on the card, at
      the serving shapes.  Float FEx: 12-bit codes, raw envelopes and
      registers bit for bit over two carried chunks at B = 32 and 256, and
@@ -20,8 +20,12 @@ Phases, each exiting non-zero on failure:
      row stride, a base off 16-byte alignment; frame_shift 100; raw
      envelopes; registers decaying through the denormals; ±1 full-scale
      audio; a NaN sample, whose NaN positions and bits must match).
-     Float ΔGRU: hs within 1e-5 absolute at Δ_TH 0, 0.1 and 0.2
-     (transmit-count mismatches are counted).  Integer: FEx feature codes
+     Float ΔGRU: hs within 1e-5 absolute and the final state within 1e-5
+     of 1 + |x| at Δ_TH 0, 0.1 and 0.2, transmit counts equal, and the
+     same at its edge cases (B = 1, 3, 33; T = 1, 3, 100; Δ_TH -1, every
+     row sent, and above every |Δ|, no row; random models at 3H not a
+     multiple of 4 or of 32, I = 40 over two x warps, I > H, H = 128 and
+     the widest H admitted at I = 10).  Integer: FEx feature codes
      and registers over two carried chunks, and at ragged shapes (B = 1,
      3, 33; T not a multiple of frame_shift or of 8; frame_shift 100;
      ±full-scale audio from registers at the 16-bit rails; one-bit b and
@@ -37,8 +41,9 @@ Phases, each exiting non-zero on failure:
      block_i = 10 and 64, each also with only the last block active)
      within 1e-5 relative to 1 + |out|, a masked block with non-zero
      deltas exactly 128, an all-zero mask exactly m.
-     delta_gru_cell: the reference's three sweep shapes and the full
-     width at B=32 and 256, at Δ_TH 0, 0.1, 0.2, x̂/ĥ equal, h and M
+     delta_gru_cell: the reference's three sweep shapes, the full width
+     at B = 1, 3, 33, 32 and 256 and the float ΔGRU's edge widths, at
+     Δ_TH 0, 0.1, 0.2, -1 and above every |Δ|, x̂/ĥ equal, h and M
      within 1e-5.  The block-sparse ΔGRU path at full width (forced,
      two carried chunks) against delta_gru_seq: hs and final state bit
      for bit, transmit counts equal;
@@ -49,10 +54,12 @@ Phases, each exiting non-zero on failure:
      computes the same function, that call, beside the bound worked out
      from the shapes; for delta_matvec also its FMUL+FADD bound and its
      time by copy path (TMA, cp.async, plain loads); for both FEx
-     kernels and the int ΔGRU their chain bounds (each chain probe's
-     time per sample step × 4096, or per frame × 32; the int ΔGRU's at
-     the rows the run's busiest stream sends per frame, and beside it the
-     densest frame's, every row sent), and the previous
+     kernels and both ΔGRU kernels their chain bounds (each chain probe's
+     time per sample step × 4096, or per frame × 32; a ΔGRU's at the
+     rows the run's busiest stream sends per frame, and beside it the
+     densest frame's, every row sent); for delta_gru_cell its launch
+     floor (an empty kernel and one dependent global round trip at its
+     launch shape, by the same CUDA-graph method); and the previous
      kernels' times quoted from PERF.md (not measured in the run);
   4. serve 64 one-second requests on 32 slots at the paper model's full
      width through ``repro_torch.launch.serve``, once per numerics, and
@@ -97,15 +104,19 @@ SAT_MARGIN = 1 << 10           # int ΔGRU saturation case: start this close
 MATVEC_TOL = 1e-5              # delta_matvec vs plain, times (1 + |out|)
 WIDE_H = 256                   # a ΔGRU width no thread block holds
 # The device times of the kernels that the current iir_fex, iir_fex_int,
-# delta_gru_seq_int and delta_matvec replaced, on an H100 80GB HBM3 at
-# 700 W, quoted from PERF.md §6 beside this run's.
+# both ΔGRU kernels, delta_matvec and delta_gru_cell replaced, on an H100
+# 80GB HBM3 at 700 W, quoted from PERF.md §6 beside this run's.
 PREVIOUS_MS = {("fex_int", 32): 0.1904, ("fex_int", 256): 0.1914,
                ("matvec", 256): 0.0327, ("matvec", 10): 0.0043,
                ("fex", 32): 0.1776, ("fex", 256): 0.1807,
-               ("gru_int", 32): 0.0550, ("gru_int", 256): 0.0580}
+               ("gru_int", 32): 0.0550, ("gru_int", 256): 0.0580,
+               ("gru", 32): 0.0527, ("gru", 256): 0.0550,
+               ("cell", 32): 0.0077, ("cell", 256): 0.0080}
 CHAIN_STEPS = 1 << 20          # FEx chain probes: steps timed
-CHAIN_FRAMES = 32              # int ΔGRU chain probe: frames timed (a chunk)
-PROBES = ("iir_fex_chain", "iir_fex_int_chain", "delta_gru_seq_int_chain")
+CHAIN_FRAMES = 32              # ΔGRU chain probes: frames timed (a chunk)
+PROBES = ("iir_fex_chain", "iir_fex_int_chain", "delta_gru_seq_chain",
+          "delta_gru_seq_int_chain")
+EDGE_TH = (-1.0, 1e9)          # every row sent; above every |Δ|, no row
 
 
 def fail(msg: str) -> None:
@@ -345,6 +356,58 @@ def gru_int_chain_bound(torch, gfmt, rows=(10, 64),
     return cyc / frames, ns / 1e6
 
 
+def gru_chain_bound(torch, rows=(10, 64), frames: int = CHAIN_FRAMES):
+    """The float ΔGRU's chain bound: csrc/delta_gru_seq_chain.cu runs the
+    kernel's per-frame critical path (Δ-encode and compaction, a column's
+    sum over the transmitted rows, σ(r), σ(u), the candidate, tanh, the
+    blend) ``frames`` times on one warp with ``rows`` = (x rows, h rows)
+    sent per frame: every one of the 74 by default, the densest frame;
+    the least of five runs (the first fills the instruction cache).
+    Returns (cycles per frame, ms for ``frames`` frames)."""
+    from repro_torch.kernels import build
+    fn = build.load("delta_gru_seq_chain").delta_gru_seq_chain
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    runs = []
+    for _ in range(5):
+        out = (ctypes.c_longlong * 2)()
+        err = fn(frames, *rows, out)
+        if err:
+            fail(f"delta_gru_seq chain probe: CUDA error {err}")
+        runs.append((out[0], out[1]))
+    cyc, ns = min(runs)
+    print(f"[time] delta_gru_seq chain probe, {rows[0]} x + {rows[1]} h "
+          f"rows per frame: {cyc / frames:.1f} cycles, {ns / frames:.1f} ns "
+          f"per frame ({cyc / ns:.3f} GHz), {frames} frames = "
+          f"{ns / 1e6:.5f} ms (runs: {', '.join(str(c) for c, _ in runs)} "
+          f"cycles)")
+    return cyc / frames, ns / 1e6
+
+
+def busiest_rows(nzx, nzh, T):
+    """The rows the busiest stream sends per frame (x, h), rounded up."""
+    return tuple(-(-int(n.sum(0).max().item()) // T) for n in (nzx, nzh))
+
+
+def cell_launch_floor(torch, B, H):
+    """delta_gru_cell's launch floor at its launch shape (B CTAs of 3H
+    rounded up to a warp): the device ms of an empty kernel and of one
+    whose threads each make one dependent global round trip (a load, then
+    a store of what it read plus one), by the CUDA-graph method."""
+    from repro_torch.kernels import build
+    lib = build.load("delta_gru_cell")
+    fn = lib.delta_gru_cell_floor_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    buf = torch.zeros(B * -(-3 * H // 32) * 32, device="cuda")
+    res = []
+    for dependent in (0, 1):
+        def launch(dependent=dependent):
+            build.check(lib, fn(buf.data_ptr(), dependent, B, H,
+                                torch.cuda.current_stream().cuda_stream),
+                        "delta_gru_cell floor launch")
+        res.append(graph_ms(torch, launch))
+    return tuple(res)
+
+
 def cell_bound(B, I, H, nz_total):
     """delta_gru_cell: x, h, x̂, ĥ, M_x, M_h in and out (x once), the
     weights once; the transmitted rows' multiply-adds and the gates."""
@@ -366,7 +429,7 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} libraries (six kernels and three chain "
+    print(f"[build] {len(built)} libraries (six kernels and four chain "
           f"probes) built in {secs:.1f} s")
     if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 6:
         fail(f"expected the six kernels {build.KERNELS}, built "
@@ -380,13 +443,11 @@ def build_kernels():
                           ("delta_gru_cell", dgc.cell_kernel_smem_bytes)):
         fn = getattr(build.load(name), f"{name}_smem_bytes")
         fn.restype = ctypes.c_longlong
-        for I, H in ((10, 64), (10, 16), (40, 100), (7, 5), (40, 128)):
-            extra = ((dgc.cell_tile_rows(I, H),) if name == "delta_gru_cell"
-                     else ())
-            if fn(I, H, *extra) != formula(I, H):
+        for I, H in ((10, 64), (10, 16), (40, 100), (7, 5), (40, 128),
+                     (10, 132), (96, 32)):
+            if fn(I, H) != formula(I, H):
                 fail(f"{name} shared-memory formula mismatch at I={I} "
-                     f"H={H}: kernel {fn(I, H, *extra)}, wrapper "
-                     f"{formula(I, H)}")
+                     f"H={H}: kernel {fn(I, H)}, wrapper {formula(I, H)}")
     return secs
 
 
@@ -573,6 +634,82 @@ def compare_gru(torch, feats, params):
             "xs_all": xs, "gru": gru}
 
 
+def random_gru(torch, np, rng, I, H, B, T):
+    """A float ΔGRU with random weights and bias, and B streams of T
+    frames of a random walk that moves 40 % of its components a frame."""
+    from repro_torch.core import delta_gru as dg
+    cuda = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    steps = 0.2 * rng.standard_normal((T, B, I)) * (rng.random((T, B, I))
+                                                    < 0.4)
+    return (dg.DeltaGRUParams(
+        cuda(rng.standard_normal((I, 3 * H)) / np.sqrt(I)),
+        cuda(rng.standard_normal((H, 3 * H)) / np.sqrt(H)),
+        cuda(0.1 * rng.standard_normal(3 * H))), cuda(np.cumsum(steps, 0)))
+
+
+def compare_gru_edges(torch, np, gru_res):
+    """The float ΔGRU kernel against its plain version where the launch or
+    the data is unusual, hs within 1e-5 absolute, the final state within
+    1e-5 of 1 + |x|, transmit counts equal: stream counts that are not
+    the serving batch (B = 1, 3, 33), chunks of T = 1, 3 and 100 frames
+    (x is loaded a frame ahead: none after the first, the last frame's,
+    a long chunk), Δ_TH -1 (every row sent, zero deltas too) and above
+    every |Δ| (nothing sent), and random models
+    at other widths: 3H not a multiple of 4 (weights staged 4 bytes at a
+    time) or of 32 (H = 20), I = 40 (x encoders in two warps, I > H),
+    I = 96 > H = 32, H = 128 and the widest H that check_kernel_fits
+    admits at I = 10."""
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.kernels import delta_gru_seq as dgs
+    gru, xs_all = gru_res["gru"], gru_res["xs_all"]     # (2T, B, 10)
+    rng = np.random.default_rng(47)
+    serve = lambda T, B: xs_all[:T, :B] if B <= xs_all.shape[1] else \
+        torch.cat([xs_all[:T]] * -(-B // xs_all.shape[1]), 1)[:, :B]
+    long_xs = torch.cat([xs_all, xs_all.flip(0)])[:100]
+    cases = [("B=1", gru, serve(32, 1), 0.1),
+             ("B=3", gru, serve(32, 3), 0.1),
+             ("B=33", gru, serve(32, 33), 0.1),
+             ("T=1", gru, serve(1, 32), 0.1),
+             ("T=3", gru, serve(3, 32), 0.1),
+             ("T=100", gru, long_xs, 0.1),
+             ("Δ_TH=-1 (every row sent)", gru, serve(32, 32), EDGE_TH[0]),
+             ("Δ_TH above every |Δ| (nothing sent)", gru, serve(32, 32),
+              EDGE_TH[1])]
+    for I, H, B, T in ((7, 5, 3, 32), (10, 20, 3, 32), (40, 20, 5, 32),
+                       (96, 32, 4, 40), (16, 128, 33, 32),
+                       (10, widest_h(10, dgs.check_kernel_fits), 3, 32)):
+        g, xr = random_gru(torch, np, rng, I, H, B, T)
+        cases.append((f"I={I} H={H} B={B} T={T} random", g, xr, 0.1))
+        if (I, H) == (40, 20):
+            cases += [(f"I={I} H={H} random Δ_TH={th}", g, xr, th)
+                      for th in EDGE_TH]
+    for label, g, xs, th in cases:
+        xs = xs.contiguous()
+        T, B, I = xs.shape
+        H = g.w_h.shape[0]
+        st = tuple(dg.init_delta_state(B, I, H, g))
+        hk, sk, nxk, nhk = dgs.delta_gru_seq(xs, *st, g.w_x, g.w_h, th)
+        hp, sp, nxp, nhp = dgs.delta_gru_seq_ref(xs, *st, g.w_x, g.w_h, th)
+        torch.cuda.synchronize()
+        hs_err = (hk - hp).abs().max().item()
+        st_err = max(((a - r).abs() / (1.0 + r.abs())).max().item()
+                     for a, r in zip(sk, sp))
+        nz_m = int((nxk != nxp).sum() + (nhk != nhp).sum())
+        sent = int(nxp.sum() + nhp.sum())
+        print(f"[compare] delta_gru_seq {label} (Δ_TH {th}): T={T} B={B} "
+              f"I={I} H={H}, hs max abs diff {hs_err:.3g}, state {st_err:.3g}"
+              f" (bound {HS_ATOL}), nz mismatches {nz_m}; transmitted "
+              f"{sent} of {T * B * (I + H)}")
+        if not (hs_err <= HS_ATOL and st_err <= HS_ATOL) or nz_m:
+            fail(f"delta_gru_seq {label}: hs {hs_err}, state {st_err}, nz "
+                 f"{nz_m}")
+        if th == EDGE_TH[0] and sent != T * B * (I + H):
+            fail(f"delta_gru_seq {label}: Δ_TH -1 did not send every row")
+        if th == EDGE_TH[1] and sent:
+            fail(f"delta_gru_seq {label}: a threshold above every |Δ| sent "
+                 f"rows")
+
+
 def time_kernels(torch, x, fex, gru_res, fex_plain_ms):
     from repro_torch.core import delta_gru as dg
     from repro_torch.kernels import delta_gru_seq as dgs
@@ -605,8 +742,11 @@ def time_kernels(torch, x, fex, gru_res, fex_plain_ms):
         ms, call = kernel_ms(torch, lambda: dgs.delta_gru_seq(*args))
         out[("gru", B)] = (ms, *gru_bound(T, B, I, H, nz_total), call)
         if B == SLOTS:
+            data_rows = busiest_rows(nzx, nzh, T)
             out[("gru_plain", SLOTS)] = cuda_ms(
                 torch, lambda: dgs.delta_gru_seq_ref(*args), 10, warmup=2)
+    out["gru_chain"] = (*gru_chain_bound(torch, data_rows), data_rows)
+    out["gru_chain_every_row"] = gru_chain_bound(torch)
     print_times(out, (("fex", CHUNK, "dependent samples"),
                       ("gru", 32, "dependent frames")))
     return out
@@ -812,14 +952,14 @@ def compare_gru_int(torch, feats, bundle):
             "bundle": bundle}
 
 
-def widest_int_h(I: int) -> int:
-    """The widest hidden size check_int_kernel_fits admits at input
-    width I."""
+def widest_h(I: int, check) -> int:
+    """The widest hidden size ``check`` (a kernel's check_*_fits) admits
+    at input width I."""
     from repro_torch.kernels import delta_gru_seq as dgs
     best = 0
     for H in range(1, dgs.MAX_THREADS // 3 + 1):
         try:
-            dgs.check_int_kernel_fits(I, H)
+            check(I, H)
         except ValueError:
             continue
         best = H
@@ -869,7 +1009,8 @@ def compare_gru_int_edges(torch, np, feats, bundle):
              ("th above every |Δ| (nothing sent)", w, serve(32, 32),
               (1 << 17, 1 << 17))]
     for I, H, B, T in ((7, 5, 3, 32), (40, 100, 5, 32), (96, 32, 4, 40),
-                       (16, 128, 33, 32), (10, widest_int_h(10), 3, 32)):
+                       (16, 128, 33, 32),
+                       (10, widest_h(10, dgs.check_int_kernel_fits), 3, 32)):
         wr, xr = random_model(I, H, B, T)
         cases.append((f"I={I} H={H} B={B} T={T} random", wr, xr, th))
     for label, wc, xs, tcodes in cases:
@@ -925,9 +1066,8 @@ def time_int_kernels(torch, x, gru_res, fex_bundle, fex_int_plain_ms):
         args = (xs, *st, w.w_x, w.w_h, th)
         _, _, nzx, nzh = dgs.delta_gru_seq_int(*args, fmt=gfmt)
         nz_total = int(nzx.sum().item() + nzh.sum().item())
-        if B == SLOTS:     # the busiest stream's rows per frame, rounded up
-            data_rows = tuple(-(-int(n.sum(0).max().item()) // T)
-                              for n in (nzx, nzh))
+        if B == SLOTS:
+            data_rows = busiest_rows(nzx, nzh, T)
         ms, call = kernel_ms(torch, lambda: dgs.delta_gru_seq_int(
             *args, fmt=gfmt))
         out[("gru_int", B)] = (ms, *gru_int_bound(T, B, I, H, nz_total),
@@ -1019,14 +1159,23 @@ def compare_delta_matvec(torch, wide_shapes):
 
 def compare_cell(torch, gru_res):
     """delta_gru_cell against its plain version on the card: the
-    reference's three sweep shapes and the full width at B=32 and 256,
-    at Δ_TH 0, 0.1, 0.2."""
+    reference's three sweep shapes, the full width at B = 1, 3, 33, 32
+    and 256, and the float ΔGRU's edge widths (3H not a multiple of 4 or
+    of 32, I = 40 over two x warps, I > H, H = 128, the widest H the
+    sequence kernel admits at I = 10), at Δ_TH 0, 0.1, 0.2, -1 (every
+    row sent: x̂ = x, ĥ = h) and above every |Δ| (no row: M and x̂
+    unchanged)."""
     from repro_torch.kernels import delta_gru_cell as dgc
+    from repro_torch.kernels import delta_gru_seq as dgs
     gen = torch.Generator(device="cuda").manual_seed(23)
     gru = gru_res["gru"]
     worst = 0.0
     shapes = [(1, 10, 64, None), (4, 16, 32, None), (2, 40, 128, None),
-              (SLOTS, 10, 64, gru), (ALWAYS_ON_SLOTS, 10, 64, gru)]
+              (SLOTS, 10, 64, gru), (ALWAYS_ON_SLOTS, 10, 64, gru),
+              (1, 10, 64, gru), (3, 10, 64, gru), (33, 10, 64, gru),
+              (3, 7, 5, None), (3, 10, 20, None), (5, 40, 20, None),
+              (4, 96, 32, None), (33, 16, 128, None),
+              (3, 10, widest_h(10, dgs.check_kernel_fits), None)]
     for B, I, H, model in shapes:
         r = lambda *s, k=1.0: k * torch.randn(*s, generator=gen,
                                               device="cuda")
@@ -1036,12 +1185,19 @@ def compare_cell(torch, gru_res):
             w_x, w_h = model.w_x, model.w_h
         args = (r(B, I), r(B, H, k=0.5), r(B, I, k=0.1), r(B, H, k=0.1),
                 r(B, 3 * H, k=0.1), r(B, 3 * H, k=0.1), w_x, w_h)
-        for th in THRESHOLDS:
+        for th in THRESHOLDS + EDGE_TH:
             got = dgc.delta_gru_cell(*args, th)
             want = dgc.delta_gru_cell_ref(*args, th)
             torch.cuda.synchronize()
             sel_m = sum(int((g != w).sum()) for g, w in
                         zip(got[1:3], want[1:3]))
+            if th == EDGE_TH[0]:
+                sel_m += int((got[1] != args[0]).sum()
+                             + (got[2] != args[1]).sum())
+            if th == EDGE_TH[1]:
+                sel_m += int((got[1] != args[2]).sum()
+                             + (got[3] != args[4]).sum()
+                             + (got[4] != args[5]).sum())
             err = max((g - w).abs().max().item() for g, w in
                       zip(got[0:1] + got[3:], want[0:1] + want[3:]))
             print(f"[compare] delta_gru_cell B={B} I={I} H={H} Δ_TH={th}: "
@@ -1193,12 +1349,20 @@ def time_block_sparse(torch, gru_res):
         plain = cuda_ms(torch, lambda: dgc.delta_gru_cell_ref(*args), 10,
                         warmup=2)
         bnd, by = cell_bound(B, I, H, nz)
-        out[("cell", B)] = (ms, plain, None, bnd, by, call, None)
+        empty, trip = cell_launch_floor(torch, B, H)
+        out[("cell", B)] = (ms, plain, None, bnd, by, call, None, empty,
+                            trip)
         print(f"[time] delta_gru_cell B={B} I={I} H={H} Δ_TH {th} "
               f"({nz} of {B * (I + H)} deltas transmitted): kernel "
               f"{ms:.4f} ms on the device ({call:.4f} ms per call with the "
               f"wrapper), plain {plain:.4f} ms per call, bound {bnd:.5f} "
-              f"ms ({by})")
+              f"ms ({by}); launch floor at {B} CTAs of "
+              f"{-(-3 * H // 32) * 32} threads: empty kernel {empty:.4f} "
+              f"ms, one dependent global round trip {trip:.4f} ms — the "
+              f"kernel at {ms / max(bnd, trip):.2f}x the larger of the "
+              f"floor and the bound; previous kernel "
+              f"{PREVIOUS_MS[('cell', B)]:.4f} ms (quoted from PERF.md, not "
+              f"measured here)")
     return out
 
 
@@ -1469,6 +1633,7 @@ def main() -> int:
     compare_fex(torch, keyword_audio(torch, np, ALWAYS_ON_SLOTS, 2), fex)
     compare_fex_edges(torch, np, fex)
     gru_res = compare_gru(torch, fex_res["feats"], params)
+    compare_gru_edges(torch, np, gru_res)
     bundle = promote(params, fex)
     fex_int_res = compare_fex_int(torch, x, bundle)
     compare_fex_int_tails(torch, np, bundle)
@@ -1521,7 +1686,7 @@ def main() -> int:
                       else f"T=32 B={SLOTS} I={C} H={H}")})
         if kind + "_chain" in times:
             cycles, chain_ms, *rows = times[kind + "_chain"]
-            unit = "frame" if kind == "gru_int" else "sample"
+            unit = "frame" if kind.startswith("gru") else "sample"
             kernels[-1].update({
                 "chain_bound_ms": chain_ms,
                 f"chain_cycles_per_{unit}": cycles})
@@ -1545,7 +1710,7 @@ def main() -> int:
         "ms_i10": ms10, "plain_ms_i10": plain10, "library_ms_i10": lib10,
         "bound_ms_i10": bnd10, "bound_by_i10": by10,
         "fmul_fadd_bound_ms": fmul})
-    ms, plain, _, bnd, by, call, _ = times[("cell", SLOTS)]
+    ms, plain, _, bnd, by, call, _, empty, trip = times[("cell", SLOTS)]
     kernels.append({
         "name": "delta_gru_cell", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_gru_cell.cu",
@@ -1557,7 +1722,9 @@ def main() -> int:
         "path": "none: the reference runs it only in tests and benchmarks",
         "ms_b256": times[("cell", ALWAYS_ON_SLOTS)][0],
         "plain_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][1],
-        "bound_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][3]})
+        "bound_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][3],
+        "launch_floor_empty_ms": empty, "launch_floor_ms": trip,
+        "launch_floor_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][8]})
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the float FEx and integer ΔGRU kernels on one GPU.
+"""Time variants of the FEx, ΔGRU and ΔGRU cell kernels on one GPU.
 
     python3 chip_variants.py
 
@@ -9,17 +9,19 @@ design alternatives, which must give the committed kernel's outputs bit
 for bit, and ablations, which drop one stage's work to show what that
 stage costs (their outputs are wrong by construction and only timed).
 A variant that changes the kernel's shared-memory layout also names the
-wrapper constants its launch plan needs, set while it runs.
+wrapper constants its launch plan needs, set while it runs, or patches
+the kernel's C launch function to add the bytes it needs.
 Every variant is built with the repository's nvcc flags, swapped in for
 the committed library behind the same wrapper, and timed on the device
 (20 calls in a CUDA graph, the median of 20 replays, as in
 ``chip_smoke.py``) in the order committed, variants, variants reversed,
-committed, at the serving shapes: the FEx on B = 32 and 256 streams of a
-4096-sample chunk, the ΔGRU on 32 frames of B = 32 and 256 streams at
-Δ_TH 0.1.  Then each kernel once more with clock64() stamps: in the
-FEx each warp's cycles and those it waits at barriers and for its
-copies, in the ΔGRU thread 0's cycles in each step of the frame (the
-stamps themselves add a little).  Prints one line per timing
+committed, at the serving shapes: the float FEx on B = 32 and 256 streams
+of a 4096-sample chunk, both ΔGRU kernels on 32 frames of B = 32 and 256
+streams at Δ_TH 0.1, the ΔGRU cell on one frame of B = 32 and 256 streams
+halfway through a chunk.  Then each kernel but the cell once more with
+clock64() stamps: in the FEx each warp's cycles and those it waits at
+barriers and for its copies, in each ΔGRU thread 0's cycles in each step
+of the frame (the stamps themselves add a little).  Prints one line per timing
 and a JSON summary as the last line.  Needs one CUDA GPU and nvcc; exits
 2 without a GPU.
 """
@@ -439,6 +441,264 @@ GRU_VARIANTS = {
 }
 
 
+# ---------------------------------------------- float ΔGRU variants --
+def _patches(pairs):
+    """Apply (old, new) replacements, each of which must match once."""
+    def patch(src: str) -> str:
+        for old, new in pairs:
+            if src.count(old) != 1:
+                raise SystemExit(f"patch: not found once: {old!r}")
+            src = src.replace(old, new)
+        return src
+    return patch
+
+
+_F_SIGMA = """      if (j < H) {
+        r = gate_sigmoid(mx, mh);
+      } else if (j < 2 * H) {
+        mxs[j] = gate_sigmoid(mx, mh);              // u
+      } else {
+        mxs[j] = mx;
+        mhs[j] = mh;
+      }"""
+_F_BLEND = """      hcur = candidate_blend(r, mxs[H + j], mxs[2 * H + j], mhs[2 * H + j],
+                             hcur);"""
+_F_SIGMA_LATE = ((_F_SIGMA, "      mxs[j] = mx;\n      mhs[j] = mh;"),
+                 (_F_BLEND, """      hcur = candidate_blend(gate_sigmoid(mx, mh),
+                             gate_sigmoid(mxs[H + j], mhs[H + j]),
+                             mxs[2 * H + j], mhs[2 * H + j], hcur);"""))
+_F_TRIVIAL_GATES = (
+    ("        r = gate_sigmoid(mx, mh);", "        r = mx + mh;"),
+    ("        mxs[j] = gate_sigmoid(mx, mh);              // u",
+     "        mxs[j] = mx - mh;"),
+    (_F_BLEND, "      hcur = (r + mxs[H + j] + mxs[2 * H + j] - mhs[2 * H + j])"
+               " * 0.125f;"))
+_F_ROW_SUMS = """      for (int s = 0; s < L.sx; ++s) {
+        ax = column_sum(ax, lx + 32 * s, cnt[s], w + j);
+      }
+      for (int s = 0; s < L.sh; ++s) {
+        ah = column_sum(ah, lh + 32 * s, cnt[L.sx + s], w + j);
+      }"""
+_F_NO_ROW_SUMS = ((_F_ROW_SUMS, """      ax = static_cast<float>(cnt[0]);
+      ah = static_cast<float>(cnt[L.sx]);"""),)
+_F_X_AHEAD = ("    const float xv = xnext;\n"
+              "    if (x_enc && t + 1 < T) xnext = a.xs[(row + B) * I + xj];\n")
+_F_X_GLOBAL = ((_F_X_AHEAD,
+                "    const float xv = x_enc ? a.xs[row * I + xj] : 0.0f;\n"),)
+# The int twin's way: each x encoder stages its component for blocks of 32
+# frames in shared memory (all loads of a block issued before its first
+# store), the first block in the prologue.
+_F_X_STAGED = (
+    ("  size_t lx, lh, mxs, mhs, cnt, total;",
+     "  size_t lx, lh, mxs, mhs, cnt, xst, total;"),
+    ("  L.total = L.cnt + round16(4 * static_cast<size_t>(L.sx + L.sh));",
+     "  L.xst = L.cnt + round16(4 * static_cast<size_t>(L.sx + L.sh));\n"
+     "  L.total = L.xst + round16(4 * 32 * static_cast<size_t>(I));"),
+    ("  int* cnt = reinterpret_cast<int*>(smem + L.cnt);  // x, then h segments\n",
+     "  int* cnt = reinterpret_cast<int*>(smem + L.cnt);  // x, then h segments\n"
+     "  float* xst = reinterpret_cast<float*>(smem + L.xst);\n"),
+    ("  const bool x_enc = xwarp >= 0 && xj < I;\n",
+     "  const bool x_enc = xwarp >= 0 && xj < I;\n"
+     "  const auto stage_x = [&](int t0) {\n"
+     "    const int nf = min(32, T - t0);\n"
+     "    const float* src = a.xs + (static_cast<size_t>(t0) * B + b) * I + xj;\n"
+     "#pragma unroll 32\n"
+     "    for (int f = 0; f < nf; ++f) {\n"
+     "      xst[f * I + xj] = src[static_cast<size_t>(f) * B * I];\n"
+     "    }\n"
+     "  };\n"),
+    ("    if (T > 0) xnext = a.xs[static_cast<size_t>(b) * I + xj];\n",
+     "    if (T > 0) stage_x(0);\n"),
+    (_F_X_AHEAD, "    if (t % 32 == 0 && t > 0 && x_enc) stage_x(t);\n"
+                 "    const float xv = x_enc ? xst[(t % 32) * I + xj] : 0.0f;\n"),
+    ("      static_cast<size_t>(smem_bytes) < layout(I, H).total) {\n"
+     "    return static_cast<int>(cudaErrorInvalidValue);\n  }\n",
+     "      static_cast<size_t>(smem_bytes) + round16(4 * 32 * "
+     "static_cast<size_t>(I)) < layout(I, H).total) {\n"
+     "    return static_cast<int>(cudaErrorInvalidValue);\n  }\n"
+     "  smem_bytes += static_cast<int>(round16(4 * 32 * static_cast<size_t>(I)));\n"),
+)
+# Rows summed in predicated batches of `k` (the cell's loop): the batch's
+# entries and weights all load before its first add, with no remainder
+# loop for the last few rows.
+_F_COLUMN_SUM = """#pragma unroll 2
+  for (int k = 0; k < n; ++k) {
+    const Row e = list[k];
+    acc = acc + e.d * w[e.off];
+  }
+  return acc;"""
+
+
+def _f_batched(k: int):
+    return _patches(((_F_COLUMN_SUM, f"""  for (int k0 = 0; k0 < n; k0 += {k}) {{
+    float d[{k}], v[{k}];
+#pragma unroll
+    for (int u = 0; u < {k}; ++u) {{
+      if (k0 + u < n) {{
+        const Row e = list[k0 + u];
+        d[u] = e.d;
+        v[u] = w[e.off];
+      }}
+    }}
+#pragma unroll
+    for (int u = 0; u < {k}; ++u) {{
+      if (k0 + u < n) acc = acc + d[u] * v[u];
+    }}
+  }}
+  return acc;"""),))
+
+
+_F_PLAIN_WEIGHTS = (("  if (vec) {\n    const int n = rows * N / 4;",
+                     "  if (false) {\n    const int n = rows * N / 4;"),
+                    ("      cp_async4(dst + r * pitch + (k - r * N), src + k);",
+                     "      dst[r * pitch + (k - r * N)] = src[k];"))
+# Rows as each warp's ballot mask over its dense deltas: a set bit's delta
+# and weight both load from its index, one shared round trip per row
+# instead of an entry and then the weight it points at.
+_MASK_SUM = """
+__device__ __forceinline__ float mask_sum(float acc, unsigned m,
+                                          const float* d, const float* w,
+                                          int pitch) {
+  while (m != 0u) {
+    const int u0 = __ffs(m) - 1;
+    m &= m - 1u;
+    const float p0 = d[u0] * w[u0 * pitch];
+    if (m == 0u) {
+      acc = acc + p0;
+      break;
+    }
+    const int u1 = __ffs(m) - 1;
+    m &= m - 1u;
+    const float p1 = d[u1] * w[u1 * pitch];
+    acc = acc + p0;
+    acc = acc + p1;
+  }
+  return acc;
+}
+
+__global__ void delta_gru_seq_kernel(Args a) {"""
+_F_MASKS = (
+    ("\n__global__ void delta_gru_seq_kernel(Args a) {", _MASK_SUM),
+    ("""      const int n = compact(sent, d, xj * L.pitch, lx, 32 * xwarp);
+      if (lane == 0) cnt[xwarp] = n;
+      if (lane == 0 && n != 0) atomicAdd(&a.nz_dx[row], n);""",
+     """      const unsigned m = __ballot_sync(0xffffffffu, sent);
+      reinterpret_cast<float*>(lx)[32 * xwarp + lane] = d;
+      if (lane == 0) cnt[xwarp] = static_cast<int>(m);
+      if (lane == 0 && m != 0u) atomicAdd(&a.nz_dx[row], __popc(m));"""),
+    ("""      const int n = compact(sent, d, (I + j) * L.pitch, lh, 32 * warp);
+      if (lane == 0) cnt[L.sx + warp] = n;
+      if (lane == 0 && n != 0) atomicAdd(&a.nz_dh[row], n);""",
+     """      const unsigned m = __ballot_sync(0xffffffffu, sent);
+      reinterpret_cast<float*>(lh)[32 * warp + lane] = d;
+      if (lane == 0) cnt[L.sx + warp] = static_cast<int>(m);
+      if (lane == 0 && m != 0u) atomicAdd(&a.nz_dh[row], __popc(m));"""),
+    (_F_ROW_SUMS, """      for (int s = 0; s < L.sx; ++s) {
+        ax = mask_sum(ax, static_cast<unsigned>(cnt[s]),
+                      reinterpret_cast<const float*>(lx) + 32 * s,
+                      w + 32 * s * L.pitch + j, L.pitch);
+      }
+      for (int s = 0; s < L.sh; ++s) {
+        ah = mask_sum(ah, static_cast<unsigned>(cnt[L.sx + s]),
+                      reinterpret_cast<const float*>(lh) + 32 * s,
+                      w + (I + 32 * s) * L.pitch + j, L.pitch);
+      }"""))
+_F_UNROLL = "#pragma unroll 2\n  for (int k = 0; k < n; ++k) {"
+_F_NO_ATOMICS = (
+    ("      if (lane == 0 && n != 0) atomicAdd(&a.nz_dx[row], n);\n", ""),
+    ("      if (lane == 0 && n != 0) atomicAdd(&a.nz_dh[row], n);\n", ""))
+F_GRU_VARIANTS = {
+    "row sums rolled": (True, _patches(((
+        _F_UNROLL, _F_UNROLL.replace("unroll 2", "unroll 1")),))),
+    "row sums unrolled by four": (True, _patches(((
+        _F_UNROLL, _F_UNROLL.replace("unroll 2", "unroll 4")),))),
+    "rows as per-warp ballot masks over dense deltas": (
+        True, _patches(_F_MASKS)),
+    "σ(r), σ(u) after barrier 2, in the gate threads": (
+        True, _patches(_F_SIGMA_LATE)),
+    "x encoders in the first warps": (True, _patches(((
+        "  const int xwarp = warp - (static_cast<int>(blockDim.x >> 5) - L.sx);",
+        "  const int xwarp = warp < L.sx ? warp : -1;"),))),
+    "weights staged by plain loads (no cp.async)": (
+        True, _patches(_F_PLAIN_WEIGHTS)),
+    "x read from global memory each frame": (True, _patches(_F_X_GLOBAL)),
+    "x staged for 32 frames in the prologue (the design before)": (
+        True, _patches(_F_X_STAGED)),
+    "row sums in predicated batches of 4": (True, _f_batched(4)),
+    "row sums in predicated batches of 8": (True, _f_batched(8)),
+    "counts summed by the last thread after its column sums": (
+        True, _patches(_F_NO_ATOMICS + (
+            ("  for (int f = j; f < T; f += blockDim.x) {\n"
+             "    a.nz_dx[static_cast<size_t>(f) * B + b] = 0;\n"
+             "    a.nz_dh[static_cast<size_t>(f) * B + b] = 0;\n  }\n", ""),
+            ("    __syncthreads();\n\n    // 3. The candidate",
+             "    if (j == blockDim.x - 1) {\n"
+             "      int nx = 0, nh = 0;\n"
+             "      for (int s = 0; s < L.sx; ++s) nx += cnt[s];\n"
+             "      for (int s = 0; s < L.sh; ++s) nh += cnt[L.sx + s];\n"
+             "      a.nz_dx[row] = nx;\n      a.nz_dh[row] = nh;\n    }\n"
+             "    __syncthreads();\n\n    // 3. The candidate")))),
+    "ablation: no transmit counts": (False, _patches(_F_NO_ATOMICS)),
+    "ablation: trivial gates": (False, _patches(_F_TRIVIAL_GATES)),
+    "ablation: no row sums": (False, _patches(_F_NO_ROW_SUMS)),
+    "ablation: neither gates nor row sums": (
+        False, _patches(_F_TRIVIAL_GATES + _F_NO_ROW_SUMS)),
+}
+
+# ---------------------------------------------------- cell variants --
+_CELL_SUMS = """    for (int s = 0; s < L.sx; ++s) {
+      ax = segment_sum(ax, lx + 32 * s, cnt[s], a.wx + j);
+    }
+    for (int s = 0; s < L.sh; ++s) {
+      ah = segment_sum(ah, lh + 32 * s, cnt[L.sx + s], a.wh + j);
+    }"""
+# The design before: every thread helps stage the transmitted rows into a
+# shared tile (slot 32s + k for entry k of segment s), then after a
+# barrier thread j sums column j from the tile in the same order.
+_CELL_TILE = """  float* tile = reinterpret_cast<float*>(smem + L.total);
+  for (int s = 0; s < L.sx + L.sh; ++s) {
+    const Row* list = s < L.sx ? lx + 32 * s : lh + 32 * (s - L.sx);
+    const float* wg = s < L.sx ? a.wx : a.wh;
+    for (int e = j; e < cnt[s] * N; e += blockDim.x) {
+      const int k = e / N;
+      tile[(32 * s + k) * N + (e - k * N)] = wg[list[k].off + (e - k * N)];
+    }
+  }
+  __syncthreads();
+  if (j < N) {
+    float ax = 0.0f, ah = 0.0f;
+    for (int s = 0; s < L.sx + L.sh; ++s) {
+      float acc = s < L.sx ? ax : ah;
+      const Row* list = s < L.sx ? lx + 32 * s : lh + 32 * (s - L.sx);
+      for (int k = 0; k < cnt[s]; ++k) {
+        acc = acc + list[k].d * tile[(32 * s + k) * N + j];
+      }
+      if (s < L.sx) ax = acc; else ah = acc;
+    }"""
+_CHUNK = "constexpr int kChunk = 8;"
+CELL_VARIANTS = {
+    "rows staged in a shared tile first (the design before)": (
+        True, _patches((
+            ("  float r = 0.0f;\n  if (j < N) {\n    float ax = 0.0f, ah = 0.0f;\n"
+             + _CELL_SUMS, "  float r = 0.0f;\n" + _CELL_TILE),
+            ("  const size_t smem = layout(I, H).total;\n",
+             "  const size_t smem = layout(I, H).total +\n"
+             "      4 * static_cast<size_t>(32 * ((I + 31) / 32 + (H + 31) / 32))"
+             " * 3 * H;\n"
+             "  cudaError_t err = cudaFuncSetAttribute(\n"
+             "      delta_gru_cell_kernel,"
+             " cudaFuncAttributeMaxDynamicSharedMemorySize,\n"
+             "      static_cast<int>(smem));\n"
+             "  if (err != cudaSuccess) return static_cast<int>(err);\n")))),
+    "direct reads, 4 in flight": (True, _patches(((
+        _CHUNK, "constexpr int kChunk = 4;"),))),
+    "direct reads, 16 in flight": (True, _patches(((
+        _CHUNK, "constexpr int kChunk = 16;"),))),
+    "direct reads, 32 in flight": (True, _patches(((
+        _CHUNK, "constexpr int kChunk = 32;"),))),
+}
+
+
 # clock64() stamps in thread 0, summed over the CTAs in g_phase[k]: 0 the
 # prologue, then per frame 1 the Δ encoders, 2 the first barrier, 3 the
 # row sums, 4 the reduce-scatter and accumulate, 5 the second barrier, 6
@@ -487,6 +747,32 @@ def _phase_stamps(src: str) -> str:
     return src + _READ_PHASES
 
 
+# The same seven stamps in the float kernel (phase 4: the accumulate, the
+# σ of the r and u columns and the shared stores).
+F_PHASES = PHASES[:4] + ("accumulate + σ + store",) + PHASES[5:]
+_F_STAMPS = (
+    ("  extern __shared__ __align__(16) unsigned char smem[];\n"
+     "  const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;\n",
+     "  extern __shared__ __align__(16) unsigned char smem[];\n"
+     "  long long c_prev = clock64();\n"
+     "  const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;\n"),
+    _STAMPS[1],
+    ("    __syncthreads();\n\n    // 2. Column j",
+     "    STAMP(1)\n    __syncthreads();\n    STAMP(2)\n\n    // 2. Column j"),
+    ("      mx = mx + ax;\n", "      STAMP(3)\n      mx = mx + ax;\n"),
+    ("    __syncthreads();\n\n    // 3. The candidate",
+     "    STAMP(4)\n    __syncthreads();\n    STAMP(5)\n\n    // 3. The candidate"),
+    ("      a.hs[row * H + j] = hcur;\n    }\n",
+     "      a.hs[row * H + j] = hcur;\n    }\n    STAMP(6)\n"),
+    (_STAMPS[6][0].replace("delta_gru_seq_int_kernel", "delta_gru_seq_kernel"),
+     _STAMPS[6][1].replace("delta_gru_seq_int_kernel", "delta_gru_seq_kernel")),
+)
+
+
+def _f_phase_stamps(src: str) -> str:
+    return _patches(_F_STAMPS)(src) + _READ_PHASES
+
+
 def run_stamped(torch, build, kernel, lib, call, shapes, n, report):
     """Run a stamped build of ``kernel`` once per shape (it must give the
     committed kernel's outputs bit for bit) and hand its ``n`` counters,
@@ -514,18 +800,18 @@ def run_stamped(torch, build, kernel, lib, call, shapes, n, report):
     build._loaded[kernel] = committed
 
 
-def gru_phase_report(results):
+def gru_phase_report(results, kernel="delta_gru_seq_int", phases=PHASES):
     """Cycles per frame of each step of the ΔGRU frame in thread 0,
     averaged over the CTAs and frames."""
     def report(label, args, c):
         T, B = args[0].shape[0], args[0].shape[1]
         per = [c[0] / B] + [c[k] / (B * T) for k in range(1, 7)]
-        print(f"[phases] delta_gru_seq_int {label}: prologue {per[0]:.0f} "
+        print(f"[phases] {kernel} {label}: prologue {per[0]:.0f} "
               f"cycles per CTA; per frame {sum(per[1:]):.0f} cycles: "
-              + ", ".join(f"{n} {v:.0f}" for n, v in zip(PHASES[1:],
+              + ", ".join(f"{n} {v:.0f}" for n, v in zip(phases[1:],
                                                          per[1:])))
-        results.setdefault("delta_gru_seq_int phases (cycles)", {})[
-            label] = dict(zip(PHASES, per))
+        results.setdefault(f"{kernel} phases (cycles)", {})[
+            label] = dict(zip(phases, per))
     return report
 
 
@@ -641,7 +927,8 @@ def main() -> int:
 
     card = cs.card_line(torch)
     print(f"[card] {card} | torch {torch.__version__}")
-    build.build(("iir_fex", "delta_gru_seq_int", "iir_fex_int"))
+    build.build(("iir_fex", "delta_gru_seq_int", "iir_fex_int",
+                 "delta_gru_seq", "delta_gru_cell"))
     with tempfile.TemporaryDirectory() as tmp:
         fex_libs = build_variants(
             build, "iir_fex", {**FEX_VARIANTS, "stamps": (True, _fex_stamps)},
@@ -652,6 +939,13 @@ def main() -> int:
             {**GRU_VARIANTS, "stamps": (True, _phase_stamps)},
             pathlib.Path(tmp))
         phase_lib = gru_libs.pop("stamps")
+        f_libs = build_variants(
+            build, "delta_gru_seq",
+            {**F_GRU_VARIANTS, "stamps": (True, _f_phase_stamps)},
+            pathlib.Path(tmp))
+        f_phase_lib = f_libs.pop("stamps")
+        cell_libs = build_variants(build, "delta_gru_cell", CELL_VARIANTS,
+                                   pathlib.Path(tmp))
         x, fex, params = cs.make_inputs(torch, np)
         coef = fex.coef.cuda()
         kw = dict(frame_shift=fex.cfg.frame_shift, env_alpha=fex.cfg.env_alpha,
@@ -668,6 +962,35 @@ def main() -> int:
         run_stamped(torch, build, "iir_fex", fex_stamped,
                     lambda a: bits(fex_call(a)), fex_shapes, 12,
                     fex_phase_report(results, cs.CHUNK))
+
+        # Float ΔGRU and cell on the float FEx's features of the chunk.
+        from repro_torch.core import delta_gru as dg
+        from repro_torch.kernels import delta_gru_cell as dgc
+        fl, _ = iir_fex.batched_iir_fex(x[:, :cs.CHUNK].contiguous(), coef,
+                                        iir_fex.init_fex_kernel_state(
+                                            cs.SLOTS, 10, "cuda"), **kw)
+        fxs = fl.movedim(1, 0).contiguous()
+        g = dg.DeltaGRUParams(*(params[k].cuda() for k in ("w_x", "w_h",
+                                                           "b")))
+        f_shapes = [(f"B={B}", (fxs.repeat(1, B // cs.SLOTS, 1).contiguous(),
+                                dg.init_delta_state(B, 10, 64, g)))
+                    for B in (cs.SLOTS, cs.ALWAYS_ON_SLOTS)]
+        f_call = lambda a: dgs.delta_gru_seq(a[0], *a[1], g.w_x, g.w_h, 0.1)
+        f_out = lambda out: bits([out[0], *out[1]]) + [out[2], out[3]]
+        time_variants(torch, cs, build, "delta_gru_seq", f_libs,
+                      F_GRU_VARIANTS, dgs, f_call, f_out, f_shapes, results)
+        run_stamped(torch, build, "delta_gru_seq", f_phase_lib,
+                    lambda a: f_out(f_call(a)), f_shapes, 7,
+                    gru_phase_report(results, "delta_gru_seq", F_PHASES))
+        cell_shapes = []
+        for label, (xb, st0) in f_shapes:       # halfway through the chunk
+            _, st, _, _ = dgs.delta_gru_seq(xb[:16].contiguous(), *st0,
+                                            g.w_x, g.w_h, 0.1)
+            cell_shapes.append((label, (xb[16].contiguous(), *st)))
+        cell_call = lambda a: dgc.delta_gru_cell(*a, g.w_x, g.w_h, 0.1)
+        time_variants(torch, cs, build, "delta_gru_cell", cell_libs,
+                      CELL_VARIANTS, dgc, cell_call, bits, cell_shapes,
+                      results)
 
         bundle = cs.promote(params, fex)
         codes = fp.to_code(x[:, :cs.CHUNK], bundle.ffmt.feat_frac, 16,

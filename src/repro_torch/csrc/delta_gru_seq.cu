@@ -16,20 +16,48 @@
 // 256 streams moves about 3 MB) and not arithmetic (at most 14,208 MACs
 // per frame and stream, fewer with sparse deltas): the frames form a
 // dependency chain, each frame needs the previous frame's h, and inside a
-// frame the Δ-encode, the matvec and the gates depend on each other.
+// frame the Δ-encode, the column sums and the gates depend on each other.
+// csrc/delta_gru_seq_chain.cu times that chain (one h component's
+// Δ-encode and compaction, a column's sum over the transmitted rows, σ of
+// the column, tanh and the blend) on one warp; 32 frames of it are the
+// chain bound of a chunk (chip_smoke.py prints it).
 //
 // What the design does about it.  One persistent CTA per stream runs all
-// T frames in-kernel.  W_x (I×3H) and W_h (H×3H) load into shared memory
-// once per launch (56,832 bytes at I=10, H=64, above the 48 KB static
-// limit, hence dynamic shared memory and cudaFuncSetAttribute); x̂, ĥ, h
-// stay in shared memory and each thread keeps its M_x/M_h column in
-// registers across frames.  Per frame only hs and the two counts go to
-// device memory.  The paper's per-column skip: each frame the transmitted
-// deltas are compacted (warp ballot + prefix over warps, in index order),
-// and thread j of 3H accumulates column j over those entries only.  Zero
-// deltas add nothing, and the non-zero terms are summed in index order
-// starting from 0, so the sum is what a sequential dense dot would give.
-// The gates run on threads j < H after a barrier.
+// T frames in-kernel, with one thread per pre-activation column (3H,
+// rounded up to a warp).  The prologue stages W_x|W_h (56,832 bytes at
+// I = 10, H = 64, hence dynamic shared memory and cudaFuncSetAttribute)
+// with 16-byte asynchronous copies where the rows allow it.  Each x
+// encoder thread loads its component one frame ahead into a register, so
+// the load's latency hides behind a frame's work and no global load sits
+// on the per-frame chain.  x̂, ĥ, h and thread j's M_x[j], M_h[j] stay in
+// registers across frames.  Per frame (delta_gru_seq_frame.cuh holds the
+// steps):
+//   1. the Δ encoders (thread j < H owns h component j; x component i
+//      belongs to lane i % 32 of the (i / 32)-th of the last ceil(I / 32)
+//      warps, so x and h are encoded side by side in different warps)
+//      compact their transmitted components per warp — a ballot and a
+//      population count, no prefix across warps — into (Δ, weight-row
+//      offset) lists, one segment per warp, x and h apart, and add the
+//      warp's count to the frame's transmit count with a global atomic
+//      (zeroed in the prologue);                           __syncthreads
+//   2. the paper's per-column skip: thread j sums column j over the x
+//      segments, then over the h segments, in warp order — ascending row
+//      order, from 0, one rounded product and one add per row, the order
+//      delta_matvec and the reference sum in; two rows' loads in flight —
+//      and adds each sum to its M; the threads of the r and u columns
+//      take σ of theirs, side by side;                      __syncthreads
+//   3. the candidate's tanh and the blend on threads j < H; h' stays in
+//      the thread that encodes it next frame.
+// Two CTA-wide barriers per frame (the design before had four and a
+// serial loop over the warp counts).  Per frame only hs and the two
+// counts go to device memory.  Slower in the variants measured beside
+// this design (chip_variants.py, PERF.md): row sums rolled, unrolled by
+// four or in predicated batches; rows as ballot masks over dense deltas;
+// σ(r) and σ(u) after the second barrier in the gate threads; x encoders
+// in the first warps; weights staged by plain loads; x staged for 32
+// frames in the prologue (the int twin's way; the prologue grew more than
+// the frames gained); the counts summed by one thread instead of the
+// atomics.
 //
 // Numerics.  Compiled with --fmad=false (multiply then add, as PyTorch's
 // eager ops) and --ftz=true (XLA:CPU flushes denormals).  σ and tanh are
@@ -37,154 +65,200 @@
 // products that XLA fuses: r·M_hc into the candidate's pre-activation and
 // u·h into the blend.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "xla_math.cuh"
+#include "delta_gru_seq_frame.cuh"
 
 namespace {
 
-// Shared-memory layout, in 4-byte words, for input width I, hidden H,
-// N = 3H columns: W_x, W_h, x̂, ĥ, h, compacted Δx (values, indices),
-// compacted Δh (values, indices), M_x and M_h staging, 64 warp counts.
-__host__ __device__ inline size_t smem_words(int I, int H) {
-  const size_t N = 3 * static_cast<size_t>(H);
-  return (I + H) * N + I + 2 * H + 2 * I + 2 * H + 2 * N + 64;
+using namespace gru_f;
+
+__host__ __device__ inline size_t round16(size_t v) { return (v + 15) / 16 * 16; }
+
+// Shared-memory layout, in bytes, for input width I and hidden H (N = 3H
+// columns): W_x (I rows) then W_h (H rows) at a row pitch of N rounded up
+// to 4 floats; the compacted (Δ, row offset) lists, warp w's segment from
+// entry 32w (SX segments for x, SH for h); the rows the gates read (σ(u)
+// and the candidate's M_x; its M_h); the segment counts.
+struct Layout {
+  int pitch, sx, sh;
+  size_t lx, lh, mxs, mhs, cnt, total;
+};
+
+__host__ __device__ inline Layout layout(int I, int H) {
+  Layout L;
+  const int N = 3 * H;
+  L.pitch = (N + 3) / 4 * 4;
+  L.sx = (I + 31) / 32;
+  L.sh = (H + 31) / 32;
+  L.lx = round16(4 * static_cast<size_t>(I + H) * L.pitch);
+  L.lh = L.lx + sizeof(Row) * 32 * L.sx;
+  L.mxs = L.lh + sizeof(Row) * 32 * L.sh;
+  L.mhs = L.mxs + 4 * static_cast<size_t>(L.pitch);
+  L.cnt = L.mhs + 4 * static_cast<size_t>(L.pitch);
+  L.total = L.cnt + round16(4 * static_cast<size_t>(L.sx + L.sh));
+  return L;
 }
 
-__global__ void delta_gru_seq_kernel(
-    const float* __restrict__ xs, const float* __restrict__ h0,
-    const float* __restrict__ xh0, const float* __restrict__ hh0,
-    const float* __restrict__ mx0, const float* __restrict__ mh0,
-    const float* __restrict__ wx_g, const float* __restrict__ wh_g,
-    float threshold, float* __restrict__ hs, int* __restrict__ nz_dx,
-    int* __restrict__ nz_dh, float* __restrict__ h_out,
-    float* __restrict__ xh_out, float* __restrict__ hh_out,
-    float* __restrict__ mx_out, float* __restrict__ mh_out, int T, int B,
-    int I, int H) {
-  extern __shared__ float smem[];
-  const int N = 3 * H;
-  float* wx = smem;
-  float* wh = wx + I * N;
-  float* xhat = wh + H * N;
-  float* hhat = xhat + I;
-  float* hcur = hhat + H;
-  float* lx_val = hcur + H;
-  int* lx_idx = reinterpret_cast<int*>(lx_val + I);
-  float* lh_val = reinterpret_cast<float*>(lx_idx + I);
-  int* lh_idx = reinterpret_cast<int*>(lh_val + H);
-  float* mxs = reinterpret_cast<float*>(lh_idx + H);
-  float* mhs = mxs + N;
-  int* wcnt = reinterpret_cast<int*>(mhs + N);  // [0,32): Δx, [32,64): Δh
+struct Args {
+  const float* xs;
+  const float* h0;
+  const float* xh0;
+  const float* hh0;
+  const float* mx0;
+  const float* mh0;
+  const float* wx;
+  const float* wh;
+  float* hs;
+  int* nz_dx;
+  int* nz_dh;
+  float* h_out;
+  float* xh_out;
+  float* hh_out;
+  float* mx_out;
+  float* mh_out;
+  float threshold;
+  int T, B, I, H;
+  int w_vec;   // 3H % 4 == 0 and both weight arrays 16-byte aligned
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Copy a float weight matrix of `rows` rows of N into shared memory at
+// `pitch` floats per row, as asynchronous copies (waited for by the
+// caller): 16 bytes each when vec (then pitch == N), else 4.
+__device__ __forceinline__ void stage_weights(float* dst, const float* src,
+                                              int rows, int N, int pitch,
+                                              bool vec) {
+  if (vec) {
+    const int n = rows * N / 4;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      cp_async16(dst + 4 * k, src + 4 * k);
+    }
+  } else {
+    const int n = rows * N;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      const int r = k / N;
+      cp_async4(dst + r * pitch + (k - r * N), src + k);
+    }
+  }
+}
+
+__global__ void delta_gru_seq_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;
+  const Layout L = layout(I, H);
+  float* w = reinterpret_cast<float*>(smem);       // W_x rows, then W_h
+  Row* lx = reinterpret_cast<Row*>(smem + L.lx);
+  Row* lh = reinterpret_cast<Row*>(smem + L.lh);
+  float* mxs = reinterpret_cast<float*>(smem + L.mxs);
+  float* mhs = reinterpret_cast<float*>(smem + L.mhs);
+  int* cnt = reinterpret_cast<int*>(smem + L.cnt);  // x, then h segments
 
   const int b = blockIdx.x;
   const int j = threadIdx.x;
   const int lane = j & 31;
   const int warp = j >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
+  const int xwarp = warp - (static_cast<int>(blockDim.x >> 5) - L.sx);
+  const int xj = xwarp * 32 + lane;   // this thread's x component
+  const bool x_enc = xwarp >= 0 && xj < I;
 
-  for (int k = j; k < I * N; k += blockDim.x) wx[k] = wx_g[k];
-  for (int k = j; k < H * N; k += blockDim.x) wh[k] = wh_g[k];
-  if (j < I) xhat[j] = xh0[b * I + j];
+  stage_weights(w, a.wx, I, N, L.pitch, a.w_vec);
+  stage_weights(w + I * L.pitch, a.wh, H, N, L.pitch, a.w_vec);
+  for (int f = j; f < T; f += blockDim.x) {
+    a.nz_dx[static_cast<size_t>(f) * B + b] = 0;
+    a.nz_dh[static_cast<size_t>(f) * B + b] = 0;
+  }
+  float xhat = 0.0f, hhat = 0.0f, hcur = 0.0f, mx = 0.0f, mh = 0.0f;
+  float xnext = 0.0f;              // x of the coming frame
+  if (x_enc) {
+    xhat = a.xh0[b * I + xj];
+    if (T > 0) xnext = a.xs[static_cast<size_t>(b) * I + xj];
+  }
   if (j < H) {
-    hhat[j] = hh0[b * H + j];
-    hcur[j] = h0[b * H + j];
+    hhat = a.hh0[b * H + j];
+    hcur = a.h0[b * H + j];
   }
-  float mx = 0.0f, mh = 0.0f;
   if (j < N) {
-    mx = mx0[static_cast<size_t>(b) * N + j];
-    mh = mh0[static_cast<size_t>(b) * N + j];
+    mx = a.mx0[static_cast<size_t>(b) * N + j];
+    mh = a.mh0[static_cast<size_t>(b) * N + j];
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const size_t row = static_cast<size_t>(t) * B + b;
-    // Δ encoders: thread j owns x component j (j < I) and h component j
-    // (j < H).  Only the owner reads or writes x̂[j], ĥ[j] and h[j].
-    bool fx = false, fh = false;
-    float dx = 0.0f, dh = 0.0f;
-    if (j < I) {
-      const float v = xs[row * I + j];
-      const float diff = v - xhat[j];
-      fx = fabsf(diff) > threshold;
-      if (fx) {
-        dx = diff;
-        xhat[j] = v;
-      }
+    const float xv = xnext;
+    if (x_enc && t + 1 < T) xnext = a.xs[(row + B) * I + xj];
+    // 1. Δ encoders, each warp compacting its own transmitted components.
+    if (xwarp >= 0) {
+      float d = 0.0f;
+      const bool sent = x_enc && encode(xv, xhat, a.threshold, d);
+      const int n = compact(sent, d, xj * L.pitch, lx, 32 * xwarp);
+      if (lane == 0) cnt[xwarp] = n;
+      if (lane == 0 && n != 0) atomicAdd(&a.nz_dx[row], n);
     }
-    if (j < H) {
-      const float v = hcur[j];
-      const float diff = v - hhat[j];
-      fh = fabsf(diff) > threshold;
-      if (fh) {
-        dh = diff;
-        hhat[j] = v;
-      }
-    }
-    // Compact the transmitted components in index order.
-    const unsigned bx = __ballot_sync(0xffffffffu, fx);
-    const unsigned bh = __ballot_sync(0xffffffffu, fh);
-    if (lane == 0) {
-      wcnt[warp] = __popc(bx);
-      wcnt[32 + warp] = __popc(bh);
-    }
-    __syncthreads();
-    int off_x = 0, off_h = 0, nx = 0, nh = 0;
-    for (int w = 0; w < n_warps; ++w) {
-      if (w < warp) {
-        off_x += wcnt[w];
-        off_h += wcnt[32 + w];
-      }
-      nx += wcnt[w];
-      nh += wcnt[32 + w];
-    }
-    if (fx) {
-      const int p = off_x + __popc(bx & lanes_below);
-      lx_val[p] = dx;
-      lx_idx[p] = j;
-    }
-    if (fh) {
-      const int p = off_h + __popc(bh & lanes_below);
-      lh_val[p] = dh;
-      lh_idx[p] = j;
+    if (warp < L.sh) {
+      float d = 0.0f;
+      const bool sent = j < H && encode(hcur, hhat, a.threshold, d);
+      const int n = compact(sent, d, (I + j) * L.pitch, lh, 32 * warp);
+      if (lane == 0) cnt[L.sx + warp] = n;
+      if (lane == 0 && n != 0) atomicAdd(&a.nz_dh[row], n);
     }
     __syncthreads();
 
-    // Column j of M_x and M_h over the transmitted rows only.
+    // 2. Column j of M_x and M_h over the transmitted rows only; then the
+    //    r and u columns' threads take their σ, the candidate's keep M.
+    float r = 0.0f;
     if (j < N) {
       float ax = 0.0f, ah = 0.0f;
-      for (int k = 0; k < nx; ++k) ax += lx_val[k] * wx[lx_idx[k] * N + j];
-      for (int k = 0; k < nh; ++k) ah += lh_val[k] * wh[lh_idx[k] * N + j];
+      for (int s = 0; s < L.sx; ++s) {
+        ax = column_sum(ax, lx + 32 * s, cnt[s], w + j);
+      }
+      for (int s = 0; s < L.sh; ++s) {
+        ah = column_sum(ah, lh + 32 * s, cnt[L.sx + s], w + j);
+      }
       mx = mx + ax;
       mh = mh + ah;
-      mxs[j] = mx;
-      mhs[j] = mh;
-    }
-    if (j == 0) {
-      nz_dx[row] = nx;
-      nz_dh[row] = nh;
+      if (j < H) {
+        r = gate_sigmoid(mx, mh);
+      } else if (j < 2 * H) {
+        mxs[j] = gate_sigmoid(mx, mh);              // u
+      } else {
+        mxs[j] = mx;
+        mhs[j] = mh;
+      }
     }
     __syncthreads();
 
-    // Type-2 GRU gates on threads j < H.
+    // 3. The candidate and the blend on threads j < H.
     if (j < H) {
-      const float r = xla_math::sigmoid(mxs[j] + mhs[j]);
-      const float u = xla_math::sigmoid(mxs[H + j] + mhs[H + j]);
-      const float c = xla_math::tanh(fmaf(r, mhs[2 * H + j], mxs[2 * H + j]));
-      const float h_new = fmaf(u, hcur[j], (1.0f - u) * c);
-      hcur[j] = h_new;
-      hs[row * H + j] = h_new;
+      hcur = candidate_blend(r, mxs[H + j], mxs[2 * H + j], mhs[2 * H + j],
+                             hcur);
+      a.hs[row * H + j] = hcur;
     }
-    __syncthreads();
   }
 
-  if (j < I) xh_out[b * I + j] = xhat[j];
+  if (x_enc) a.xh_out[b * I + xj] = xhat;
   if (j < H) {
-    h_out[b * H + j] = hcur[j];
-    hh_out[b * H + j] = hhat[j];
+    a.h_out[b * H + j] = hcur;
+    a.hh_out[b * H + j] = hhat;
   }
   if (j < N) {
-    mx_out[static_cast<size_t>(b) * N + j] = mx;
-    mh_out[static_cast<size_t>(b) * N + j] = mh;
+    a.mx_out[static_cast<size_t>(b) * N + j] = mx;
+    a.mh_out[static_cast<size_t>(b) * N + j] = mh;
   }
 }
 
@@ -196,29 +270,42 @@ extern "C" const char* repro_cuda_error_string(int err) {
 
 // Dynamic shared memory one CTA needs for input width I and hidden H.
 extern "C" long long delta_gru_seq_smem_bytes(int I, int H) {
-  return static_cast<long long>(smem_words(I, H) * 4);
+  return static_cast<long long>(layout(I, H).total);
 }
 
 // xs (T, B, I); h0, hh0, h_out, hh_out (B, H); xh0, xh_out (B, I);
 // mx0, mh0, mx_out, mh_out (B, 3H); wx (I, 3H); wh (H, 3H); hs (T, B, H);
 // nz_dx, nz_dh (T, B) int32.  All contiguous float32 (counts int32) on
-// the current device.  Needs I <= 3H rounded up to a warp multiple and
-// 3H <= 1024.  Launches on `stream` and returns the first error.
+// the current device.  The launch follows the wrapper's plan
+// (kernels/delta_gru_seq.py::gru_launch_plan): one CTA per stream
+// (ctas == B) of `threads` threads, a warp multiple that covers 3H and I,
+// with smem_bytes of dynamic shared memory.  Launches on `stream` and
+// returns the launch's (or the shared-memory attribute's) error, or
+// cudaErrorInvalidValue for a plan this kernel cannot run.
 extern "C" int delta_gru_seq_launch(
     const float* xs, const float* h0, const float* xh0, const float* hh0,
     const float* mx0, const float* mh0, const float* wx, const float* wh,
     float threshold, float* hs, int* nz_dx, int* nz_dh, float* h_out,
     float* xh_out, float* hh_out, float* mx_out, float* mh_out, int T, int B,
-    int I, int H, void* stream) {
-  const int threads = ((3 * H + 31) / 32) * 32;
-  const size_t smem = smem_words(I, H) * 4;
+    int I, int H, int ctas, int threads, int smem_bytes, void* stream) {
+  if (ctas != B || threads % 32 != 0 || threads > 1024 ||
+      threads < 3 * H || threads < I ||
+      static_cast<size_t>(smem_bytes) < layout(I, H).total) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       delta_gru_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  delta_gru_seq_kernel<<<B, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      xs, h0, xh0, hh0, mx0, mh0, wx, wh, threshold, hs, nz_dx, nz_dh, h_out,
-      xh_out, hh_out, mx_out, mh_out, T, B, I, H);
+  const int w_vec = (3 * H) % 4 == 0 &&
+                            (reinterpret_cast<uintptr_t>(wx) & 15) == 0 &&
+                            (reinterpret_cast<uintptr_t>(wh) & 15) == 0
+                        ? 1
+                        : 0;
+  const Args args{xs, h0, xh0, hh0, mx0, mh0, wx, wh, hs, nz_dx, nz_dh,
+                  h_out, xh_out, hh_out, mx_out, mh_out, threshold, T, B, I,
+                  H, w_vec};
+  delta_gru_seq_kernel<<<B, threads, smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

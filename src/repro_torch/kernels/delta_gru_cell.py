@@ -18,45 +18,30 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.delta_gru_seq import MAX_SMEM_BYTES, MAX_THREADS
+from repro_torch.kernels.delta_gru_seq import MAX_THREADS
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
 
 _NAMES = ("x", "h", "x_hat", "h_hat", "m_x", "m_h", "w_x", "w_h")
 
 
-def _state_words(input_dim: int, hidden_dim: int) -> int:
-    I, H = input_dim, hidden_dim
-    N = 3 * H
-    return I + 2 * H + 2 * I + 2 * H + 2 * N + 64
-
-
-def cell_tile_rows(input_dim: int, hidden_dim: int) -> int:
-    """Weight rows the kernel stages per pass: all I + H where they fit
-    one block's shared memory beside the state, else as many as fit."""
-    room = MAX_SMEM_BYTES // 4 - _state_words(input_dim, hidden_dim)
-    return max(0, min(input_dim + hidden_dim, room // (3 * hidden_dim)))
-
-
 def cell_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
-    """Dynamic shared memory of one CTA of the kernel: x̂, ĥ, h, the
-    compacted deltas, the M staging rows, 64 warp counts and a tile of
-    ``cell_tile_rows`` weight rows (the layout of ``smem_words`` in
-    ``csrc/delta_gru_cell.cu``)."""
-    return 4 * (_state_words(input_dim, hidden_dim)
-                + cell_tile_rows(input_dim, hidden_dim) * 3 * hidden_dim)
+    """Dynamic shared memory of one CTA of the kernel (the layout of
+    ``layout`` in ``csrc/delta_gru_cell.cu``): the compacted (Δ, row
+    offset) lists, a segment of 32 8-byte entries per warp of
+    components, the segment counts rounded up to 16 bytes, and the M_x
+    and M_h rows the gates read.  The weights are read from global
+    memory, so it stays under the 48 KB a block has without opting in at
+    every width the threads admit."""
+    I, H = input_dim, hidden_dim
+    segments = -(-I // 32) + -(-H // 32)
+    return 256 * segments + -(-4 * segments // 16) * 16 + 2 * 4 * 3 * H
 
 
 def check_cell_fits(input_dim: int, hidden_dim: int) -> None:
-    """Raise ``ValueError`` when the kernel cannot run this ΔGRU: one
-    weight row must fit one thread block's shared memory beside the
-    state, 3H columns one block's threads, and the input width the
+    """Raise ``ValueError`` when the kernel cannot run this ΔGRU: 3H
+    columns must fit one block's threads, and the input width the
     block's threads."""
     threads = -(-3 * hidden_dim // 32) * 32
-    if cell_tile_rows(input_dim, hidden_dim) < 1:
-        raise ValueError(
-            f"ΔGRU cell I={input_dim}, H={hidden_dim}: its state and one "
-            f"weight row exceed the {MAX_SMEM_BYTES} bytes of shared memory "
-            f"of one block (227 KB on Hopper)")
     if threads > MAX_THREADS or input_dim > threads:
         raise ValueError(
             f"ΔGRU cell I={input_dim}, H={hidden_dim} needs 3H <= "
@@ -97,7 +82,7 @@ def _launcher():
     fn = lib.delta_gru_cell_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 5 + [i] * 4 + [p]
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 5 + [i] * 3 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -132,8 +117,7 @@ def delta_gru_cell(x, h, x_hat, h_hat, m_x, m_h, w_x, w_h, threshold):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(a.data_ptr() for a in args), float(threshold),
-                 *(o.data_ptr() for o in outs), B, I, H,
-                 cell_tile_rows(I, H), stream)
+                 *(o.data_ptr() for o in outs), B, I, H, stream)
     build.check(lib, err, "delta_gru_cell kernel launch")
     delta_gru_cell.launches += 1
     return outs

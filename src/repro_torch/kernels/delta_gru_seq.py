@@ -29,13 +29,21 @@ MAX_SMEM_BYTES = 232_448
 MAX_THREADS = 1024
 
 
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
 def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
-    """Dynamic shared memory of one CTA of the kernel: W_x, W_h, x̂, ĥ, h,
-    the compacted deltas, the M staging rows and 64 warp counts (the
-    layout of ``smem_words`` in ``csrc/delta_gru_seq.cu``)."""
+    """Dynamic shared memory of one CTA of the float kernel (the layout of
+    ``layout`` in ``csrc/delta_gru_seq.cu``): W_x and W_h at a row pitch
+    of 3H rounded up to 4 floats, the compacted (Δ, row offset) lists (a
+    segment of 32 8-byte entries per warp), the two rows the gates read
+    and the segment counts, each part rounded up to 16 bytes."""
     I, H = input_dim, hidden_dim
-    N = 3 * H
-    return 4 * ((I + H) * N + I + 2 * H + 2 * I + 2 * H + 2 * N + 64)
+    pitch = -(-3 * H // 4) * 4
+    segments = -(-I // 32) + -(-H // 32)
+    return (_r16(4 * (I + H) * pitch) + 256 * segments + 8 * pitch
+            + _r16(4 * segments))
 
 
 def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
@@ -51,13 +59,23 @@ def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
     I, H = input_dim, hidden_dim
     pitch = -(-3 * H // 4) * 4
     segments = -(-I // 32) + -(-H // 32)
-    r16 = lambda v: -(-v // 16) * 16
-    return (r16((I + H) * pitch) + 8 * (I + H) + 8 * pitch
-            + r16(4 * segments) + r16(2 * x_frames * I))
+    return (_r16((I + H) * pitch) + 8 * (I + H) + 8 * pitch
+            + _r16(4 * segments) + _r16(2 * x_frames * I))
 
 
 # The int kernel stages x codes for blocks of at most this many frames.
 INT_X_FRAMES = 32
+
+
+def gru_launch_plan(B: int, I: int, H: int) -> dict:
+    """The float ΔGRU kernel's launch for B streams, input width I and
+    hidden H: ``ctas`` (one per stream), ``threads`` (a warp multiple
+    covering the 3H columns and the I x encoders) and dynamic
+    ``smem_bytes``.  Raises ``ValueError`` for a ΔGRU the kernel cannot
+    hold (``check_kernel_fits``)."""
+    check_kernel_fits(I, H)
+    return {"ctas": B, "threads": -(-3 * H // 32) * 32,
+            "smem_bytes": seq_kernel_smem_bytes(I, H)}
 
 
 def gru_int_launch_plan(B: int, I: int, H: int, T: int) -> dict:
@@ -160,8 +178,7 @@ def _launcher():
     fn = lib.delta_gru_seq_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 8 + [ctypes.c_float] + [p] * 8
-                       + [i, i, i, i, p])
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 8 + [i] * 7 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -197,7 +214,7 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
             raise ValueError(f"delta_gru_seq: {name} must be contiguous")
     T, B, I = xs.shape
     H = h0.shape[1]
-    check_kernel_fits(I, H)
+    plan = gru_launch_plan(B, I, H)
     dev = xs.device
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     nz_dx = torch.empty((T, B), dtype=torch.int32, device=dev)
@@ -212,7 +229,8 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(a.data_ptr() for a in args), float(threshold),
                  hs.data_ptr(), nz_dx.data_ptr(), nz_dh.data_ptr(),
-                 *(a.data_ptr() for a in final), T, B, I, H, stream)
+                 *(a.data_ptr() for a in final), T, B, I, H, plan["ctas"],
+                 plan["threads"], plan["smem_bytes"], stream)
     build.check(lib, err, "delta_gru_seq kernel launch")
     delta_gru_seq.launches += 1
     return hs, final, nz_dx, nz_dh

@@ -103,7 +103,7 @@ def test_pallas_raises_above_kernel_shared_memory():
     with pytest.raises(ValueError, match="227 KB.*delta_matvec"):
         tdgs.check_kernel_fits(I, h)
     assert not tdgs.seq_kernel_fits(I, h) and tdgs.seq_kernel_fits(I, 132)
-    assert not tdgs.seq_kernel_fits(I, 133)            # 233,924 B
+    assert not tdgs.seq_kernel_fits(I, 133)            # 233,568 B
     rng = np.random.default_rng(8)
     p = tdg.DeltaGRUParams(
         torch.from_numpy((rng.standard_normal((I, 3 * h)) / 4
@@ -117,6 +117,61 @@ def test_pallas_raises_above_kernel_shared_memory():
     assert hs.shape == (3, 2, h)
     torch.testing.assert_close(hs, hs_x, rtol=0, atol=ATOL)
     assert torch.equal(st.nz_dx, st_x.nz_dx)
+
+
+# Edge cases chip_smoke.py holds the kernel to on the card, here for the
+# plain version against JAX: one frame; every row sent (Δ_TH -1, zero
+# deltas too); no row sent (Δ_TH above every |Δ|); x encoders in two warps
+# (I = 40) beside 3H = 60 columns (H = 20).
+@pytest.mark.parametrize("t,i,h,th", [(1, I, H, 0.1), (T, I, H, -1.0),
+                                      (T, I, H, 1e9), (T, 40, 20, 0.1)])
+def test_plain_version_matches_jax_at_edges(t, i, h, th):
+    rng = np.random.default_rng(t + i + h)
+    w = ((rng.standard_normal((i, 3 * h)) / np.sqrt(i)).astype(np.float32),
+         (rng.standard_normal((h, 3 * h)) / np.sqrt(h)).astype(np.float32),
+         (0.1 * rng.standard_normal(3 * h)).astype(np.float32))
+    xs = np.cumsum(0.15 * rng.standard_normal((t, B, i)), 0).astype(
+        np.float32)
+    j_hs, j_st, j_nzx, j_nzh = _jax(w, xs, th)
+    p = tdg.DeltaGRUParams(*(torch.tensor(a) for a in w))
+    hs, st, stats = tdg.delta_gru_scan(p, torch.tensor(xs), th,
+                                       backend="pallas")
+    np.testing.assert_allclose(hs.numpy(), j_hs, rtol=0, atol=ATOL)
+    for got, want in zip(st, j_st):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(stats.nz_dx.numpy(), j_nzx)
+    np.testing.assert_array_equal(stats.nz_dh.numpy(), j_nzh)
+    sent = int(stats.nz_dx.sum() + stats.nz_dh.sum())
+    if th < 0:
+        assert sent == t * B * (i + h)
+    if th > 1e6:
+        assert sent == 0
+
+
+@pytest.mark.parametrize("i", [10, 20, 40, 64, 96])
+def test_gru_launch_plan_holds_the_fallback_boundary(i):
+    """The float kernel's plan: one CTA per stream, a warp multiple of
+    threads covering 3H and I, and shared memory as the kernel lays it
+    out (weights at a pitch of 3H rounded up to 4 floats, a list segment
+    per warp, two gate rows, the counts).  Only the weights decide where
+    the fallback starts: still H = 133 at I = 10."""
+    from repro_torch.kernels import delta_gru_seq as tdgs
+    h_max = max(h for h in range(1, 342) if tdgs.seq_kernel_fits(i, h))
+    plan = tdgs.gru_launch_plan(3, i, h_max)
+    with pytest.raises(ValueError, match="227 KB"):
+        tdgs.gru_launch_plan(3, i, h_max + 1)
+    assert plan["ctas"] == 3 and plan["threads"] % 32 == 0
+    assert plan["threads"] >= max(3 * h_max, i)
+    pitch = -(-3 * h_max // 4) * 4
+    weights = 4 * (i + h_max) * pitch
+    assert plan["smem_bytes"] == tdgs.seq_kernel_smem_bytes(i, h_max)
+    assert weights < plan["smem_bytes"] <= tdgs.MAX_SMEM_BYTES
+    assert plan["smem_bytes"] - weights < 6_000        # the rest is small
+    if i == 10:
+        assert h_max == 132
+        assert tdgs.gru_launch_plan(32, 10, 64) == {
+            "ctas": 32, "threads": 192,
+            "smem_bytes": 4 * 74 * 192 + 256 * 3 + 8 * 192 + 16}
 
 
 def _spy_matvec(monkeypatch):

@@ -73,17 +73,48 @@ def test_cpu_wrapper_is_its_plain_version_and_counts_nothing():
 
 
 def test_check_cell_fits_names_the_limits():
-    """The kernel stages the transmitted deltas' weight rows in a shared-
-    memory tile: all I + H rows at the paper's width, as many as fit
-    (here 147 of 168) for the sweep's widest shape; it refuses only what
-    one block's threads cannot hold."""
-    assert tdc.cell_tile_rows(10, 64) == 74
-    assert tdc.cell_kernel_smem_bytes(10, 64) == 4 * (
-        10 + 2 * 64 + 2 * 10 + 2 * 64 + 2 * 192 + 64 + 74 * 192)
-    assert tdc.cell_tile_rows(40, 128) == 147
-    assert tdc.cell_kernel_smem_bytes(40, 128) <= 232_448
+    """The kernel reads the transmitted deltas' weight rows straight from
+    global memory: its shared memory holds only the compacted lists (32
+    entries of 8 bytes per warp of components), their counts and the M
+    rows, under the 48 KB a block has without opting in at every width
+    it admits; it refuses only what one block's threads cannot hold."""
+    assert tdc.cell_kernel_smem_bytes(10, 64) == 8 * 32 * 3 + 16 + 8 * 192
+    assert tdc.cell_kernel_smem_bytes(40, 128) == 8 * 32 * 6 + 32 + 8 * 384
+    assert tdc.cell_kernel_smem_bytes(1024, 341) < 48 * 1024
     tdc.check_cell_fits(40, 128)
+    tdc.check_cell_fits(1024, 341)           # 1023 columns, 1024 threads
     with pytest.raises(ValueError, match="3H <= 1024"):
         tdc.check_cell_fits(10, 342)
     with pytest.raises(ValueError, match="3H <= 1024"):
         tdc.check_cell_fits(1100, 8)
+    with pytest.raises(ValueError, match=r"I <= 3H rounded up to a warp \(32\)"):
+        tdc.check_cell_fits(33, 10)
+
+
+# The edge cases chip_smoke.py holds the kernel to on the card: every row
+# sent (Δ_TH -1, zero deltas too), no row sent (Δ_TH above every |Δ|), x
+# encoders in two warps (I = 40) with 3H not a multiple of 32 (H = 20),
+# I > H, and the full width at a batch that is not a warp multiple.
+EDGES = [(3, 40, 20, -1.0), (3, 40, 20, 1e9), (2, 40, 20, 0.1),
+         (33, 10, 64, -1.0), (1, 10, 64, 1e9), (4, 96, 32, 0.1)]
+
+
+@pytest.mark.parametrize("B,I,H,th", EDGES)
+def test_edge_shapes_and_thresholds_match_jax_oracle(B, I, H, th):
+    args = _inputs(B, I, H, seed=7 * B + I + H)
+    got = tops.delta_gru_cell(*(torch.from_numpy(a) for a in args), th)
+    want = jref.delta_gru_cell_ref(*(jnp.asarray(a) for a in args), th)
+    for name, g, w in zip(("h", "x_hat", "h_hat", "m_x", "m_h"), got, want):
+        if name in ("x_hat", "h_hat"):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL,
+                                       atol=TOL, err_msg=name)
+    x, h, xh, hh, mx, mh = args[:6]
+    if th < 0:                               # every component transmitted
+        np.testing.assert_array_equal(got[1].numpy(), x)
+        np.testing.assert_array_equal(got[2].numpy(), h)
+    if th > 1e6:                             # none: M and the hats stay
+        np.testing.assert_array_equal(got[1].numpy(), xh)
+        np.testing.assert_array_equal(got[3].numpy(), mx)
+        np.testing.assert_array_equal(got[4].numpy(), mh)
