@@ -6,7 +6,7 @@
                                      #   always-on serving step
 
 Phases, each exiting non-zero on failure:
-  1. the card's name and power limit; build all six CUDA kernels and the
+  1. the card's name and power limit; build all seven CUDA kernels and the
      four chain probes (iir_fex, iir_fex_int, delta_gru_seq,
      delta_gru_seq_int) with nvcc (one process per source, all started
      together) and print the build seconds and ptxas reports; check the
@@ -68,9 +68,29 @@ Phases, each exiting non-zero on failure:
      after: each path's kernels must have launched as often as its steps
      need, the other kernels not at all); check a CUDA session against
      the CPU plain-version session on a small input in both numerics
-     (int8: every code equal); then a timed always-on phase in each,
-     256 slots × 16 chunks of 4096 samples;
-  5. the ``kernels`` JSON line (six kernels), the card line, and the
+     (int8: every code equal);
+  5. detection: hold detect_head (softmax → EMA → hysteresis latch over a
+     chunk) against its plain version — events, latch, refractory count
+     and smoothed posteriors bit for bit — at B = 32 and 256 over two
+     carried chunks of 32 frames, α 0.25 and 0.3, scalar and per-keyword
+     thresholds, first_keyword 1 and 2; at B = 1, 3, 33 × F = 1, 3, 100;
+     at 35 classes (XLA's sum in two windows); on a NaN logit row, ±1e30
+     logits and thresholds that fire in most slots; check its
+     shared-memory formula and that it refuses a plan it cannot run; time
+     it beside its plain version, its bound and its launch floor (an
+     empty kernel at its launch shape); serve ``--mode kws-detect`` on 32
+     slots × 30 s streams once per numerics (launch counters zeroed just
+     before, read just after: the numerics' FEx and ΔGRU kernels and
+     detect_head once per step, nothing else; fires present); check a
+     CUDA detect session against the CPU one in both numerics (int8:
+     every code, event, gate and state equal; float: events, gates,
+     votes and counts equal, logits within 1e-4);
+  6. a timed always-on phase in each numerics, 256 slots × 16 chunks of
+     4096 samples, each followed by the same in detect mode (continuous
+     streams, VAD on) with its kernel launches per step and its step
+     time beside the plain step's (``--profile``: device busy share and
+     device activities per step);
+  7. the ``kernels`` JSON line (seven kernels), the card line, and the
      final ``{"ok": true, ...}`` line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
@@ -429,10 +449,10 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} libraries (six kernels and four chain "
+    print(f"[build] {len(built)} libraries (seven kernels and four chain "
           f"probes) built in {secs:.1f} s")
-    if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 6:
-        fail(f"expected the six kernels {build.KERNELS}, built "
+    if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 7:
+        fail(f"expected the seven kernels {build.KERNELS}, built "
              f"{sorted(built)}")
     # The wrappers' shared-memory formulas must be the kernels' own.
     from repro_torch.kernels import delta_gru_cell as dgc
@@ -1420,7 +1440,8 @@ def kernel_wrappers():
     from repro_torch.kernels import ops
     return {name: getattr(ops, name) for name in (
         "batched_iir_fex", "delta_gru_seq", "batched_iir_fex_int",
-        "delta_gru_seq_int", "delta_matvec", "delta_gru_cell")}
+        "delta_gru_seq_int", "delta_matvec", "delta_gru_cell",
+        "detect_head")}
 
 
 def serve_main_path(torch, numerics: str = "float32"):
@@ -1590,6 +1611,8 @@ def profile_steps(torch, sess, streams, numerics):
                                ).votes.cpu()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    n_dev = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
     rows = []
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
@@ -1602,16 +1625,356 @@ def profile_steps(torch, sess, streams, numerics):
         return
     print(f"[profile] {numerics}, 4 steps: wall {wall_us / 4:.1f} us/step, "
           f"device busy "
-          f"{busy / 4:.1f} us/step ({100 * busy / wall_us:.1f}% of wall)")
+          f"{busy / 4:.1f} us/step ({100 * busy / wall_us:.1f}% of wall), "
+          f"{n_dev / 4:.1f} device activities (kernels, copies) per step")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {dev_us / 4:9.1f} us/step  x{count // 4:<3d} "
               f"{key[:90]}")
 
 
+# ---------------------------------------------------- detection phases --
+DETECT_FIRE, DETECT_RELEASE = 0.1, 0.09   # the random model fires here
+DETECT_SECONDS = 30.0                     # serve phase: stream per slot
+HEAD_OPS_PER_CLASS = 32        # exp ≈ 24, the max, the sum, the division,
+                               # the EMA, the compares (an FMA counts two)
+
+
+def head_case(torch, gen, F, B, K, scale=0.8):
+    return scale * torch.randn(F, B, K, generator=gen, device="cuda")
+
+
+def run_head(torch, dh, logits, cfg, chunks):
+    """The kernel and its plain version over ``chunks`` carried chunks of
+    ``logits``; returns (mismatches, fires, max abs smooth diff) and fails
+    on any difference."""
+    from repro_torch.models.detector import init_detector_state
+    F, B, K = logits.shape
+    st_k = st_p = init_detector_state(B, K, "cuda")
+    step = -(-F // chunks)
+    bad = fires = 0
+    for lo in range(0, F, step):
+        st_k, ev_k = dh.detect_head(logits[lo:lo + step], st_k, cfg)
+        st_p, ev_p = dh.detect_head_ref(logits[lo:lo + step], st_p, cfg)
+        torch.cuda.synchronize()
+        bad += int((ev_k != ev_p).sum())
+        bad += int((st_k.active != st_p.active).sum())
+        bad += int((st_k.refract != st_p.refract).sum())
+        bad += bits_differ(torch, st_k.smooth, st_p.smooth)
+        fires += int((ev_k >= 0).sum())
+    return bad, fires
+
+
+def compare_detect_head(torch, np):
+    """detect_head against its plain version (xla_softmax + the frame
+    loop of detector_scan) on the card: events, the latch, the refractory
+    count and the smoothed posteriors bit for bit (tolerance 0), at the
+    serving shapes over two carried chunks, at ragged shapes, over the
+    options and on hostile data."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import detect_head as dh
+    from repro_torch.models.detector import DetectorConfig
+    lib = build.load("detect_head")
+    fn = lib.detect_head_smem_bytes
+    fn.restype = ctypes.c_longlong
+    group = lib.detect_head_group
+    for K in (1, 11, 12, 16, 17, 35, 64):
+        if fn(K) != dh.detect_launch_plan(33, K)[2]:
+            fail(f"detect_head shared-memory formula mismatch at K={K}")
+        if group(K) != dh.lanes_per_slot(K):
+            fail(f"detect_head lanes per slot mismatch at K={K}")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rng = np.random.default_rng(31)
+    cases = []
+    for B in (SLOTS, ALWAYS_ON_SLOTS):
+        logits = head_case(torch, gen, 64, B, 12)
+        for alpha in (0.25, 0.3):
+            for fk in (1, 2):
+                n_kw = 12 - fk
+                per_kw = tuple(float(v) for v in
+                               rng.uniform(0.085, 0.1, n_kw))
+                for fire, rel in ((0.09, 0.087),
+                                  (per_kw, tuple(0.97 * f for f in per_kw))):
+                    kind = ("per-keyword" if isinstance(fire, tuple)
+                            else "scalar")
+                    cases.append((f"B={B} F=2x32 α={alpha} first_keyword="
+                                  f"{fk} {kind} thresholds", logits,
+                                  DetectorConfig(alpha, fire, rel, 5, fk),
+                                  2))
+    for B in (1, 3, 33):
+        for F in (1, 3, 100):
+            cases.append((f"B={B} F={F}", head_case(torch, gen, F, B, 12),
+                          DetectorConfig(0.3, 0.02, 0.015, 4), 1))
+    lg = head_case(torch, gen, 40, 33, 35, 2.0)
+    cases.append(("B=33 F=40 K=35 (a sum in two windows)", lg,
+                  DetectorConfig(0.3, 0.035, 0.03, 4), 2))
+    lg = head_case(torch, gen, 50, 64, 12, 3.0)
+    lg[7, 5, 3] = float("nan")
+    lg[10:20, 9, 4], lg[10:20, 9, 0] = 1e30, -1e30
+    lg[20:30, 11, :] = 1e30
+    lg[30:40, 12, 2], lg[30:40, 12, 5] = -1e30, 1e30
+    cases.append(("hostile: a NaN row, ±1e30 logits, fires in most slots",
+                  lg, DetectorConfig(0.3, 0.05, 0.04, 2), 2))
+    for name, logits, cfg, chunks in cases:
+        bad, fires = run_head(torch, dh, logits, cfg, chunks)
+        print(f"[compare] detect_head {name}: mismatches {bad} (events, "
+              f"latch, refractory, smooth bits; tolerance 0), fires {fires}")
+        if bad:
+            fail(f"detect_head disagrees with its plain version: {name}")
+        if fires == 0:
+            fail(f"detect_head case fired nowhere: {name}")
+    # A plan the kernel cannot run is refused, not run.
+    launch = lib.detect_head_launch
+    p = ctypes.c_void_p
+    launch.argtypes = ([p] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [p] * 4 + [ctypes.c_int] * 6 + [p])
+    for grid, block in ((1, 256), (3, 128), (1, 48)):
+        err = launch(*([None] * 6), 0.25, 1, 2, *([None] * 4), 1, 30, 12,
+                     grid, block, 96, None)
+        if err == 0:
+            fail(f"detect_head ran a plan it cannot run ({grid} CTAs of "
+                 f"{block} for 30 slots)")
+    return {"max_abs_err": 0.0, "cases": len(cases)}
+
+
+def head_bound(F, B, K):
+    """detect_head: logits read once, the state read and written, the
+    events written; per (frame, slot, class) HEAD_OPS_PER_CLASS ops."""
+    moved = 4 * (F * B * K + 2 * (B * K + 2 * B) + F * B)
+    return bound(moved, HEAD_OPS_PER_CLASS * F * B * K)
+
+
+def time_detect_head(torch):
+    """detect_head at the serving shapes (F = 32, K = 12, B = 32 and 256)
+    and at F = 1: kernel (device and per call), plain version, the bound
+    from the shapes, and the launch floor (an empty kernel at the same
+    launch shape)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import detect_head as dh
+    from repro_torch.models.detector import DetectorConfig, init_detector_state
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    cfg = DetectorConfig(0.25, 0.09, 0.087, 30)
+    lib = build.load("detect_head")
+    floor = lib.detect_head_floor_launch
+    floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = {}
+    for B in (SLOTS, ALWAYS_ON_SLOTS):
+        st = init_detector_state(B, 12, "cuda")
+        res = {}
+        for F in (32, 1):
+            lg = head_case(torch, gen, F, B, 12)
+            res[F] = kernel_ms(torch, lambda: dh.detect_head(lg, st, cfg))
+        lg = head_case(torch, gen, 32, B, 12)
+        plain = cuda_ms(torch, lambda: dh.detect_head_ref(lg, st, cfg), 5,
+                        warmup=1)
+        grid, block, _ = dh.detect_launch_plan(B, 12)
+
+        def empty():
+            build.check(lib, floor(grid, block,
+                                   torch.cuda.current_stream().cuda_stream),
+                        "detect_head floor launch")
+        fl = graph_ms(torch, empty)
+        bnd, by = head_bound(32, B, 12)
+        (ms, call), (ms1, _) = res[32], res[1]
+        out[B] = dict(ms=ms, call=call, ms_f1=ms1, plain=plain, floor=fl,
+                      bound=bnd, by=by)
+        print(f"[time] detect_head B={B} F=32 K=12: kernel {ms:.4f} ms on "
+              f"the device ({call:.4f} ms per call with the wrapper), at "
+              f"F=1 {ms1:.4f} ms ({(ms - ms1) * 1e3 / 31:.3f} us per frame "
+              f"of the chain), plain {plain:.2f} ms per call, bound "
+              f"{bnd:.6f} ms ({by}); launch floor (empty kernel, {grid} "
+              f"CTAs of {block}) {fl:.4f} ms — the kernel at "
+              f"{ms / fl:.2f}x the floor")
+    return out
+
+
+def detect_args(numerics, slots, seconds, extra=()):
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(
+        ["--mode", "kws-detect", "--slots", str(slots), "--stream-seconds",
+         str(seconds), "--chunk-samples", str(CHUNK), "--seed", "0",
+         "--numerics", numerics, "--fire-threshold", str(DETECT_FIRE),
+         "--release-threshold", str(DETECT_RELEASE), *extra])
+    serve.validate_args(args)
+    return args
+
+
+def serve_detect(torch, numerics: str):
+    """Serve kws-detect through the CLI's entry point at full width on
+    SLOTS slots × 30 s streams, every kernel's count set to 0 just before
+    and read just after: the FEx and ΔGRU kernels of the numerics and
+    detect_head once per step (+ the warm-up step), nothing else.
+    Returns detect_head's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.streaming import HEALTH_SAT
+    wrappers = kernel_wrappers()
+    path = (("batched_iir_fex_int", "delta_gru_seq_int", "detect_head")
+            if numerics == "int8"
+            else ("batched_iir_fex", "delta_gru_seq", "detect_head"))
+    args = detect_args(numerics, SLOTS, DETECT_SECONDS)
+    for fn in wrappers.values():
+        fn.launches = 0
+    sess, point, stats, dt, n_samples = serve.serve_kws_detect(args)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    summ = sess.summary()
+    slo = stats["slo"]
+    print(f"[serve] kws-detect {numerics}: {SLOTS} slots x "
+          f"{n_samples / 8000:.0f} s, {stats['steps']} steps in {dt:.2f} s "
+          f"(warm-up {stats['warmup_s']:.2f} s), step p50 "
+          f"{slo['step_ms']['p50']:.2f} ms, {slo['decisions'] / slo['steady_state_s']:.0f} "
+          f"decisions/s; {point.n_events} events, {point.hits} hits, "
+          f"{point.misses} misses, {point.false_alarms} false alarms "
+          f"({point.fa_per_hour:.1f} FA/hr), vad duty {summ.vad_duty:.3f}, "
+          f"sparsity {summ.sparsity:.4f}, launches {launches}")
+    want = stats["steps"] + 1                   # + the warm-up step
+    if any(launches[k] != want for k in path) or any(
+            v for k, v in launches.items() if k not in path):
+        fail(f"the {numerics} detect path must launch {path} once per "
+             f"step ({want}) and nothing else: {launches}")
+    if summ.frames != SLOTS * (n_samples // 128):
+        fail(f"kws-detect counted {summ.frames} decisions")
+    if point.n_events == 0 or point.hits + point.false_alarms == 0:
+        fail(f"kws-detect fired nothing: {point}")
+    if not 0.0 < summ.vad_duty < 1.0:
+        fail(f"vad duty {summ.vad_duty}")
+    bad = {k: f for k, f in sess.unhealthy_slots().items()
+           if f & ~HEALTH_SAT}
+    if bad:
+        fail(f"unhealthy slots after kws-detect: {bad}")
+    return launches["detect_head"]
+
+
+def check_detect_against_cpu(torch, np, params, numerics: str):
+    """A full-width CUDA detect session against the CPU one (the plain
+    versions, which the CPU tests hold against the JAX package) on 4
+    continuous streams × 12000 samples in unaligned chunks, with fires.
+    int8: every logit code, vote, count, event, gate and state equal;
+    float: events, gates, votes and counts equal, logits within 1e-4."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    streams = make_streams(7, 4, duration_s=1.5, snr_db=20.0,
+                           events_per_min=60.0)
+    audio = np.stack([s.audio for s in streams])
+    det = DetectorConfig(0.3, 0.095, 0.09, 4)
+    outs, states = {}, {}
+    for dev in ("cuda", "cpu"):
+        sess = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=4,
+                                   device=dev, numerics=numerics,
+                                   detector=det, vad=VADConfig(0.02))
+        parts = [sess.process_audio(audio[:, lo:hi])
+                 for lo, hi in ((0, 5000), (5000, 5001), (5001, 12000))]
+        outs[dev] = {f: torch.cat([getattr(p, f) for p in parts]).cpu()
+                     for f in parts[0]._fields}
+        states[dev] = [t.cpu() for t in (*sess.fex_state, *sess.state,
+                                         *sess.vad_state, *sess.det_state)]
+        heads = [sess.vad_state.hold.cpu(), sess.det_state.smooth.cpu()]
+        states[dev + " head"] = heads
+        summ = sess.summary()
+        outs[dev]["duty"] = summ.vad_duty
+    c, p = outs["cuda"], outs["cpu"]
+    err = (c["logits"] - p["logits"]).abs().max().item()
+    mism = {f: int((c[f] != p[f]).sum())
+            for f in ("votes", "nz", "events", "gate")}
+    # Integer state (codes, the latch, the counts) must be equal; the
+    # VAD hold and the smoothed posteriors are held to the logits'
+    # tolerance in float32 and must be equal in int8.
+    state_m = sum(int((a != b).sum()) for a, b in
+                  zip(states["cuda"], states["cpu"])
+                  if not a.is_floating_point())
+    state_err = max((a.float() - b.float()).abs().max().item() for a, b in
+                    zip(states["cuda head"], states["cpu head"]))
+    fires = int((c["events"] >= 0).sum())
+    print(f"[check] {numerics} detect session CUDA vs CPU, 4 streams x "
+          f"12000 samples: logits max abs diff {err:.3g}, mismatches "
+          f"{mism}, integer state elements differing {state_m}, VAD hold "
+          f"and smoothed posteriors max abs diff {state_err:.3g}, fires "
+          f"{fires}, vad duty "
+          f"{c['duty']:.3f} / {p['duty']:.3f}")
+    if any(mism.values()) or state_m or fires == 0 or c["duty"] != p["duty"]:
+        fail(f"{numerics} detect session disagrees with the CPU one")
+    if numerics == "int8" and (err or state_err):
+        fail(f"int8 detect session: logits {err}, hold/smooth {state_err}")
+    if not (err <= 1e-4 and state_err <= 1e-4):
+        fail(f"float detect session: logits {err}, state {state_err}")
+
+
+def detect_always_on(torch, np, params, card, profile: bool,
+                     numerics: str, plain_step_s: float):
+    """The always-on phase in detect mode: ALWAYS_ON_SLOTS continuous
+    streams (the serve CLI's 20 dB SNR) × ALWAYS_ON_CHUNKS chunks of CHUNK
+    samples, VAD on, streams synthesised before the clock starts: step
+    time, decisions/s and kernel launches per step.  Then three rounds
+    alternating a plain session and the detect session on the same audio
+    (reset between rounds), so the two steps are compared within the same
+    few seconds; beside them the non-detect always-on step of this run."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch.engine import warm_session
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    B, n = ALWAYS_ON_SLOTS, ALWAYS_ON_CHUNKS
+    streams = make_streams(200, B, duration_s=n * CHUNK / 8000 + 0.1,
+                           snr_db=20.0)
+    streams = np.ascontiguousarray(
+        np.stack([s.audio[:n * CHUNK] for s in streams]))
+    sess = StreamingKwsSession(
+        params, CONFIG, threshold=0.1, batch=B, numerics=numerics,
+        detector=DetectorConfig(fire_threshold=DETECT_FIRE,
+                                release_threshold=DETECT_RELEASE),
+        vad=VADConfig(0.02))
+    plain = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=B,
+                                numerics=numerics)
+    warm_session(sess, CHUNK)
+    warm_session(plain, CHUNK)
+
+    def run(s, field):
+        s.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(n):
+            getattr(s.process_audio(streams[:, c * CHUNK:(c + 1) * CHUNK]),
+                    field).cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    step_s = run(sess, "events")
+    launches = {k: fn.launches // n for k, fn in wrappers.items()
+                if fn.launches}
+    summ = sess.summary()
+    print(f"[always-on] detect {numerics}: {B} slots x {n} chunks of "
+          f"{CHUNK} samples, VAD on: {step_s * 1e3:.3f} ms per step, "
+          f"{summ.frames / (step_s * n):.0f} decisions/s, vad duty "
+          f"{summ.vad_duty:.3f}, sparsity {summ.sparsity:.4f}, kernel "
+          f"launches per step {launches} [{card}]")
+    if summ.frames != B * n * CHUNK // 128:
+        fail(f"detect always-on phase counted {summ.frames} decisions")
+    rounds = [(run(plain, "votes"), run(sess, "events")) for _ in range(3)]
+    med = [statistics.median(r[i] for r in rounds) for i in (0, 1)]
+    print(f"[always-on] detect {numerics} vs plain on the same audio, 3 "
+          f"alternating rounds: plain "
+          f"{', '.join(f'{p * 1e3:.3f}' for p, _ in rounds)} ms, detect "
+          f"{', '.join(f'{d * 1e3:.3f}' for _, d in rounds)} ms per step; "
+          f"medians {med[0] * 1e3:.3f} / {med[1] * 1e3:.3f} ms "
+          f"({med[1] / med[0]:.2f}x); the non-detect always-on step of this "
+          f"run {plain_step_s * 1e3:.3f} ms [{card}]")
+    if profile:
+        profile_steps(torch, plain, streams, f"plain {numerics} (same audio)")
+        profile_steps(torch, sess, streams, f"detect {numerics}")
+    return {"step_ms": step_s * 1e3, "plain_ms": med[0] * 1e3,
+            "detect_ms": med[1] * 1e3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the always-on serving step")
+                    help="also profile the always-on serving steps")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1653,8 +2016,16 @@ def main() -> int:
     launches.update(serve_wide(torch, np))
     check_against_cpu(torch, np, params)
     check_int8_against_cpu(torch, np, params)
-    always_on(torch, np, params, card, args.profile, "float32")
-    always_on(torch, np, params, card, args.profile, "int8")
+    head_res = compare_detect_head(torch, np)
+    times["detect_head"] = time_detect_head(torch)
+    head_launches = {}
+    for numerics in ("float32", "int8"):
+        head_launches[numerics] = serve_detect(torch, numerics)
+        check_detect_against_cpu(torch, np, params, numerics)
+    for numerics in ("float32", "int8"):
+        step_s = always_on(torch, np, params, card, args.profile, numerics)
+        detect_always_on(torch, np, params, card, args.profile, numerics,
+                         step_s)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -1725,6 +2096,27 @@ def main() -> int:
         "bound_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][3],
         "launch_floor_empty_ms": empty, "launch_floor_ms": trip,
         "launch_floor_ms_b256": times[("cell", ALWAYS_ON_SLOTS)][8]})
+    hd, hd256 = times["detect_head"][SLOTS], times["detect_head"][ALWAYS_ON_SLOTS]
+    kernels.append({
+        "name": "detect_head", "route": "cuda",
+        "source": "src/repro_torch/csrc/detect_head.cu",
+        "replaces": "src/repro/models/detector.py:162",
+        "note": "no Pallas counterpart: the XLA-fused plain JAX head "
+                "(jax.nn.softmax, src/repro/launch/streaming.py:587, then "
+                "detector_scan)",
+        "launches": head_launches["float32"],
+        "launches_int8_run": head_launches["int8"],
+        "max_abs_err": head_res["max_abs_err"], "ms": hd["ms"],
+        "plain_ms": hd["plain"], "bound_ms": hd["bound"],
+        "bound_by": hd["by"], "library_ms": None, "call_ms": hd["call"],
+        "shape": f"F=32 B={SLOTS} K=12",
+        "path": "kws-detect, one launch per step",
+        "ms_f1": hd["ms_f1"], "launch_floor_ms": hd["floor"],
+        "ms_b256": hd256["ms"], "plain_ms_b256": hd256["plain"],
+        "bound_ms_b256": hd256["bound"],
+        "launch_floor_ms_b256": hd256["floor"]})
+    if len(kernels) != 7:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 7")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

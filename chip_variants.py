@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the FEx, ΔGRU and ΔGRU cell kernels on one GPU.
+"""Time variants of the FEx, ΔGRU, ΔGRU cell and detection head kernels.
 
     python3 chip_variants.py
 
@@ -18,7 +18,9 @@ the committed library behind the same wrapper, and timed on the device
 committed, at the serving shapes: the float FEx on B = 32 and 256 streams
 of a 4096-sample chunk, both ΔGRU kernels on 32 frames of B = 32 and 256
 streams at Δ_TH 0.1, the ΔGRU cell on one frame of B = 32 and 256 streams
-halfway through a chunk.  Then each kernel but the cell once more with
+halfway through a chunk, the detection head on 32 frames of B = 32 and
+256 slots of 12 classes.  Then each kernel but the cell and the head
+once more with
 clock64() stamps: in the FEx each warp's cycles and those it waits at
 barriers and for its copies, in each ΔGRU thread 0's cycles in each step
 of the frame (the stamps themselves add a little).  Prints one line per timing
@@ -699,6 +701,208 @@ CELL_VARIANTS = {
 }
 
 
+# ------------------------------------------------ detect_head variants --
+# The first design: one thread per slot, the K classes of a frame in that
+# thread's registers (its twelve exps and IEEE divisions form one chain),
+# launched with one thread per slot whatever plan the wrapper passes.
+_THREAD_PER_SLOT = r"""namespace {
+
+constexpr int kWindow = 32;   // XLA:CPU's reduction window
+
+struct Args {
+  const float* logits;   // (F, B, K)
+  const float* smooth0;  // (B, K)
+  const int* active0;    // (B,)
+  const int* refract0;   // (B,)
+  const float* fire;     // (K - first_kw,)
+  const float* rel;      // (K - first_kw,)
+  float alpha;
+  int refractory, first_kw;
+  float* smooth;         // (B, K)
+  int* active;           // (B,)
+  int* refract;          // (B,)
+  int* events;           // (F, B)
+  int F, B, K;
+};
+
+// jnp.max of two values: NaN if either is NaN.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <int KMAX>
+__device__ __forceinline__ void load_row(const float* __restrict__ row,
+                                         int K, float (&x)[KMAX]) {
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < K) x[k] = row[k];
+  }
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(128)
+detect_head_kernel(const Args a) {
+  extern __shared__ float th[];  // fire thresholds, then release
+  const int n_kw = a.K - a.first_kw;
+  for (int i = threadIdx.x; i < n_kw; i += blockDim.x) {
+    th[i] = a.fire[i];
+    th[a.K + i] = a.rel[i];
+  }
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.B) return;
+  const int K = a.K;
+  // Window split of the sum: classes [0, split) then [split, K).
+  const int split =
+      K <= kWindow ? K : kWindow - (2 * kWindow - K) / 2;
+
+  float s[KMAX], x[KMAX], xn[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    s[k] = k < K ? a.smooth0[static_cast<size_t>(b) * K + k] : 0.0f;
+    x[k] = 0.0f;
+    xn[k] = 0.0f;
+  }
+  int active = a.active0[b];
+  int refract = a.refract0[b];
+  const size_t stride = static_cast<size_t>(a.B) * K;
+  const float* row = a.logits + static_cast<size_t>(b) * K;
+  if (a.F > 0) load_row<KMAX>(row, K, x);
+
+  for (int f = 0; f < a.F; ++f) {
+    if (f + 1 < a.F) load_row<KMAX>(row + (f + 1) * stride, K, xn);
+    float m = x[0];
+#pragma unroll
+    for (int k = 1; k < KMAX; ++k) {
+      if (k < K) m = nan_max(m, x[k]);
+    }
+    float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        x[k] = xla_math::exp(x[k] - m);
+        if (k < split) {
+          p0 = p0 + x[k];
+        } else {
+          p1 = p1 + x[k];
+        }
+      }
+    }
+    const float sum = K <= kWindow ? p0 : p0 + p1;
+    bool any_exceed = false, all_below = true;
+    float best = -INFINITY;
+    int cls = 0;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < K) {
+        const float post = x[k] / sum;
+        s[k] = fmaf(a.alpha, post - s[k], s[k]);
+        if (k >= a.first_kw) {
+          const int j = k - a.first_kw;
+          const bool ex = s[k] > th[j];
+          const float cand = ex ? s[k] : -INFINITY;
+          if (cand > best) {   // the first index among equal maxima
+            best = cand;
+            cls = j;
+          }
+          any_exceed |= ex;
+          all_below &= s[k] < th[K + j];
+        }
+      }
+    }
+    const bool idle = active == -1;
+    const bool fire = idle && refract == 0 && any_exceed;
+    const bool release = !idle && all_below;
+    const int c = cls + a.first_kw;
+    active = fire ? c : (release ? -1 : active);
+    const int down = static_cast<int>(static_cast<unsigned>(refract) - 1u);
+    refract = fire ? a.refractory : (down > 0 ? down : 0);
+    a.events[static_cast<size_t>(f) * a.B + b] = fire ? c : -1;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) x[k] = xn[k];
+  }
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < K) a.smooth[static_cast<size_t>(b) * K + k] = s[k];
+  }
+  a.active[b] = active;
+  a.refract[b] = refract;
+}
+
+}  // namespace
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Dynamic shared memory one CTA needs for K classes: the fire and the
+// release thresholds, K floats each.
+extern "C" long long detect_head_smem_bytes(int K) {
+  return 2LL * 4 * K;
+}
+
+// logits (F, B, K), smooth0 / smooth (B, K) float32; active0 / refract0 /
+// active / refract (B,) and events (F, B) int32; fire / rel one float32
+// per keyword (K - first_kw); all contiguous on the current device.
+// Launches the wrapper's plan (grid CTAs of `block` threads, `smem` bytes
+// of dynamic shared memory) on `stream` and returns the launch's error,
+// or cudaErrorInvalidValue for a shape or plan this kernel cannot run.
+extern "C" int detect_head_launch(
+    const float* logits, const float* smooth0, const int* active0,
+    const int* refract0, const float* fire, const float* rel, float alpha,
+    int refractory, int first_kw, float* smooth, int* active, int* refract,
+    int* events, int F, int B, int K, int grid, int block, int smem,
+    void* stream) {
+  if (K < 1 || K > 64 || first_kw < 0 || first_kw >= K || F < 0 || B < 1 ||
+      smem < detect_head_smem_bytes(K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  block = B < 128 ? (B + 31) / 32 * 32 : 128;   // one thread per slot
+  grid = (B + block - 1) / block;
+  const Args args{logits, smooth0, active0, refract0, fire, rel, alpha,
+                  refractory, first_kw, smooth, active, refract, events,
+                  F, B, K};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 16) {
+    detect_head_kernel<16><<<grid, block, smem, s>>>(args);
+  } else if (K <= 32) {
+    detect_head_kernel<32><<<grid, block, smem, s>>>(args);
+  } else {
+    detect_head_kernel<64><<<grid, block, smem, s>>>(args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int detect_head_group(int K) { return K <= 16 ? 16 : 32; }
+"""
+_HEAD_SUM = """    float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < G * PER; ++k) {"""
+DETECT_VARIANTS = {
+    "one thread per slot (the first design)": (
+        True, lambda src: src[:src.index("namespace {")] + _THREAD_PER_SLOT),
+    "logits 2 frames ahead": (True, _patches(((
+        "constexpr int kAhead = 1;", "constexpr int kAhead = 2;"),))),
+    "logits 4 frames ahead": (True, _patches(((
+        "constexpr int kAhead = 1;", "constexpr int kAhead = 4;"),))),
+    "logits 8 frames ahead": (True, _patches(((
+        "constexpr int kAhead = 1;", "constexpr int kAhead = 8;"),))),
+    "ablation: no exp": (False, _patches(((
+        "      e[j] = xla_math::exp(x[j] - m);", "      e[j] = x[j] - m;"),))),
+    "ablation: no division": (False, _patches(((
+        "        const float post = e[j] / sum;",
+        "        const float post = e[j] * sum;"),))),
+    "ablation: the sum by a butterfly": (False, _patches(((
+        _HEAD_SUM, """    float p0 = e[0], p1 = 0.0f;
+#pragma unroll
+    for (int d = G / 2; d > 0; d /= 2) {
+      p0 += __shfl_xor_sync(0xffffffffu, p0, d, G);
+    }
+#pragma unroll
+    for (int k = 0; k < 0; ++k) {"""),))),
+}
+
+
 # clock64() stamps in thread 0, summed over the CTAs in g_phase[k]: 0 the
 # prologue, then per frame 1 the Δ encoders, 2 the first barrier, 3 the
 # row sums, 4 the reduce-scatter and accumulate, 5 the second barrier, 6
@@ -912,6 +1116,25 @@ def time_variants(torch, cs, build, kernel, libs, variants, module, call,
     build._loaded[kernel] = committed
 
 
+def time_detect_head_variants(torch, cs, build, tmp, results):
+    """detect_head's variants at F = 32 frames of B = 32 and 256 slots, 12
+    classes, the always-on phase's detector configuration."""
+    from repro_torch.kernels import detect_head as dh
+    from repro_torch.models.detector import DetectorConfig, init_detector_state
+    libs = build_variants(build, "detect_head", DETECT_VARIANTS, tmp)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cfg = DetectorConfig(0.25, 0.09, 0.087, 30)
+    shapes = [(f"B={B}", (0.8 * torch.randn(32, B, 12, generator=gen,
+                                            device="cuda"),
+                          init_detector_state(B, 12, "cuda")))
+              for B in (cs.SLOTS, cs.ALWAYS_ON_SLOTS)]
+    call = lambda a: dh.detect_head(a[0], a[1], cfg)
+    out = lambda o: [o[1], o[0].smooth.view(torch.int32), o[0].active,
+                     o[0].refract]
+    time_variants(torch, cs, build, "detect_head", libs, DETECT_VARIANTS,
+                  dh, call, out, shapes, results)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -928,8 +1151,11 @@ def main() -> int:
     card = cs.card_line(torch)
     print(f"[card] {card} | torch {torch.__version__}")
     build.build(("iir_fex", "delta_gru_seq_int", "iir_fex_int",
-                 "delta_gru_seq", "delta_gru_cell"))
+                 "delta_gru_seq", "delta_gru_cell", "detect_head"))
+    results = {}
     with tempfile.TemporaryDirectory() as tmp:
+        time_detect_head_variants(torch, cs, build, pathlib.Path(tmp),
+                                  results)
         fex_libs = build_variants(
             build, "iir_fex", {**FEX_VARIANTS, "stamps": (True, _fex_stamps)},
             pathlib.Path(tmp))
@@ -951,7 +1177,6 @@ def main() -> int:
         kw = dict(frame_shift=fex.cfg.frame_shift, env_alpha=fex.cfg.env_alpha,
                   log_eps=fex.cfg.log_eps)
         bits = lambda out: [t.contiguous().view(torch.int32) for t in out]
-        results = {}
         fex_shapes = [(f"B={B}", (x[:, :cs.CHUNK].repeat(B // cs.SLOTS, 1)
                                   .contiguous(),
                                   iir_fex.init_fex_kernel_state(B, 10, "cuda")))

@@ -1,9 +1,12 @@
-"""SynthCommands: the 12-class formant-synthesized keyword set.
+"""SynthCommands: the formant-synthesized keyword set, and its vocabularies.
 
-A numpy copy of the ``synth_batch`` part of ``repro/data/gscd.py``: 1 s
-utterances at 8 kHz, each class a two-formant trajectory + band noise.
-The same ``np.random.Generator`` state gives the same audio in both
-packages, which is how the port's serving requests are made.
+A numpy copy of the synthesis part of ``repro/data/gscd.py``: 1 s
+utterances at 8 kHz, each class a two-formant trajectory + band noise,
+over the paper's 12-class set or an 11- or 13..37-class ``Vocab``.  The
+same ``np.random.Generator`` state gives the same audio in both packages,
+which is how the port's serving requests and continuous streams are made.
+Reading real GSCD wavs (``load_dataset``, ``load_utterance_bank``) waits
+for a dataset on disk.
 """
 from __future__ import annotations
 
@@ -42,6 +45,83 @@ _SPECS = {
 }
 
 
+# GSCD-v2 words beyond the paper's 10-keyword task, in the fixed order
+# procedural specs are assigned (so a 35-class vocab is stable across
+# runs and machines).
+_V2_EXTRA_WORDS = (
+    "backward", "bed", "bird", "cat", "dog", "eight", "five", "follow",
+    "forward", "four", "happy", "house", "learn", "marvin", "nine", "one",
+    "seven", "sheila", "six", "three", "tree", "two", "visual", "wow",
+    "zero")
+
+
+def _extra_spec(rng: np.random.Generator) -> ClassSpec:
+    """A procedurally drawn two-formant spec for a vocabulary word with
+    no hand-tuned entry in ``_SPECS`` (same parameter ranges as the
+    hand-tuned ten, so extra classes are neither easier nor harder)."""
+    return ClassSpec(
+        f1_start=float(rng.uniform(300, 800)),
+        f1_end=float(rng.uniform(300, 800)),
+        f2_start=float(rng.uniform(900, 2200)),
+        f2_end=float(rng.uniform(900, 2200)),
+        noise=float(rng.uniform(0.02, 0.05)),
+        am_rate=float(rng.uniform(1.5, 6.0)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Vocab:
+    """A vocabulary: ordered class names + a synthesis spec per keyword.
+
+    ``names[0]`` is always "silence"; keyword classes are the names with
+    an entry in ``specs``.  ``first_keyword`` is the smallest class id
+    eligible to fire a detection event (what ``DetectorConfig``
+    consumes) — non-keyword service classes ("silence", "unknown") sort
+    before every keyword by construction.
+    """
+
+    names: tuple[str, ...]
+    specs: dict[str, ClassSpec]
+
+    @property
+    def n_classes(self) -> int:
+        return len(self.names)
+
+    @property
+    def first_keyword(self) -> int:
+        return next(i for i, n in enumerate(self.names) if n in self.specs)
+
+    @property
+    def keyword_ids(self) -> tuple[int, ...]:
+        return tuple(i for i, n in enumerate(self.names) if n in self.specs)
+
+
+def make_vocab(n_classes: int = 12, seed: int = 1234) -> Vocab:
+    """The scenario matrix's vocabulary axis.
+
+    n_classes=12: the paper's head — silence, unknown, 10 keywords.
+    n_classes=11: the paper's 11-class metric as a head — "unknown"
+      dropped, keyword ids shift down by one (exercises a non-default
+      ``first_keyword`` end to end).
+    n_classes 13..37: silence, unknown, 10 base keywords + (n−12)
+      GSCD-v2 words (procedural specs, seeded — 35 is GSCD-v2's full
+      word list).
+    """
+    if n_classes == 12:
+        return Vocab(names=tuple(CLASSES), specs=dict(_SPECS))
+    if n_classes == 11:
+        names = tuple(n for n in CLASSES if n != "unknown")
+        return Vocab(names=names, specs=dict(_SPECS))
+    n_extra = n_classes - 12
+    if not 0 < n_extra <= len(_V2_EXTRA_WORDS):
+        raise ValueError(
+            f"unsupported vocab size {n_classes} (supported: 11, 12, "
+            f"13..{12 + len(_V2_EXTRA_WORDS)})")
+    rng = np.random.default_rng(seed)
+    extra = {w: _extra_spec(rng) for w in _V2_EXTRA_WORDS[:n_extra]}
+    return Vocab(names=tuple(CLASSES) + tuple(extra),
+                 specs={**_SPECS, **extra})
+
+
 def _synth_keyword(rng: np.random.Generator, spec: ClassSpec) -> np.ndarray:
     t = np.arange(T) / FS
     # random utterance placement within the 1 s window
@@ -73,17 +153,24 @@ def _synth_unknown(rng) -> np.ndarray:
     return _synth_keyword(rng, spec)
 
 
-def synth_batch(rng: np.random.Generator, batch: int
+def synth_batch(rng: np.random.Generator, batch: int,
+                vocab: Vocab | None = None
                 ) -> tuple[np.ndarray, np.ndarray]:
-    """→ (audio (B, 8000) float32 in [-1,1], labels (B,) int32)."""
-    labels = rng.integers(0, len(CLASSES), batch)
+    """→ (audio (B, 8000) float32 in [-1,1], labels (B,) int32).
+
+    ``vocab`` (default: the paper's 12-class set) sizes the label space:
+    labels are indices into ``vocab.names`` and keyword audio comes from
+    ``vocab.specs`` — the 11/35-class heads train on exactly this."""
+    names = CLASSES if vocab is None else vocab.names
+    specs = _SPECS if vocab is None else vocab.specs
+    labels = rng.integers(0, len(names), batch)
     audio = np.empty((batch, T), np.float32)
     for i, lb in enumerate(labels):
-        name = CLASSES[lb]
+        name = names[lb]
         if name == "silence":
             audio[i] = _synth_silence(rng)
         elif name == "unknown":
             audio[i] = _synth_unknown(rng)
         else:
-            audio[i] = _synth_keyword(rng, _SPECS[name])
+            audio[i] = _synth_keyword(rng, specs[name])
     return audio, labels.astype(np.int32)

@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.kernels.delta_gru_cell import delta_gru_cell
 from repro_torch.kernels.delta_gru_seq import delta_gru_seq, delta_gru_seq_int
 from repro_torch.kernels.delta_matvec import delta_matvec, make_block_mask
+from repro_torch.kernels.detect_head import detect_head
 from repro_torch.kernels.iir_fex import (batched_iir_fex, batched_iir_fex_int,
                                          init_fex_kernel_state,
                                          pack_coefficients)
@@ -17,6 +18,7 @@ __all__ = [
     "delta_matvec", "make_block_mask", "delta_gru_cell", "delta_gru_seq",
     "delta_gru_seq_int", "batched_iir_fex", "batched_iir_fex_int",
     "init_fex_kernel_state", "pack_coefficients", "delta_matvec_auto",
+    "detect_head",
 ]
 
 

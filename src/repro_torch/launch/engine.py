@@ -1,9 +1,10 @@
-"""The serving loop around a ``StreamingKwsSession`` (depth 1).
+"""The serving loops around a ``StreamingKwsSession`` (depth 1).
 
 Port of the synchronous half of ``repro/launch/engine.py``: every step
 assembles the host block, dispatches the device step and fetches the
-step's votes before the bookkeeping.  The pipelined engine (depth >= 2,
-CUDA streams/events in place of JAX's async dispatch) is a later slice.
+step's votes (or, in detect mode, its events) before the bookkeeping.
+The pipelined engine (depth >= 2, CUDA streams/events in place of JAX's
+async dispatch) is a later slice.
 """
 from __future__ import annotations
 
@@ -12,7 +13,11 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["percentiles_ms", "warm_session", "run_audio_requests"]
+__all__ = ["percentiles_ms", "warm_session", "run_audio_requests",
+           "run_continuous_detect"]
+
+_DEPTH_NOT_PORTED = ("the pipelined engine (depth >= 2) is not ported to "
+                     "repro_torch yet (ROADMAP.md queue 1 item 9)")
 
 
 def percentiles_ms(samples_s: Sequence[float]) -> dict:
@@ -70,9 +75,7 @@ def run_audio_requests(sess, sched, ctl, *, audio_q, chunk: int,
     attached to the session (``summary().slo``).
     """
     if depth != 1:
-        raise NotImplementedError(
-            "the pipelined engine (depth >= 2) is not ported to repro_torch "
-            "yet (ROADMAP.md queue 1 item 9)")
+        raise NotImplementedError(_DEPTH_NOT_PORTED)
     warmup_s = warm_session(sess, chunk)
 
     incarnations: dict[int, _Incarnation] = {}   # slot -> current life
@@ -128,3 +131,54 @@ def run_audio_requests(sess, sched, ctl, *, audio_q, chunk: int,
     return done, {"steps": steps, "frames_served": frames_served,
                   "pad_frames": pad_frames, "warmup_s": warmup_s,
                   "slo": slo}
+
+
+def run_continuous_detect(sess, streams_audio, *, chunk: int,
+                          n_samples: int, injector=None, depth: int = 1,
+                          warm: bool = True, clock=time.perf_counter):
+    """The always-on detection loop (kws-detect), depth 1.
+
+    Per step, every slot's next ``chunk`` samples of its stream go
+    through ``sess.process_audio`` (a detect-mode session), the step's
+    events are fetched and every slot's fires are appended in frame
+    order.  ``injector`` (fault injection) arrives with the fault
+    handling of a later slice and must be ``None``; ``depth >= 2`` raises
+    as ``run_audio_requests`` does.
+
+    Returns ``(fires, frame_base, stats)``: per-slot fire lists (for
+    ``det_point``), the total frame count, and the loop stats with the
+    timing block ``slo`` (also attached to the session summary).
+    """
+    from repro_torch.models.detector import fires_from_events
+
+    if depth != 1:
+        raise NotImplementedError(_DEPTH_NOT_PORTED)
+    if injector is not None:
+        raise NotImplementedError(
+            "fault injection is not ported to repro_torch yet (ROADMAP.md "
+            "queue 1 item 8): pass injector=None")
+    warmup_s = warm_session(sess, chunk) if warm else 0.0
+    slots = sess.batch
+    fires: list[list] = [[] for _ in range(slots)]
+    frame_base = steps = decisions = 0
+    step_s: list[float] = []
+    t_first = clock()
+    for off in range(0, n_samples, chunk):
+        t_begin = clock()
+        block = np.stack([s[off:off + chunk] for s in streams_audio])
+        events = sess.process_audio(block).events.cpu().numpy()
+        for slot in range(slots):
+            fires[slot] += fires_from_events(events[:, slot], frame_base)
+        frame_base += events.shape[0]
+        decisions += events.shape[0] * slots
+        steps += 1
+        step_s.append(clock() - t_begin)
+    steady_s = clock() - t_first
+    slo = {"depth": 1, "steps": steps, "decisions": decisions,
+           "steady_state_s": steady_s,
+           "decisions_per_s_steady": (decisions / steady_s
+                                      if steady_s > 0 else 0.0),
+           "step_ms": percentiles_ms(step_s), "warmup_s": warmup_s}
+    sess.attach_slo(slo)
+    return fires, frame_base, {"steps": steps, "warmup_s": warmup_s,
+                               "slo": slo}

@@ -1,12 +1,22 @@
-"""Serve CLI of the port: ``python -m repro_torch.launch.serve --mode kws-audio``.
+"""Serve CLI of the port: ``python -m repro_torch.launch.serve``.
 
-Continuous batching of synthesized 1 s utterances over ``--slots`` stream
-slots: each step runs one ``--chunk-samples`` chunk per slot through the
-FEx and ΔGRU kernels, finished utterances are decided by majority vote
-and their slots re-admitted.  Weights come from ``--params`` (a
-checkpoint's ``arrays.npz``, as the JAX package writes it) or, without
-it, from the seeded ``models.kws.init_kws``.  Runs on ``--device``
-(default ``cuda``; raises without a GPU).
+``--mode kws-audio`` (default): continuous batching of synthesized 1 s
+utterances over ``--slots`` stream slots: each step runs one
+``--chunk-samples`` chunk per slot through the FEx and ΔGRU kernels,
+finished utterances are decided by majority vote and their slots
+re-admitted.
+
+``--mode kws-detect``: always-on detection.  Every slot listens to one
+continuous synthesized stream (``--stream-seconds`` long, keywords at
+``--events-per-min`` in a noise bed at ``--snr-db``, from
+``--stream-seed``); each step runs FEx → VAD gate → ΔGRU → FC → the
+detection head kernel, and the fires are scored against the streams'
+ground-truth events: hits, misses, false alarms per hour, VAD duty.
+
+Weights come from ``--params`` (a checkpoint's ``arrays.npz``, as the
+JAX package writes it) or, without it, from the seeded
+``models.kws.init_kws``.  Runs on ``--device`` (default ``cuda``; raises
+without a GPU).
 
 ``--numerics int8`` serves the deployed integer datapath (integer FEx →
 int8-weight ΔGRU → integer FC, one launch of each integer kernel per
@@ -15,8 +25,9 @@ creation, or ``--bundle X.npz`` serves a promoted bundle as
 ``train.promote.save_bundle`` writes it (one the JAX package wrote loads
 unchanged) and implies ``--numerics int8``.
 
-Training, ``--devices``, the admission controller, faults and the
-pipelined engine are later slices of the port.
+Training (the reference's ``--train-steps``), ``--devices``, the
+admission controller, faults, the cascade and the pipelined engine are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -31,7 +42,14 @@ import torch
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--mode", choices=["kws-audio"], default="kws-audio")
+    ap.add_argument("--mode", choices=["kws-audio", "kws-detect"],
+                    default="kws-audio",
+                    help="kws-audio: utterances by majority vote; "
+                         "kws-detect: always-on detection on continuous "
+                         "streams.  Weights are never trained here "
+                         "(--train-steps is not offered: training is "
+                         "ROADMAP.md queue 1 item 10); they come from "
+                         "--params, --bundle or the seeded random init")
     ap.add_argument("--slots", type=int, default=4,
                     help="stream slots served together")
     ap.add_argument("--requests", type=int, default=8,
@@ -59,6 +77,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a promoted int8 bundle (.npz of "
                          "train.promote.save_bundle, or of the JAX "
                          "package's); implies --numerics int8")
+    # kws-detect options
+    ap.add_argument("--stream-seconds", type=float, default=30.0,
+                    help="continuous-audio stream length per slot")
+    ap.add_argument("--snr-db", type=float, default=20.0,
+                    help="keyword-over-noise SNR of the synthesized "
+                         "streams")
+    ap.add_argument("--events-per-min", type=float, default=12.0,
+                    help="mean ground-truth keyword rate per stream")
+    ap.add_argument("--fire-threshold", type=float, default=0.40,
+                    help="smoothed posterior that opens a keyword event")
+    ap.add_argument("--release-threshold", type=float, default=0.30,
+                    help="smoothed posterior that closes it (hysteresis)")
+    ap.add_argument("--vad-threshold", type=float, default=0.02,
+                    help="VAD frame-energy (mean |sample|) speech "
+                         "threshold; the delta path is clamped below it")
+    ap.add_argument("--no-vad", action="store_true",
+                    help="disable the VAD gate (always-open features)")
+    ap.add_argument("--tol-s", type=float, default=0.5,
+                    help="fire-to-event matching tolerance in seconds")
+    ap.add_argument("--stream-seed", type=int, default=100,
+                    help="stream-synthesis seed (one stream per slot), "
+                         "separate from the weights' --seed")
     return ap
 
 
@@ -73,23 +113,31 @@ def validate_args(args):
     if not math.isfinite(args.threshold) or args.threshold < 0:
         raise ValueError(f"--threshold must be finite and >= 0, "
                          f"got {args.threshold}")
+    if args.mode == "kws-detect":
+        if args.fire_threshold <= args.release_threshold:
+            raise ValueError(
+                f"--fire-threshold ({args.fire_threshold}) must exceed "
+                f"--release-threshold ({args.release_threshold}): an "
+                f"inverted hysteresis band never latches")
+        if args.stream_seconds <= 0 or not math.isfinite(args.stream_seconds):
+            raise ValueError(f"--stream-seconds must be positive, "
+                             f"got {args.stream_seconds}")
+        if args.events_per_min <= 0 or not math.isfinite(args.events_per_min):
+            raise ValueError(f"--events-per-min must be positive, "
+                             f"got {args.events_per_min}")
+        if not math.isfinite(args.snr_db):
+            raise ValueError(f"--snr-db must be finite, got {args.snr_db}")
+        if args.tol_s < 0:
+            raise ValueError(f"--tol-s must be >= 0, got {args.tol_s}")
 
 
-def serve_kws_audio(args):
-    """Build the model and session and serve ``args.requests`` utterances.
-
-    Returns ``(sess, done, labels, stats, seconds)``: the session (for
-    its ``summary()``), the [(request, predicted class)] list, the
-    requests' true labels, the loop's stats and the wall seconds of the
-    serve loop (warm-up included).
-    """
+def _load_model(args):
+    """(device, FEx, float params or None, int8 bundle or None) from the
+    flags: ``--bundle`` (implies int8), ``--params`` or the seeded random
+    init at the paper model's width."""
     from repro_torch.configs.deltakws import CONFIG
-    from repro_torch.data.gscd import T as UTT_SAMPLES
-    from repro_torch.data.gscd import synth_batch
     from repro_torch.frontend.fex import FeatureExtractor
     from repro_torch.kernels.platform import resolve_device
-    from repro_torch.launch.engine import run_audio_requests
-    from repro_torch.launch.streaming import SlotScheduler, StreamingKwsSession
     from repro_torch.models import kws
 
     device = resolve_device(args.device)
@@ -104,6 +152,24 @@ def serve_kws_audio(args):
     else:
         gen = torch.Generator().manual_seed(args.seed)
         params = kws.init_kws(gen, CONFIG, input_dim=fex.cfg.n_active)
+    return device, fex, params, bundle
+
+
+def serve_kws_audio(args):
+    """Build the model and session and serve ``args.requests`` utterances.
+
+    Returns ``(sess, done, labels, stats, seconds)``: the session (for
+    its ``summary()``), the [(request, predicted class)] list, the
+    requests' true labels, the loop's stats and the wall seconds of the
+    serve loop (warm-up included).
+    """
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.gscd import T as UTT_SAMPLES
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.launch.engine import run_audio_requests
+    from repro_torch.launch.streaming import SlotScheduler, StreamingKwsSession
+
+    device, fex, params, bundle = _load_model(args)
     audio_q, label_q = synth_batch(np.random.default_rng(args.seed + 1),
                                    args.requests)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
@@ -121,6 +187,93 @@ def serve_kws_audio(args):
     return sess, done, label_q, stats, time.perf_counter() - t0
 
 
+def serve_kws_detect(args):
+    """Build the model, the detect-mode session and one continuous stream
+    per slot, run the always-on loop over the streams and score the fires.
+
+    Returns ``(sess, point, stats, seconds, n_samples)``: the session (for
+    its ``summary()``), the pooled ``DetPoint``, the loop's stats, the wall
+    seconds of the loop (warm-up included) and the samples per stream.
+    """
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.data.gscd import FS
+    from repro_torch.frontend.vad import VAD_OFF, VADConfig
+    from repro_torch.launch.engine import run_continuous_detect
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import (DetectorConfig, det_point,
+                                             pool_points)
+
+    device, fex, params, bundle = _load_model(args)
+    if bundle is not None:
+        print("WARNING: serving a promoted bundle through the detection "
+              "head — unless it was QAT-trained with frame-level labels, "
+              "expect a poor (miscalibrated) operating point")
+    shift = fex.cfg.frame_shift
+    streams = make_streams(args.stream_seed, args.slots,
+                           duration_s=args.stream_seconds,
+                           snr_db=args.snr_db,
+                           events_per_min=args.events_per_min)
+    n_samples = min(len(s.audio) for s in streams)
+    n_samples -= n_samples % shift
+    det = DetectorConfig(fire_threshold=args.fire_threshold,
+                         release_threshold=args.release_threshold)
+    vad = (VAD_OFF if args.no_vad
+           else VADConfig(energy_threshold=args.vad_threshold))
+    sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
+                               batch=args.slots, fex=fex, device=device,
+                               numerics=args.numerics, bundle=bundle,
+                               detector=det, vad=vad)
+    chunk = args.chunk_samples - args.chunk_samples % shift or shift
+    t0 = time.perf_counter()
+    fires, frame_base, stats = run_continuous_detect(
+        sess, [s.audio for s in streams], chunk=chunk, n_samples=n_samples)
+    dt = time.perf_counter() - t0
+    tol = int(round(args.tol_s * FS / shift))
+    point = pool_points([
+        det_point(fires[slot], streams[slot].truth_frames(shift),
+                  frame_base, tol_frames=tol, frame_s=shift / FS)
+        for slot in range(args.slots)])
+    return sess, point, stats, dt, n_samples
+
+
+def _device_name(dev) -> str:
+    return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu (plain PyTorch versions of the kernels)")
+
+
+def _detect_main(args) -> int:
+    from repro_torch.data.gscd import FS
+    sess, point, stats, dt, n_samples = serve_kws_detect(args)
+    summ = sess.summary()
+    slo = stats["slo"]
+    steady_s = max(slo["steady_state_s"], 1e-9)
+    audio_s = args.slots * n_samples / FS
+    print(f"detect: {args.slots} stream(s) x {n_samples / FS:.0f} s "
+          f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
+          f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
+          f"[{sess.numerics}, depth 1] — {audio_s / dt:.1f}x realtime")
+    print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
+          f"{slo['decisions'] / steady_s:.0f} decisions/s, step latency "
+          f"p50 {slo['step_ms']['p50']:.2f} / p99 "
+          f"{slo['step_ms']['p99']:.2f} ms ({stats['steps']} steps)")
+    print(f"operating point Δ_TH={sess.threshold} "
+          f"fire={args.fire_threshold} release={args.release_threshold}: "
+          f"{point.n_events} events, {point.hits} hits, "
+          f"{point.misses} misses (miss rate {point.miss_rate:.2f}), "
+          f"{point.false_alarms} false alarms "
+          f"({point.fa_per_hour:.1f} FA/hr)")
+    print(f"vad duty {summ.vad_duty:.3f}, "
+          f"stream sparsity {summ.sparsity:.3f}, "
+          f"{summ.energy_nj_per_decision:.1f} nJ/decision "
+          f"(FEx {summ.fex_energy_nj_per_decision:.1f} nJ, "
+          f"VAD {summ.vad_energy_nj_per_decision:.2f} nJ), "
+          f"modeled latency {summ.latency_ms:.2f} ms, "
+          f"{len(sess.unhealthy_slots())} unhealthy slots"
+          + (", counters overflowed" if summ.overflowed else ""))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -128,10 +281,10 @@ def main(argv=None) -> int:
         validate_args(args)
     except ValueError as e:
         ap.error(str(e))
+    if args.mode == "kws-detect":
+        return _detect_main(args)
     sess, done, labels, stats, dt = serve_kws_audio(args)
-    dev = sess.device
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu (plain PyTorch versions of the kernels)")
+    name = _device_name(sess.device)
     correct = sum(1 for req, pred in done if pred == int(labels[req]))
     summ = sess.summary()
     slo = stats["slo"]

@@ -1,7 +1,7 @@
-"""Streaming KWS sessions — raw audio in, decisions out.
+"""Streaming KWS sessions — raw audio in, decisions or keyword events out.
 
-PyTorch port of the unsharded, detector-free part of
-``repro/launch/streaming.py``, in both numerics.  The session keeps FEx
+PyTorch port of the unsharded part of ``repro/launch/streaming.py``
+without the cascade, in both numerics.  The session keeps FEx
 state, ΔGRU state and op-count telemetry on the device between chunks;
 the host hands over a chunk of raw audio and gets device tensors back.
 One float32 chunk is one call of ``_process_audio_chunk``: 12-bit
@@ -20,6 +20,13 @@ syncs.
         votes = sess.process_audio(audio).votes.cpu()   # one fetch
     print(sess.summary())                      # one fetch for telemetry
 
+With ``detector=`` the session is an always-on DETECTOR
+(``_process_audio_chunk_detect[_int]``): the frames' energies gate the
+features through the VAD (``frontend/vad.py``, in closed form: the same
+~20 launches whatever the chunk's length) before the ΔGRU, and the FC logits go through the
+detection head kernel (``detect_head``: softmax → EMA → hysteresis latch
+over the chunk, one launch), which returns per-frame keyword events.
+
 Chunk boundaries are invisible: samples past the last whole 16 ms frame
 are carried host-side and prepended to the next chunk.  Without
 ``device=`` the session runs on the GPU and raises when there is none.
@@ -35,13 +42,22 @@ import torch
 
 from repro_torch.core import delta_gru as dg
 from repro_torch.core import fixed_point as fp
-from repro_torch.core.energy_model import fex_energy_nj, frame_cost
+from repro_torch.core.energy_model import (fex_energy_nj, frame_cost,
+                                           vad_energy_nj)
 from repro_torch.core.quantize import quantize_audio_12b
 from repro_torch.frontend.fex import (FeatureExtractor, FExConfig, FExState,
                                       _pack_state, _unpack_state, fex_scan,
                                       init_fex_state)
+from repro_torch.frontend.vad import (VADConfig, VADState, frame_energy,
+                                      init_vad_state, vad_gate,
+                                      vad_state_flags)
+from repro_torch.kernels.detect_head import detect_head
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.models import kws
+from repro_torch.models.detector import (NO_EVENT, DetectorConfig,
+                                         DetectorState, band_inverted,
+                                         detector_state_flags,
+                                         init_detector_state)
 
 
 class ChunkResult(NamedTuple):
@@ -50,6 +66,17 @@ class ChunkResult(NamedTuple):
     logits: torch.Tensor   # (frames, batch, n_classes) per-frame logits
     votes: torch.Tensor    # (frames, batch) int32 per-frame argmax
     nz: torch.Tensor       # (frames, batch) transmitted deltas per frame
+
+
+class DetectResult(NamedTuple):
+    """Per-chunk outputs of the detection pipeline (``detector=`` mode),
+    frame-major and on the device like ``ChunkResult``."""
+
+    logits: torch.Tensor   # (frames, batch, n_classes) per-frame logits
+    votes: torch.Tensor    # (frames, batch) int32 per-frame argmax
+    nz: torch.Tensor       # (frames, batch) transmitted deltas per frame
+    events: torch.Tensor   # (frames, batch) int32 fired class id, -1 = none
+    gate: torch.Tensor     # (frames, batch) bool VAD gate (True = open)
 
 
 class StreamInputError(ValueError):
@@ -64,7 +91,17 @@ class StreamInputError(ValueError):
 HEALTH_INPUT = 1 << 0      # non-finite samples entered this chunk
 HEALTH_FEX = 1 << 1        # biquad registers non-finite / blown up
 HEALTH_GRU = 1 << 2        # ΔGRU x̂/ĥ/M/h non-finite / x̂ off-grid (int)
+HEALTH_DET = 1 << 3        # detector EMA non-finite or outside [0, 1]
+HEALTH_VAD = 1 << 4        # VAD hold register non-finite
 HEALTH_SAT = 1 << 5        # int accumulator at the 24-bit saturation rail
+HEALTH_REASONS = {
+    HEALTH_INPUT: "input_nonfinite",
+    HEALTH_FEX: "fex_state",
+    HEALTH_GRU: "gru_state",
+    HEALTH_DET: "detector_state",
+    HEALTH_VAD: "vad_state",
+    HEALTH_SAT: "accumulator_saturation",
+}
 _FEX_MAG_BOUND = 1e6       # float biquad register blow-up bound
 _INT16_RAIL = 32767        # int16 register saturation rail
 _FEAT_CODE_BOUND = 1 << 12  # 12-bit feature grid + 1 bit of slack
@@ -81,7 +118,9 @@ def _flag(bit: int, bad: torch.Tensor) -> torch.Tensor:
 
 
 def slot_health(input_bad, fex_state: FExState | None,
-                gru_state: dg.DeltaState | None) -> torch.Tensor:
+                gru_state: dg.DeltaState | None,
+                vad_state: VADState | None = None,
+                det_state: DetectorState | None = None) -> torch.Tensor:
     """Fuse the per-slot health predicates into one (B,) int32 bitmask:
     the pre-quantizer non-finite-input flag, then the state predicates.
     Float state: FEx registers non-finite or above ``_FEX_MAG_BOUND``,
@@ -89,7 +128,9 @@ def slot_health(input_bad, fex_state: FExState | None,
     int8 engine checks rails instead: FEx registers at the int16 rail
     (``HEALTH_FEX``), x̂ off the 12-bit feature grid (``HEALTH_GRU``) and
     an accumulator at the 24-bit rail (``HEALTH_SAT``, telemetry: a
-    saturating accumulator is the fixed-point design working)."""
+    saturating accumulator is the fixed-point design working).  Detect
+    mode adds a non-finite float VAD hold (``HEALTH_VAD``) and a detector
+    EMA that is non-finite or outside [0, 1] (``HEALTH_DET``)."""
     flags = _flag(HEALTH_INPUT, input_bad)
     if fex_state is not None:
         if fex_state.filt.is_floating_point():
@@ -116,6 +157,10 @@ def slot_health(input_bad, fex_state: FExState | None,
             sat = _slot_any(torch.abs(gru_state.m_x) >= _ACC_RAIL)
             sat |= _slot_any(torch.abs(gru_state.m_h) >= _ACC_RAIL)
             flags |= _flag(HEALTH_SAT, sat)
+    if vad_state is not None:
+        flags |= _flag(HEALTH_VAD, vad_state_flags(vad_state))
+    if det_state is not None:
+        flags |= _flag(HEALTH_DET, detector_state_flags(det_state))
     return flags
 
 
@@ -134,6 +179,8 @@ class _Accum(NamedTuple):
     macs_dense: torch.Tensor   # dense-equivalent MACs
     frames: torch.Tensor       # decisions made
     fex_samples: torch.Tensor  # raw audio samples through the FEx
+    vad_open: torch.Tensor     # frame-slots the VAD gate was open
+                               #   (== frames when no VAD is gating)
 
 
 def _zero_accum(device) -> _Accum:
@@ -155,6 +202,8 @@ class StreamSummary:
     dense_energy_nj: float
     fex_samples: int = 0
     fex_energy_nj_per_decision: float = 0.0
+    vad_duty: float = 1.0                  # gate-open fraction of frames
+    vad_energy_nj_per_decision: float = 0.0
     overflowed: bool = False               # any telemetry counter saturated
     # Serve-loop timing attached by ``launch.engine.run_audio_requests``.
     slo: dict = dataclasses.field(default_factory=dict)
@@ -167,14 +216,19 @@ def _classify(w_fc, b_fc, hs, stats):
                        nz=stats.nz_dx + stats.nz_dh)
 
 
-def _bump(acc: _Accum, stats, n_frames: int, n_samples: int) -> _Accum:
-    """Accumulate one chunk's telemetry (int64 sums, no host sync)."""
+def _bump(acc: _Accum, stats, n_frames: int, n_samples: int,
+          vad_open=None) -> _Accum:
+    """Accumulate one chunk's telemetry (int64 sums, no host sync).
+    ``vad_open`` is the device count of gate-open frame-slots (detect
+    mode); ungated paths count every frame as open (duty 1.0)."""
     return _Accum(
         macs=_count_add(acc.macs, stats.macs.sum(dtype=torch.int64)),
         macs_dense=_count_add(acc.macs_dense,
                               stats.macs_dense.sum(dtype=torch.int64)),
         frames=_count_add(acc.frames, n_frames),
         fex_samples=_count_add(acc.fex_samples, n_samples),
+        vad_open=_count_add(acc.vad_open,
+                            n_frames if vad_open is None else vad_open),
     )
 
 
@@ -279,6 +333,91 @@ def _process_audio_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
     return fex_state, state, acc, out, health
 
 
+def _detect_tail(w_fc, b_fc, hs, stats, gate, *, logit_frac=None,
+                 det_cfg: DetectorConfig, det_state: DetectorState):
+    """Shared back half of the detect steps: FC → the detection head
+    kernel (softmax → EMA → hysteresis events, one launch).
+    ``logit_frac`` set = integer FC on hidden codes (the head consumes the
+    dequantized, grid-exact logits)."""
+    if logit_frac is None:
+        cls = _classify(w_fc, b_fc, hs, stats)
+    else:
+        cls = _classify_int(w_fc, b_fc, hs, stats, logit_frac)
+    det_state, events = detect_head(cls.logits, det_state, det_cfg)
+    return det_state, DetectResult(logits=cls.logits, votes=cls.votes,
+                                   nz=cls.nz, events=events, gate=gate)
+
+
+def _process_audio_chunk_detect(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
+                                fex_state: FExState, state: dg.DeltaState,
+                                vad_state: VADState,
+                                det_state: DetectorState, acc: _Accum,
+                                audio, *, threshold: float, frame_shift: int,
+                                env_alpha: float, log_eps: float,
+                                vad_cfg: VADConfig, det_cfg: DetectorConfig):
+    """Always-on detection step: audio → FEx kernel → VAD gate → ΔGRU
+    kernel → FC → detection head kernel.  The VAD clamps the delta path
+    by sample-and-holding the features during silence (Δx = 0 exactly).
+    Returns (fex_state', state', vad_state', det_state', acc',
+    DetectResult, health), all on the device."""
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    energy = frame_energy(audio, frame_shift)        # (F, B)
+    feats, fex_state = fex_scan(
+        audio, coef, fex_state, frame_shift=frame_shift,
+        env_alpha=env_alpha, log_eps=log_eps, compress=True,
+        backend="pallas")
+    xs = feats.movedim(1, 0)                         # (F, B, C)
+    xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
+    hs, state, stats = dg.delta_gru_scan(gru, xs.contiguous(), threshold,
+                                         state, backend="pallas")
+    det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
+                                  det_cfg=det_cfg, det_state=det_state)
+    decisions = xs.shape[0] * xs.shape[1]
+    acc = _bump(acc, stats, decisions, decisions * frame_shift,
+                vad_open=gate.sum(dtype=torch.int64))
+    health = slot_health(in_bad, fex_state, state, vad_state, det_state)
+    return fex_state, state, vad_state, det_state, acc, out, health
+
+
+def _process_audio_chunk_detect_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
+                                    fex_state: FExState,
+                                    state: dg.DeltaState,
+                                    vad_state: VADState,
+                                    det_state: DetectorState, acc: _Accum,
+                                    audio, *, threshold: float,
+                                    frame_shift: int, gfmt: fp.GruFormats,
+                                    ffmt: fp.FexFormats, vad_cfg: VADConfig,
+                                    det_cfg: DetectorConfig):
+    """Integer mirror of ``_process_audio_chunk_detect``: the VAD holds
+    int16 feature codes (a held code stream is a zero integer delta) and
+    gates on the energy of the float 12-bit audio, before the codes; the
+    head smooths posteriors of the dequantized int32 logit codes."""
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    energy = frame_energy(audio, frame_shift)        # float, pre-codes
+    audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
+    feats, fex_buf = fp.int_fex_scan(
+        audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
+        frame_shift=frame_shift, backend="pallas")
+    xs = feats.movedim(1, 0)                         # (F, B, C) codes
+    xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
+    hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs.contiguous(),
+                                              threshold, state,
+                                              backend="pallas")
+    stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
+                                  gru.w_h.shape[0])
+    det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
+                                  logit_frac=gfmt.logit_frac,
+                                  det_cfg=det_cfg, det_state=det_state)
+    decisions = xs.shape[0] * xs.shape[1]
+    acc = _bump(acc, stats, decisions, decisions * frame_shift,
+                vad_open=gate.sum(dtype=torch.int64))
+    fex_state = _unpack_state(fex_buf)
+    health = slot_health(in_bad, fex_state, state, vad_state, det_state)
+    return fex_state, state, vad_state, det_state, acc, out, health
+
+
 def _reset_gru_slots(state: dg.DeltaState, bias, mask) -> dg.DeltaState:
     """Fresh-stream ΔGRU state for every slot where ``mask`` is True: one
     mask-select per field resets a whole admission wave.  Dtype-
@@ -301,6 +440,28 @@ def _reset_fex_slots(state: FExState, mask) -> FExState:
     zero = torch.zeros((), dtype=state.filt.dtype, device=state.filt.device)
     return FExState(filt=torch.where(mask[:, None, None], zero, state.filt),
                     env=torch.where(mask[:, None], zero, state.env))
+
+
+def _reset_vad_slots(state: VADState, mask) -> VADState:
+    """Fresh-stream VAD state for masked slots: zero hold (matches
+    x̂ = 0), no hangover.  Dtype-preserving (int16 code hold in the int8
+    engine)."""
+    zero = torch.zeros((), dtype=state.hold.dtype, device=state.hold.device)
+    return VADState(hold=torch.where(mask[:, None], zero, state.hold),
+                    hang=torch.where(mask, torch.zeros_like(state.hang),
+                                     state.hang))
+
+
+def _reset_det_slots(state: DetectorState, mask) -> DetectorState:
+    """Idle detector for masked slots: zero smoothed posteriors, no open
+    event, no refractory — a fresh stream's head."""
+    return DetectorState(
+        smooth=torch.where(mask[:, None], torch.zeros_like(state.smooth),
+                           state.smooth),
+        active=torch.where(mask, torch.full_like(state.active, NO_EVENT),
+                           state.active),
+        refract=torch.where(mask, torch.zeros_like(state.refract),
+                            state.refract))
 
 
 def _not_ported(what: str, item: str):
@@ -334,9 +495,19 @@ class StreamingKwsSession:
         a bundle, ``params`` may be None and the bundle's Δ_TH is
         authoritative; without one (numerics="int8"), ``params`` is
         promoted at session creation.
-      mesh, detector, vad, cascade, supervisor: parts of the reference
-        session that later slices of the port add; setting any of them
-        raises ``NotImplementedError``.
+      detector: a ``models.detector.DetectorConfig`` switching the
+        session into always-on DETECTION mode: ``process_audio`` runs
+        audio → FEx → VAD gate → ΔGRU → FC → the detection head kernel and
+        returns ``DetectResult`` (per-frame fired events and the gate
+        trace).  Detector state is per slot, on the device, and reset by
+        ``reset_streams`` like every other stream state.
+      vad: a ``frontend.vad.VADConfig`` for the energy gate that clamps
+        the ΔGRU's delta path during silence (detect mode only; default
+        ``VADConfig()``; ``vad=VAD_OFF`` disables gating and keeps the
+        head).
+      mesh, cascade, supervisor: parts of the reference session that
+        later slices of the port add; setting any of them raises
+        ``NotImplementedError``.
       input_policy: what ``process_audio`` does with hostile samples —
         "reject" (default) raises ``StreamInputError`` on non-finite
         samples, "sanitize" squashes NaN to silence and clamps ±Inf to
@@ -349,14 +520,23 @@ class StreamingKwsSession:
                  fex: FeatureExtractor | FExConfig | None = None,
                  device=None, mesh=None, numerics: str = "float32",
                  bundle: fp.IntKwsBundle | None = None,
-                 detector=None, vad=None, cascade=None, supervisor=None,
-                 input_policy: str = "reject"):
+                 detector: DetectorConfig | None = None,
+                 vad: VADConfig | None = None, cascade=None,
+                 supervisor=None, input_policy: str = "reject"):
         if mesh is not None:
             raise _not_ported("slot sharding over a device mesh", "9")
         if numerics not in ("float32", "int8"):
             raise ValueError(f"unknown numerics: {numerics!r}")
-        if detector is not None or vad is not None:
-            raise _not_ported("detection mode (detector / VAD)", "6")
+        if vad is not None and detector is None:
+            raise ValueError("vad gating is part of detection mode: pass "
+                             "a DetectorConfig alongside the VADConfig")
+        if detector is not None and band_inverted(detector):
+            raise ValueError(
+                f"inverted hysteresis band: release_threshold "
+                f"({detector.release_threshold}) must be <= fire_threshold "
+                f"({detector.fire_threshold}) elementwise — an inverted "
+                f"band degrades the head into a refractory-paced pulse "
+                f"generator")
         if cascade is not None:
             raise _not_ported("the two-stage wake cascade", "7")
         if supervisor is not None:
@@ -365,6 +545,9 @@ class StreamingKwsSession:
             raise ValueError(f"unknown input_policy: {input_policy!r} "
                              f"(choose reject / sanitize / trust)")
         self.device = resolve_device(device)
+        self._detector = detector
+        self._vad = ((vad if vad is not None else VADConfig())
+                     if detector is not None else None)
         self.cfg = cfg
         self.batch = batch
         self.threshold = float(cfg.delta_threshold if threshold is None
@@ -390,6 +573,8 @@ class StreamingKwsSession:
         self._state: dg.DeltaState | None = None
         self._coef = None
         self._fex_state: FExState | None = None
+        self._vad_state: VADState | None = None
+        self._det_state: DetectorState | None = None
         self._audio_rem: np.ndarray | None = None   # carried tail samples
         self._acc = _zero_accum(self.device)
         self._chunks = 0
@@ -431,7 +616,17 @@ class StreamingKwsSession:
                 self._coef = self._fex.coef.to(self.device)
             self._fex_state = self._fresh_fex_state(fcfg.n_active)
             self._audio_rem = np.zeros((self.batch, 0), np.float32)
+            if self._detector is not None:
+                self._vad_state = self._fresh_vad_state(fcfg.n_active)
+                self._det_state = init_detector_state(
+                    self.batch, self.n_classes, self.device)
         return self._fex
+
+    def _fresh_vad_state(self, n_channels: int) -> VADState:
+        # The VAD holds what the ΔGRU eats: float features, or int16
+        # feature codes in the int8 engine.
+        dtype = torch.int16 if self.numerics == "int8" else torch.float32
+        return init_vad_state(self.batch, n_channels, dtype, self.device)
 
     def _coerce_audio(self, audio) -> np.ndarray:
         """Decode + police one raw-audio chunk per ``input_policy``.
@@ -468,8 +663,9 @@ class StreamingKwsSession:
                                 neginf=-1.0)
         return arr
 
-    def process_audio(self, audio) -> ChunkResult:
-        """Run a chunk of RAW audio through FEx → ΔGRU → FC.
+    def process_audio(self, audio) -> ChunkResult | DetectResult:
+        """Run a chunk of RAW audio through FEx → ΔGRU → FC (detect mode:
+        FEx → VAD → ΔGRU → FC → detection head, a ``DetectResult``).
 
         ``audio``: (samples,) for a single stream, or (batch, samples)
         float in [-1, 1) — or int16-range integer ADC codes, which are
@@ -493,23 +689,39 @@ class StreamingKwsSession:
         if n_frames == 0:
             z = torch.zeros((0, self.batch), dtype=torch.int32,
                             device=self.device)
-            return ChunkResult(
-                logits=torch.zeros((0, self.batch, self.n_classes),
-                                   device=self.device), votes=z, nz=z)
+            logits = torch.zeros((0, self.batch, self.n_classes),
+                                 device=self.device)
+            if self._detector is not None:
+                return DetectResult(
+                    logits=logits, votes=z, nz=z, events=z,
+                    gate=torch.zeros((0, self.batch), dtype=torch.bool,
+                                     device=self.device))
+            return ChunkResult(logits=logits, votes=z, nz=z)
         block = torch.from_numpy(
             np.ascontiguousarray(audio[:, :n_frames * shift])).to(self.device)
         fcfg = fex.cfg
         if self.numerics == "int8":
-            step = _process_audio_chunk_int
             kw = dict(gfmt=self._bundle.gfmt, ffmt=self._bundle.ffmt)
         else:
-            step = _process_audio_chunk
             kw = dict(env_alpha=fcfg.env_alpha, log_eps=fcfg.log_eps)
-        (self._fex_state, self._state, self._acc, out,
-         self._last_health) = step(
-            self._gru, self._w_fc, self._b_fc, self._coef, self._fex_state,
-            self._state, self._acc, block, threshold=self.threshold,
-            frame_shift=shift, **kw)
+        weights = (self._gru, self._w_fc, self._b_fc, self._coef)
+        if self._detector is not None:
+            step = (_process_audio_chunk_detect_int
+                    if self.numerics == "int8"
+                    else _process_audio_chunk_detect)
+            (self._fex_state, self._state, self._vad_state, self._det_state,
+             self._acc, out, self._last_health) = step(
+                *weights, self._fex_state, self._state, self._vad_state,
+                self._det_state, self._acc, block, threshold=self.threshold,
+                frame_shift=shift, vad_cfg=self._vad,
+                det_cfg=self._detector, **kw)
+        else:
+            step = (_process_audio_chunk_int if self.numerics == "int8"
+                    else _process_audio_chunk)
+            (self._fex_state, self._state, self._acc, out,
+             self._last_health) = step(
+                *weights, self._fex_state, self._state, self._acc, block,
+                threshold=self.threshold, frame_shift=shift, **kw)
         self._chunks += 1
         return out
 
@@ -517,8 +729,12 @@ class StreamingKwsSession:
         """Run one chunk of pre-computed FRAMES through the ΔGRU.
 
         ``feats``: (frames, channels) for a single stream, or
-        (frames, batch, channels).  Returns DEVICE tensors.
+        (frames, batch, channels).  Returns DEVICE tensors.  Detect mode
+        needs raw audio (the VAD gates on sample energy) and raises.
         """
+        if self._detector is not None:
+            raise ValueError("detection mode needs raw audio (the VAD "
+                             "gates on sample energy): use process_audio")
         feats = torch.as_tensor(np.asarray(feats, np.float32),
                                 device=self.device)
         if feats.dim() == 2:
@@ -549,6 +765,14 @@ class StreamingKwsSession:
     def fex_state(self) -> FExState | None:
         return self._fex_state
 
+    @property
+    def vad_state(self) -> VADState | None:
+        return self._vad_state
+
+    @property
+    def det_state(self) -> DetectorState | None:
+        return self._det_state
+
     def reset(self):
         """Forget stream state + telemetry (keeps weights)."""
         if self._input_dim is not None:
@@ -556,6 +780,11 @@ class StreamingKwsSession:
         if self._fex_state is not None:
             self._fex_state = self._fresh_fex_state(self._input_dim)
             self._audio_rem = np.zeros((self.batch, 0), np.float32)
+        if self._vad_state is not None:
+            self._vad_state = self._fresh_vad_state(self._input_dim)
+        if self._det_state is not None:
+            self._det_state = init_detector_state(self.batch, self.n_classes,
+                                                  self.device)
         self._acc = _zero_accum(self.device)
         self._chunks = 0
         self._last_health = None
@@ -587,6 +816,10 @@ class StreamingKwsSession:
             self._state = _reset_gru_slots(self._state, self._gru.b, mask)
         if self._fex_state is not None:
             self._fex_state = _reset_fex_slots(self._fex_state, mask)
+        if self._vad_state is not None:
+            self._vad_state = _reset_vad_slots(self._vad_state, mask)
+        if self._det_state is not None:
+            self._det_state = _reset_det_slots(self._det_state, mask)
         if self._audio_rem is not None and self._audio_rem.shape[1]:
             self._audio_rem[slots] = 0.0
 
@@ -616,16 +849,23 @@ class StreamingKwsSession:
         frames = totals["frames"]
         n_ch = self._fex.cfg.n_active if self._fex is not None else 10
         c = frame_cost(totals["macs"] / frames, n_channels=n_ch)
+        # The energy detector is powered only when the gate is configured
+        # (detect mode, a non-negative threshold; VAD_OFF is unpowered).
+        vad_nj = (vad_energy_nj(float(totals["fex_samples"])) / frames
+                  if self._vad is not None
+                  and self._vad.energy_threshold >= 0 else 0.0)
         return StreamSummary(
             frames=frames, chunks=self._chunks,
             sparsity=1.0 - totals["macs"] / max(totals["macs_dense"], 1),
-            energy_nj_per_decision=c.energy_nj_per_decision,
+            energy_nj_per_decision=c.energy_nj_per_decision + vad_nj,
             latency_ms=c.latency_ms,
             dense_energy_nj=frame_cost(totals["macs_dense"] / frames,
                                        n_channels=n_ch).energy_nj_per_decision,
             fex_samples=totals["fex_samples"],
             fex_energy_nj_per_decision=fex_energy_nj(
                 float(totals["fex_samples"]), n_ch) / frames,
+            vad_duty=totals["vad_open"] / frames,
+            vad_energy_nj_per_decision=vad_nj,
             overflowed=overflow, slo=dict(self._slo))
 
 

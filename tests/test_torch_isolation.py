@@ -34,7 +34,7 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20      # the whole package
+    assert int(out.stdout.split()[-1]) >= 30      # the whole package
 
 
 def _imported_modules(path: pathlib.Path):
@@ -66,6 +66,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert serve.build_parser().parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="is_available"):
         serve.serve_kws_audio(serve.build_parser().parse_args([]))
+    args = serve.build_parser().parse_args(["--mode", "kws-detect"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.serve_kws_detect(args)
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():
@@ -112,7 +116,12 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
                                 torch.rand(I, 3 * H), torch.rand(H, 3 * H),
                                 0.1)
     assert h1.shape == (B, H) and np.isfinite(h1.numpy()).all()
+    from repro_torch.models import detector as det
+    ops.detect_head.launches = 0
+    st, ev = ops.detect_head(torch.rand(3, B, 12), det.init_detector_state(
+        B, 12), det.DetectorConfig(fire_threshold=0.05))
+    assert ev.shape == (3, B) and st.smooth.shape == (B, 12)
     for wrapper in (iir_fex.batched_iir_fex, dgs.delta_gru_seq,
                     iir_fex.batched_iir_fex_int, dgs.delta_gru_seq_int,
-                    ops.delta_matvec, ops.delta_gru_cell):
+                    ops.delta_matvec, ops.delta_gru_cell, ops.detect_head):
         assert wrapper.launches == 0

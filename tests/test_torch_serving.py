@@ -167,8 +167,7 @@ def test_reset_streams_gives_fresh_slot(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": object()}, {"vad": object()}, {"detector": object()},
-    {"cascade": object()}, {"supervisor": object()}])
+    {"mesh": object()}, {"cascade": object()}, {"supervisor": object()}])
 def test_unported_session_options_raise(weights, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstream.StreamingKwsSession(tkws.params_from_numpy(weights[1]),
