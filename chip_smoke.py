@@ -6,7 +6,7 @@
                                      #   always-on serving step
 
 Phases, each exiting non-zero on failure:
-  1. the card's name and power limit; build all seven CUDA kernels and the
+  1. the card's name and power limit; build all eight CUDA kernels and the
      four chain probes (iir_fex, iir_fex_int, delta_gru_seq,
      delta_gru_seq_int) with nvcc (one process per source, all started
      together) and print the build seconds and ptxas reports; check the
@@ -85,13 +85,37 @@ Phases, each exiting non-zero on failure:
      CUDA detect session against the CPU one in both numerics (int8:
      every code, event, gate and state equal; float: events, gates,
      votes and counts equal, logits within 1e-4);
-  6. a timed always-on phase in each numerics, 256 slots × 16 chunks of
+  6. the two-stage wake cascade: hold both masked ΔGRU instantiations
+     (the stage-1 scans) against their plain versions at T = 1, 32, 100 ×
+     B = 1, 3, 33, 256 × six wake traces (awake and asleep everywhere,
+     random at duty 0.1, 0.5 and 0.9, first and last frames asleep) from
+     a carried state and over two carried chunks — the int8 one bit for
+     bit, the float one within 1e-5 and bit for bit against the unmasked
+     kernel when awake everywhere, frozen rows and the state of slots
+     asleep throughout bit for bit — and both ΔGRU kernels at stage 0's
+     width (I = 4, H = 16); time the masked kernels by the trace's duty
+     beside the unmasked ones; hold wake_head (stage 0's softmax, then
+     the wake machine) bit for bit against its plain version and time it
+     beside its launch floor; serve ``--mode kws-cascade`` on 32 slots ×
+     30 s streams once per numerics (the numerics' FEx kernel, its ΔGRU
+     kernel, wake_head, its masked instantiation and detect_head once per
+     step, nothing else); check a CUDA cascade session against the CPU
+     one in both numerics (int8: every code, awake bit, event and state
+     equal; float: awake traces, events, gates, votes and counts equal,
+     logits within 1e-4, the CPU's stage-0 scores more than 1e-4 from
+     both thresholds);
+  7. a timed always-on phase in each numerics, 256 slots × 16 chunks of
      4096 samples, each followed by the same in detect mode (continuous
      streams, VAD on) with its kernel launches per step and its step
-     time beside the plain step's (``--profile``: device busy share and
-     device activities per step);
-  7. the ``kernels`` JSON line (seven kernels), the card line, and the
-     final ``{"ok": true, ...}`` line.
+     time beside the plain step's, then through the cascade beside the
+     detect step (three alternating rounds on the same audio each) and
+     the masked kernel on one step's own inputs at the run's duty
+     (``--profile``: device busy share and device activities per step);
+     then ``event_driven=True`` on a detect step's VAD-held ΔGRU input
+     in each numerics, bit for bit the dense scan (int8 must skip slots);
+  8. the ``kernels`` JSON line (the eight kernels and the two masked
+     instantiations), the card line, and the final ``{"ok": true, ...}``
+     line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -449,10 +473,10 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} libraries (seven kernels and four chain "
+    print(f"[build] {len(built)} libraries (eight kernels and four chain "
           f"probes) built in {secs:.1f} s")
-    if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 7:
-        fail(f"expected the seven kernels {build.KERNELS}, built "
+    if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 8:
+        fail(f"expected the eight kernels {build.KERNELS}, built "
              f"{sorted(built)}")
     # The wrappers' shared-memory formulas must be the kernels' own.
     from repro_torch.kernels import delta_gru_cell as dgc
@@ -1405,8 +1429,7 @@ def serve_wide(torch, np):
         sched.submit(req)
     audio_q, _ = synth_batch(np.random.default_rng(1), REQUESTS)
     wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(wrappers)
     t0 = time.perf_counter()
     done, stats = run_audio_requests(
         sess, sched, None, audio_q=audio_q, chunk=CHUNK,
@@ -1414,7 +1437,7 @@ def serve_wide(torch, np):
         real_frames=UTT_SAMPLES // fex.cfg.frame_shift)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     steps = stats["steps"] + 1                  # + the warm-up step
     frames = CHUNK // fex.cfg.frame_shift
     summ = sess.summary()
@@ -1441,7 +1464,29 @@ def kernel_wrappers():
     return {name: getattr(ops, name) for name in (
         "batched_iir_fex", "delta_gru_seq", "batched_iir_fex_int",
         "delta_gru_seq_int", "delta_matvec", "delta_gru_cell",
-        "detect_head")}
+        "detect_head", "wake_head")}
+
+
+# The masked instantiations count their launches apart, on their wrapper.
+MASKED = {"delta_gru_seq (masked)": "delta_gru_seq",
+          "delta_gru_seq_int (masked)": "delta_gru_seq_int"}
+
+
+def zero_launches(wrappers):
+    """Set every kernel's launch count to 0, the masked ones' too."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    for base in MASKED.values():
+        wrappers[base].masked_launches = 0
+
+
+def read_launches(wrappers) -> dict:
+    """Every kernel's launch count by name, each masked instantiation as a
+    kernel of its own."""
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({name: wrappers[base].masked_launches
+                for name, base in MASKED.items()})
+    return out
 
 
 def serve_main_path(torch, numerics: str = "float32"):
@@ -1457,11 +1502,10 @@ def serve_main_path(torch, numerics: str = "float32"):
          str(REQUESTS), "--chunk-samples", str(CHUNK), "--seed", "0",
          "--numerics", numerics])
     serve.validate_args(args)
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(wrappers)
     sess, done, labels, stats, dt = serve.serve_kws_audio(args)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     summ = sess.summary()
     print(f"[serve] {numerics}: {len(done)} requests on {SLOTS} slots, "
           f"{stats['steps']} steps in {dt:.2f} s (warm-up "
@@ -1811,11 +1855,10 @@ def serve_detect(torch, numerics: str):
             if numerics == "int8"
             else ("batched_iir_fex", "delta_gru_seq", "detect_head"))
     args = detect_args(numerics, SLOTS, DETECT_SECONDS)
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(wrappers)
     sess, point, stats, dt, n_samples = serve.serve_kws_detect(args)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     summ = sess.summary()
     slo = stats["slo"]
     print(f"[serve] kws-detect {numerics}: {SLOTS} slots x "
@@ -1867,7 +1910,7 @@ def check_detect_against_cpu(torch, np, params, numerics: str):
         parts = [sess.process_audio(audio[:, lo:hi])
                  for lo, hi in ((0, 5000), (5000, 5001), (5001, 12000))]
         outs[dev] = {f: torch.cat([getattr(p, f) for p in parts]).cpu()
-                     for f in parts[0]._fields}
+                     for f in parts[0]._fields if f != "awake"}
         states[dev] = [t.cpu() for t in (*sess.fex_state, *sess.state,
                                          *sess.vad_state, *sess.det_state)]
         heads = [sess.vad_state.hold.cpu(), sess.det_state.smooth.cpu()]
@@ -1942,11 +1985,9 @@ def detect_always_on(torch, np, params, card, profile: bool,
         return (time.perf_counter() - t0) / n
 
     wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches(wrappers)
     step_s = run(sess, "events")
-    launches = {k: fn.launches // n for k, fn in wrappers.items()
-                if fn.launches}
+    launches = {k: v // n for k, v in read_launches(wrappers).items() if v}
     summ = sess.summary()
     print(f"[always-on] detect {numerics}: {B} slots x {n} chunks of "
           f"{CHUNK} samples, VAD on: {step_s * 1e3:.3f} ms per step, "
@@ -1969,6 +2010,726 @@ def detect_always_on(torch, np, params, card, profile: bool,
         profile_steps(torch, sess, streams, f"detect {numerics}")
     return {"step_ms": step_s * 1e3, "plain_ms": med[0] * 1e3,
             "detect_ms": med[1] * 1e3}
+
+
+# ------------------------------------------------------ cascade phases --
+MASK_T = (1, 32, 100)          # masked kernels: frames per chunk
+MASK_B = (1, 3, 33, ALWAYS_ON_SLOTS)
+MASK_DUTIES = (0.1, 0.5, 0.9)
+# Wake / sleep / hangover of the served and timed cascade runs: the random
+# stage 0 scores 0.5 exactly while its h is zero (VAD-held silence) and
+# up to ~0.65 on speech, so these wake it around speech only.
+CASCADE_SERVE = (0.55, 0.52, 15)
+# The CUDA-vs-CPU check: slots wake and sleep on its 4 streams, and its
+# CPU scores lie more than SCORE_MARGIN from both thresholds (checked), so
+# a float score on the card, within ~1e-6 of the CPU's, decides alike.
+CASCADE_CHECK = (0.6, 0.58, 4)
+SCORE_MARGIN = 1e-4
+S0_CHANNELS, S0_TH = 4, 0.05
+
+
+def awake_masks(torch, gen, T, B):
+    """The wake traces the masked kernels are held to their plain versions
+    on: awake and asleep everywhere, random per slot and frame at three
+    duties, and a random one whose first and last frames are asleep."""
+    rand = lambda: torch.rand((T, B), generator=gen, device="cuda")
+    masks = {"all awake": torch.ones((T, B), dtype=torch.bool,
+                                     device="cuda"),
+             "all asleep": torch.zeros((T, B), dtype=torch.bool,
+                                       device="cuda")}
+    for d in MASK_DUTIES:
+        masks[f"duty {d}"] = rand() < d
+    ends = rand() < 0.5
+    ends[0] = False
+    ends[-1] = False
+    masks["first and last frames asleep"] = ends
+    return masks
+
+
+def tiled(xs, T, B):
+    """(T, B, ...) from a (T0, B0, ...) chunk, repeated over both axes."""
+    reps = (-(-T // xs.shape[0]), -(-B // xs.shape[1])) + (1,) * (
+        xs.dim() - 2)
+    return xs.repeat(*reps)[:T, :B].contiguous()
+
+
+def frozen_violations(torch, hs, st0, st, nzx, nzh, awake):
+    """Count the places where an asleep frame did not freeze: its hs row
+    must repeat the previous frame's h (the carried h at frame 0) bit for
+    bit, its counts be 0, and a slot asleep throughout must end in its
+    carried state bit for bit."""
+    prev = torch.cat([st0[0][None], hs[:-1]])
+    asleep = ~awake
+    bad = int((hs != prev)[asleep].sum().item())
+    bad += int(nzx[asleep].sum().item() + nzh[asleep].sum().item())
+    still = asleep.all(0)
+    for a, b in zip(st, st0):
+        bad += int((a[still] != b[still]).sum().item())
+    return bad
+
+
+def compare_masked(torch, np, gru_res, fex_int_feats, bundle):
+    """Both masked instantiations against their plain versions on the
+    card: the float one within HS_ATOL (state within HS_ATOL of 1 + |x|),
+    counts equal, and bit for bit against the unmasked kernel when awake
+    everywhere; the integer one bit for bit.  Frozen rows and the final
+    state of slots asleep throughout bit for bit in both.  At T = 1, 32,
+    100 × B = 1, 3, 33, 256 × every trace of ``awake_masks``, from a
+    carried state (one chunk of the unmasked kernel first); then two
+    carried chunks; then the stage-0 width (I = 4, H = 16) in both
+    kernels, unmasked, against the plain versions.  Returns the float
+    kernel's largest hs error."""
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import delta_gru_seq as dgs
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    gru, xs_f = gru_res["gru"], gru_res["xs_all"]        # (64, 32, 10)
+    w, gfmt = bundle.gru, bundle.gfmt
+    xs_i = fex_int_feats.movedim(1, 0).contiguous()      # (64, 32, 10)
+    tcodes = gfmt.th_codes(0.1)
+    H = gru.w_h.shape[0]
+    worst = 0.0
+    run_f = lambda xs, st, a: dgs.delta_gru_seq(xs, *st, gru.w_x, gru.w_h,
+                                                0.1, awake=a)
+    ref_f = lambda xs, st, a: dgs.delta_gru_seq_ref(xs, *st, gru.w_x,
+                                                    gru.w_h, 0.1, a)
+    run_i = lambda xs, st, a: dgs.delta_gru_seq_int(
+        xs, *st, w.w_x, w.w_h, tcodes, fmt=gfmt, awake=a)
+    ref_i = lambda xs, st, a: dgs.delta_gru_seq_int_ref(
+        xs, *st, w.w_x, w.w_h, tcodes, fmt=gfmt, awake=a)
+    for T in MASK_T:
+        for B in MASK_B:
+            # A carried state: the unmasked kernels over another chunk.
+            f0 = tuple(dgs.delta_gru_seq(
+                tiled(xs_f[32:], 32, B), *dg.init_delta_state(B, 10, H, gru),
+                gru.w_x, gru.w_h, 0.1)[1])
+            i0 = tuple(dgs.delta_gru_seq_int(
+                tiled(xs_i[32:], 32, B),
+                *fp.init_int_delta_state(B, 10, H, w), w.w_x, w.w_h, tcodes,
+                fmt=gfmt)[1])
+            xf, xi = tiled(xs_f, T, B), tiled(xs_i, T, B)
+            res = {"float": [0.0, 0.0, 0, 0], "int8": [0, 0, 0]}
+            for label, a in awake_masks(torch, gen, T, B).items():
+                hk, sk, nxk, nhk = run_f(xf, f0, a)
+                hp, sp, nxp, nhp = ref_f(xf, f0, a)
+                torch.cuda.synchronize()
+                r = res["float"]
+                r[0] = max(r[0], (hk - hp).abs().max().item())
+                r[1] = max(r[1], max(((x - y).abs() / (1.0 + y.abs()))
+                                     .max().item() for x, y in zip(sk, sp)))
+                r[2] += int((nxk != nxp).sum() + (nhk != nhp).sum())
+                r[3] += frozen_violations(torch, hk, f0, sk, nxk, nhk, a)
+                if label == "all awake":
+                    hu, su, nxu, nhu = dgs.delta_gru_seq(
+                        xf, *f0, gru.w_x, gru.w_h, 0.1)
+                    same = torch.equal(hu, hk) and all(
+                        torch.equal(x, y) for x, y in
+                        zip((*su, nxu, nhu), (*sk, nxk, nhk)))
+                    if not same:
+                        fail(f"masked delta_gru_seq awake everywhere differs "
+                             f"from the unmasked kernel at T={T} B={B}")
+                ik = run_i(xi, i0, a)
+                ip = ref_i(xi, i0, a)
+                torch.cuda.synchronize()
+                r = res["int8"]
+                r[0] += int((ik[0] != ip[0]).sum())
+                r[0] += sum(int((x != y).sum()) for x, y in zip(ik[1], ip[1]))
+                r[1] += int((ik[2] != ip[2]).sum() + (ik[3] != ip[3]).sum())
+                r[2] += frozen_violations(torch, ik[0], i0, ik[1], ik[2],
+                                          ik[3], a)
+            f, i = res["float"], res["int8"]
+            print(f"[compare] masked ΔGRU T={T} B={B}, {len(MASK_DUTIES) + 3}"
+                  f" traces: float hs max abs diff {f[0]:.3g}, state "
+                  f"{f[1]:.3g} (bound {HS_ATOL}), nz mismatches {f[2]}, "
+                  f"frozen-row violations {f[3]}; int8 code mismatches "
+                  f"{i[0]}, nz {i[1]}, frozen-row violations {i[2]}")
+            if f[0] > HS_ATOL or f[1] > HS_ATOL or f[2] or f[3] or any(i):
+                fail(f"masked ΔGRU kernels differ at T={T} B={B}: {res}")
+            worst = max(worst, f[0])
+    # Two carried chunks, state from the kernel and from the plain version.
+    a = awake_masks(torch, gen, 64, 33)["duty 0.5"]
+    xf, xi = tiled(xs_f, 64, 33), tiled(xs_i, 64, 33)
+    sk = sp = tuple(dg.init_delta_state(33, 10, H, gru))
+    ik_st = ip_st = tuple(fp.init_int_delta_state(33, 10, H, w))
+    errs = [0.0, 0]
+    for c in range(2):
+        sl = slice(32 * c, 32 * c + 32)
+        hk, sk, _, _ = run_f(xf[sl].contiguous(), sk, a[sl].contiguous())
+        hp, sp, _, _ = ref_f(xf[sl].contiguous(), sp, a[sl].contiguous())
+        ik = run_i(xi[sl].contiguous(), ik_st, a[sl].contiguous())
+        ip = ref_i(xi[sl].contiguous(), ip_st, a[sl].contiguous())
+        ik_st, ip_st = ik[1], ip[1]
+        torch.cuda.synchronize()
+        errs[0] = max(errs[0], (hk - hp).abs().max().item())
+        errs[1] += int((ik[0] != ip[0]).sum()) + sum(
+            int((x != y).sum()) for x, y in zip(ik_st, ip_st))
+    st_err = max(((x - y).abs() / (1.0 + y.abs())).max().item()
+                 for x, y in zip(sk, sp))
+    print(f"[compare] masked ΔGRU, two carried chunks of 32 frames, B=33, "
+          f"duty 0.5: float hs {errs[0]:.3g}, final state {st_err:.3g}; "
+          f"int8 mismatches {errs[1]}")
+    if errs[0] > HS_ATOL or st_err > HS_ATOL or errs[1]:
+        fail(f"masked ΔGRU over carried chunks: {errs}, {st_err}")
+    # Stage 0's width in both kernels, unmasked.
+    rng = np.random.default_rng(29)
+    g0, x0 = random_gru(torch, np, rng, S0_CHANNELS, 16, ALWAYS_ON_SLOTS, 32)
+    st = tuple(dg.init_delta_state(ALWAYS_ON_SLOTS, S0_CHANNELS, 16, g0))
+    hk, sk, nxk, nhk = dgs.delta_gru_seq(x0, *st, g0.w_x, g0.w_h, S0_TH)
+    hp, sp, nxp, nhp = dgs.delta_gru_seq_ref(x0, *st, g0.w_x, g0.w_h, S0_TH)
+    w0, f0mt = fp.quantize_gru(dg.DeltaGRUParams(*(t.cpu() for t in g0)))
+    w0 = fp.IntGruWeights(*(t.cuda() for t in w0))
+    c0 = fp.to_code(x0, f0mt.feat_frac, 16, torch.int16).contiguous()
+    s0 = tuple(fp.init_int_delta_state(ALWAYS_ON_SLOTS, S0_CHANNELS, 16, w0))
+    t0 = f0mt.th_codes(S0_TH)
+    ik = dgs.delta_gru_seq_int(c0, *s0, w0.w_x, w0.w_h, t0, fmt=f0mt)
+    ip = dgs.delta_gru_seq_int_ref(c0, *s0, w0.w_x, w0.w_h, t0, fmt=f0mt)
+    torch.cuda.synchronize()
+    f_err = (hk - hp).abs().max().item()
+    nz_m = int((nxk != nxp).sum() + (nhk != nhp).sum())
+    i_m = sum(int((x != y).sum()) for x, y in
+              zip((ik[0], *ik[1], ik[2], ik[3]), (ip[0], *ip[1], ip[2], ip[3])))
+    print(f"[compare] stage-0 width I={S0_CHANNELS} H=16, B="
+          f"{ALWAYS_ON_SLOTS} T=32: delta_gru_seq hs max abs diff "
+          f"{f_err:.3g}, nz mismatches {nz_m}, transmitted "
+          f"{int(nxp.sum() + nhp.sum())}; delta_gru_seq_int mismatches "
+          f"{i_m}, transmitted {int(ip[2].sum() + ip[3].sum())}")
+    if f_err > HS_ATOL or nz_m or i_m:
+        fail("a ΔGRU kernel differs from its plain version at stage 0's "
+             "width")
+    return worst
+
+
+def time_masked_duties(torch, gru_res, fex_int_feats, bundle):
+    """Both masked instantiations at B = ALWAYS_ON_SLOTS, T = 32 on the
+    serving inputs, by the trace's duty: every slot awake on the same
+    frames (the first 0, 8, 16, 24 or 32), and random per slot and frame
+    at duty 0.1, 0.5, 0.9, beside the unmasked kernel.  A launch lasts
+    as long as its busiest CTA, i.e. its busiest stream's awake frames."""
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import delta_gru_seq as dgs
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    B, T = ALWAYS_ON_SLOTS, 32
+    gru, w, gfmt = gru_res["gru"], bundle.gru, bundle.gfmt
+    xf = tiled(gru_res["xs_all"], T, B)
+    xi = tiled(fex_int_feats.movedim(1, 0), T, B)
+    H = gru.w_h.shape[0]
+    sf = tuple(dg.init_delta_state(B, 10, H, gru))
+    si = tuple(fp.init_int_delta_state(B, 10, H, w))
+    th = gfmt.th_codes(0.1)
+    calls = {"float32": lambda a: dgs.delta_gru_seq(
+                 xf, *sf, gru.w_x, gru.w_h, 0.1, awake=a),
+             "int8": lambda a: dgs.delta_gru_seq_int(
+                 xi, *si, w.w_x, w.w_h, th, fmt=gfmt, awake=a)}
+    traces = {}
+    for n in (0, 8, 16, 24, 32):
+        a = torch.zeros((T, B), dtype=torch.bool, device="cuda")
+        a[:n] = True
+        traces[f"first {n} frames, every slot"] = a
+    for d in MASK_DUTIES:
+        traces[f"random, duty {d}"] = torch.rand(
+            (T, B), generator=gen, device="cuda") < d
+    out = {}
+    for numerics, call in calls.items():
+        unmasked = graph_ms(torch, lambda: call(None))
+        rows = []
+        for label, a in traces.items():
+            ms = graph_ms(torch, lambda: call(a))
+            busiest = int(a.sum(0).max())
+            rows.append((label, float(a.float().mean()), busiest, ms))
+            print(f"[time] masked {numerics} ΔGRU B={B} T={T}, {label}: "
+                  f"duty {rows[-1][1]:.3f}, busiest stream awake {busiest} "
+                  f"frames: {ms:.4f} ms ({ms / unmasked:.2f}x the unmasked "
+                  f"kernel's {unmasked:.4f} ms)")
+        out[numerics] = {"unmasked": unmasked, "rows": rows}
+    return out
+
+
+WAKE_OPS_PER_FRAME = 60        # 2 exps ≈ 48, max, sum, division, compares
+
+
+def wake_case(torch, gen, F, B, scale=1.0):
+    """Stage-0-like logits: class 1 a random walk around class 0, so the
+    posterior crosses the thresholds, wakes and sleeps."""
+    x0 = torch.randn((F, B), generator=gen, device="cuda") * 0.1
+    walk = torch.cumsum(torch.randn((F, B), generator=gen, device="cuda")
+                        * 0.3 * scale, 0)
+    return torch.stack([x0, x0 + walk], -1).contiguous()
+
+
+def compare_wake_head(torch, np):
+    """wake_head against its plain version (xla_softmax, then the closed
+    form of the wake machine) bit for bit — trace, latch and countdown —
+    at B = 32 and 256 over two carried chunks of 32 frames, at B = 1, 3,
+    33 × F = 1, 3, 100, with hangover 0 and 15, wake = sleep, a NaN
+    logit, ±1e30 logits, 3 and 32 classes, and carried states with the
+    latch set; and that it refuses a plan it cannot run."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wake_head as wh
+    from repro_torch.launch.streaming import CascadeConfig
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cases = []
+    for B in (SLOTS, ALWAYS_ON_SLOTS):
+        for cfg in (CascadeConfig(0.6, 0.45, 15), CascadeConfig(0.55, 0.55, 0),
+                    CascadeConfig(0.7, 0.3, 3)):
+            cases.append((f"B={B} {tuple(cfg[:3])}", cfg,
+                          [wake_case(torch, gen, 32, B) for _ in range(2)]))
+    for B in (1, 3, 33):
+        for F in (1, 3, 100):
+            cases.append((f"B={B} F={F}", CascadeConfig(0.6, 0.5, 4),
+                          [wake_case(torch, gen, F, B)]))
+    odd = wake_case(torch, gen, 32, 33)
+    odd[3, 5, 1] = float("nan")
+    odd[7, 6, 0] = 1e30
+    odd[8, 7, 1] = -1e30
+    cases.append(("NaN and ±1e30 logits", CascadeConfig(0.6, 0.5, 4), [odd]))
+    for K in (3, 32):
+        lg = torch.randn((32, 33, K), generator=gen, device="cuda")
+        cases.append((f"K={K}", CascadeConfig(0.2, 0.1, 2), [lg]))
+    awake_frames = total = 0
+    for label, cfg, chunks in cases:
+        B = chunks[0].shape[1]
+        start = (torch.rand(B, generator=gen, device="cuda") < 0.5,
+                 torch.randint(0, cfg.hangover_frames + 1, (B,),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32))
+        start = (start[0], torch.where(start[0], start[1], 0))
+        k_st = p_st = start
+        mism = 0
+        for lg in chunks:
+            tk, *k_st = wh.wake_head(lg, *k_st, cfg)
+            tp, *p_st = wh.wake_head_ref(lg, *p_st, cfg)
+            torch.cuda.synchronize()
+            mism += int((tk != tp).sum()) + sum(
+                int((a != b).sum()) for a, b in zip(k_st, p_st))
+            awake_frames += int(tp.sum())
+            total += tp.numel()
+        if mism:
+            fail(f"wake_head {label}: {mism} outputs differ from the plain "
+                 f"version")
+    print(f"[compare] wake_head vs its plain version, {len(cases)} cases "
+          f"(B = 1..256, F = 1..100, two carried chunks, hangover 0 / 3 / "
+          f"4 / 15, wake = sleep, NaN and ±1e30 logits, K = 2, 3, 32): "
+          f"traces, latches and countdowns equal bit for bit; awake "
+          f"{awake_frames} of {total} frame-slots")
+    if not 0 < awake_frames < total:
+        fail("wake_head cases never woke or never slept")
+    lib, fn = wh._launcher()
+    lg = wake_case(torch, gen, 4, 8)
+    a = torch.zeros(8, dtype=torch.bool, device="cuda")
+    h = torch.zeros(8, dtype=torch.int32, device="cuda")
+    t = torch.empty((4, 8), dtype=torch.bool, device="cuda")
+    err = fn(lg.data_ptr(), a.data_ptr(), h.data_ptr(), 0.5, 0.4, 3,
+             t.data_ptr(), a.data_ptr(), h.data_ptr(), 4, 8, 2, 1, 16,
+             torch.cuda.current_stream().cuda_stream)
+    if err == 0:
+        fail("wake_head ran a plan of 16 threads per CTA")
+
+
+def time_wake_head(torch):
+    """wake_head at the serving shapes (F = 32, K = 2, B = 32 and 256):
+    kernel (device and per call), plain version, the bound from the
+    shapes, and the launch floor (an empty kernel at its launch shape)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wake_head as wh
+    from repro_torch.launch.streaming import CascadeConfig
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    cfg = CascadeConfig(*CASCADE_SERVE)
+    lib = build.load("wake_head")
+    floor = lib.wake_head_floor_launch
+    floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = {}
+    for B in (SLOTS, ALWAYS_ON_SLOTS):
+        lg = wake_case(torch, gen, 32, B)
+        a = torch.zeros(B, dtype=torch.bool, device="cuda")
+        h = torch.zeros(B, dtype=torch.int32, device="cuda")
+        ms, call = kernel_ms(torch, lambda: wh.wake_head(lg, a, h, cfg))
+        plain = cuda_ms(torch, lambda: wh.wake_head_ref(lg, a, h, cfg), 10,
+                        warmup=2)
+        grid, block = wh.wake_launch_plan(B, 2)
+
+        def empty():
+            build.check(lib, floor(grid, block,
+                                   torch.cuda.current_stream().cuda_stream),
+                        "wake_head floor launch")
+        fl = graph_ms(torch, empty)
+        bnd, by = bound(4 * 32 * B * 2 + 32 * B + 2 * 5 * B,
+                        32 * B * WAKE_OPS_PER_FRAME)
+        out[B] = dict(ms=ms, call=call, plain=plain, floor=fl, bound=bnd,
+                      by=by)
+        print(f"[time] wake_head B={B} F=32 K=2: kernel {ms:.4f} ms on the "
+              f"device ({call:.4f} ms per call with the wrapper), plain "
+              f"{plain:.2f} ms per call, bound {bnd:.6f} ms ({by}); launch "
+              f"floor (empty kernel, {grid} CTAs of {block}) {fl:.4f} ms — "
+              f"the kernel at {ms / fl:.2f}x the floor")
+    return out
+
+
+def masked_bound(T, B, I, H, nz_total, n_awake, integer: bool):
+    """The masked instantiations: x, the trace and hs of every frame-slot
+    and the weights and state once, the transmitted rows' multiply-adds
+    and the gates of the awake frame-slots only (an asleep one stores h)."""
+    N = 3 * H
+    if integer:
+        state = B * (2 * (H + I + H) + 4 * 2 * N)
+        moved = (2 * T * B * I + (I + H) * N + 2 * state + 2 * T * B * H
+                 + 2 * 4 * T * B + T * B)
+        ops = (2 * N * nz_total + n_awake * (
+            3 * (I + H) + 2 * N * COL_INT_OPS + GATE_INT_OPS_PER_UNIT * H))
+        return bound(moved, ops, INT32_OPS)
+    state = B * (H + I + H + N + N)
+    moved = (4 * (T * B * I + (I + H) * N + 2 * state + T * B * H + 2 * T * B)
+             + T * B)
+    flops = 2 * N * nz_total + n_awake * (3 * (I + H) + 2 * N
+                                          + GATE_OPS_PER_UNIT * H)
+    return bound(moved, flops)
+
+
+class capture_args:
+    """Within the block, record the arguments of each call of
+    ``module.name`` (the session steps call it through the module)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def cascade_config(cfg=CASCADE_SERVE):
+    from repro_torch.launch.streaming import CascadeConfig
+    return CascadeConfig(wake_threshold=cfg[0], sleep_threshold=cfg[1],
+                         hangover_frames=cfg[2], s0_threshold=S0_TH,
+                         s0_channels=S0_CHANNELS)
+
+
+def stage0(torch):
+    """The serve CLI's stage-0 model (16 units, binary head, seed 7)."""
+    from repro_torch.launch import serve
+    return serve.stage0_params(serve.build_parser().parse_args([]))
+
+
+def serve_cascade(torch, numerics: str):
+    """Serve kws-cascade through the CLI's entry point at full width on
+    SLOTS slots × 30 s streams, every kernel's count set to 0 just before
+    and read just after: the numerics' FEx kernel, its ΔGRU kernel
+    unmasked (stage 0), wake_head, its masked instantiation (stage 1) and
+    detect_head once per step (+ the warm-up step), nothing else.
+    Returns the path's launches."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.streaming import HEALTH_SAT
+    wrappers = kernel_wrappers()
+    gru = "delta_gru_seq_int" if numerics == "int8" else "delta_gru_seq"
+    path = ("batched_iir_fex_int" if numerics == "int8"
+            else "batched_iir_fex", gru, "wake_head", f"{gru} (masked)",
+            "detect_head")
+    wake, sleep, hang = CASCADE_SERVE
+    args = detect_args(numerics, SLOTS, DETECT_SECONDS, (
+        "--wake-threshold", str(wake), "--sleep-threshold", str(sleep),
+        "--hangover-frames", str(hang)))
+    args.mode = "kws-cascade"
+    serve.validate_args(args)
+    zero_launches(wrappers)
+    sess, point, stats, dt, n_samples = serve.serve_kws_detect(args)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    summ = sess.summary()
+    slo = stats["slo"]
+    print(f"[serve] kws-cascade {numerics}: {SLOTS} slots x "
+          f"{n_samples / 8000:.0f} s, {stats['steps']} steps in {dt:.2f} s "
+          f"(warm-up {stats['warmup_s']:.2f} s), step p50 "
+          f"{slo['step_ms']['p50']:.2f} ms, "
+          f"{slo['decisions'] / slo['steady_state_s']:.0f} decisions/s; "
+          f"{point.n_events} events, {point.hits} hits, {point.misses} "
+          f"misses, {point.false_alarms} false alarms "
+          f"({point.fa_per_hour:.1f} FA/hr), stage-1 duty "
+          f"{summ.stage1_duty:.3f} ({summ.frames_entered_stage1}/"
+          f"{summ.frames}), vad duty {summ.vad_duty:.3f}, sparsity "
+          f"{summ.sparsity:.4f}, {summ.energy_nj_per_decision:.1f} "
+          f"nJ/decision (stage-0 {summ.s0_energy_nj_per_decision:.2f}), "
+          f"launches {launches}")
+    want = stats["steps"] + 1                   # + the warm-up step
+    if any(launches[k] != want for k in path) or any(
+            v for k, v in launches.items() if k not in path):
+        fail(f"the {numerics} cascade path must launch {path} once per "
+             f"step ({want}) and nothing else: {launches}")
+    if summ.frames != SLOTS * (n_samples // 128):
+        fail(f"kws-cascade counted {summ.frames} decisions")
+    if not 0.0 < summ.stage1_duty < 1.0:
+        fail(f"kws-cascade stage-1 duty {summ.stage1_duty}")
+    if point.hits + point.false_alarms == 0:
+        fail(f"kws-cascade fired nothing: {point}")
+    bad = {k: f for k, f in sess.unhealthy_slots().items()
+           if f & ~HEALTH_SAT}
+    if bad:
+        fail(f"unhealthy slots after kws-cascade: {bad}")
+    return {k: launches[k] for k in path}
+
+
+def check_cascade_against_cpu(torch, np, params, numerics: str):
+    """A full-width CUDA cascade session against the CPU one (the plain
+    versions, which the CPU tests hold against the JAX package) on 4
+    continuous streams × 12000 samples in unaligned chunks, with wakes,
+    sleeps and fires.  int8: every logit code, vote, count, awake bit,
+    event, gate and state equal; float: awake traces, events, gates,
+    votes and counts equal, logits within 1e-4, and the CPU's stage-0
+    scores more than SCORE_MARGIN from both thresholds."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch import streaming
+    from repro_torch.models.detector import DetectorConfig
+    streams = make_streams(7, 4, duration_s=1.5, snr_db=20.0,
+                           events_per_min=60.0)
+    audio = np.stack([s.audio for s in streams])
+    det = DetectorConfig(0.3, 0.095, 0.09, 4)
+    p0 = stage0(torch)
+    outs, states, summ = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        sess = streaming.StreamingKwsSession(
+            params, CONFIG, threshold=0.1, batch=4, device=dev,
+            numerics=numerics, detector=det, vad=VADConfig(0.02),
+            cascade=cascade_config(CASCADE_CHECK), stage0_params=p0)
+        with capture_args(streaming, "cascade_wake_scan") as cap:
+            parts = [sess.process_audio(audio[:, lo:hi])
+                     for lo, hi in ((0, 5000), (5000, 5001), (5001, 12000))]
+        outs[dev] = {f: torch.cat([getattr(p, f) for p in parts]).cpu()
+                     for f in parts[0]._fields}
+        cas = sess.cas_state
+        states[dev] = [t.cpu() for t in (*sess.state, cas.awake, cas.hang,
+                                         *cas.s0)]
+        if dev == "cpu":           # the CUDA session runs wake_head
+            scores = torch.cat([a[3] for a, _ in cap.calls])
+        summ[dev] = sess.summary()
+    c, p = outs["cuda"], outs["cpu"]
+    err = (c["logits"] - p["logits"]).abs().max().item()
+    mism = {f: int((c[f] != p[f]).sum())
+            for f in ("votes", "nz", "events", "gate", "awake")}
+    state_m = sum(int((a != b).sum()) for a, b in
+                  zip(states["cuda"], states["cpu"])
+                  if not a.is_floating_point())
+    state_err = max((a.float() - b.float()).abs().max().item() for a, b in
+                    zip(states["cuda"], states["cpu"]))
+    awake, events = p["awake"], p["events"]
+    sleeps = int(((awake[:-1] & ~awake[1:]).sum()).item())
+    margin = min((scores - t).abs().min().item() for t in CASCADE_CHECK[:2])
+    fires = int((events >= 0).sum())
+    print(f"[check] {numerics} cascade session CUDA vs CPU, 4 streams x "
+          f"12000 samples: logits max abs diff {err:.3g}, mismatches "
+          f"{mism}, integer state elements differing {state_m}, float state "
+          f"max abs diff {state_err:.3g}, stage-1 duty "
+          f"{summ['cuda'].stage1_duty:.3f} / {summ['cpu'].stage1_duty:.3f}, "
+          f"wakes to sleep {sleeps}, fires {fires}, CPU scores' least "
+          f"distance to a threshold {margin:.3g}")
+    if any(mism.values()) or state_m or fires == 0 or sleeps == 0:
+        fail(f"{numerics} cascade session disagrees with the CPU one or "
+             f"never slept / fired")
+    if summ["cuda"].frames_entered_stage1 != summ["cpu"].frames_entered_stage1:
+        fail("the CUDA and CPU cascade sessions count different duties")
+    if (events[~awake] != -1).any() or not 0 < awake.float().mean() < 1:
+        fail(f"{numerics} cascade: events on asleep frames or a trivial "
+             f"duty")
+    if numerics == "int8" and (err or state_err):
+        fail(f"int8 cascade session: logits {err}, state {state_err}")
+    if not (err <= 1e-4 and state_err <= 1e-4):
+        fail(f"float cascade session: logits {err}, state {state_err}")
+    if numerics == "float32" and margin <= SCORE_MARGIN:
+        fail(f"a stage-0 score lies {margin} from a threshold")
+
+
+def cascade_always_on(torch, np, params, card, profile: bool,
+                      numerics: str, detect_ms: float):
+    """The always-on phase through the cascade: ALWAYS_ON_SLOTS continuous
+    streams × ALWAYS_ON_CHUNKS chunks of CHUNK samples (the detect phase's
+    audio), VAD on: step time, decisions/s, stage-1 duty and kernel
+    launches per step; then three rounds alternating the detect session
+    and the cascade session on the same audio; then the masked kernel's
+    device time on one step's own inputs at the run's duty, beside the
+    same call awake everywhere, the unmasked kernel and the plain
+    version."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.kernels import delta_gru_seq as dgs
+    from repro_torch.launch.engine import warm_session
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    B, n = ALWAYS_ON_SLOTS, ALWAYS_ON_CHUNKS
+    streams = make_streams(200, B, duration_s=n * CHUNK / 8000 + 0.1,
+                           snr_db=20.0)
+    streams = np.ascontiguousarray(
+        np.stack([s.audio[:n * CHUNK] for s in streams]))
+    det = DetectorConfig(fire_threshold=DETECT_FIRE,
+                         release_threshold=DETECT_RELEASE)
+    sess = StreamingKwsSession(
+        params, CONFIG, threshold=0.1, batch=B, numerics=numerics,
+        detector=det, vad=VADConfig(0.02), cascade=cascade_config(),
+        stage0_params=stage0(torch))
+    detect = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=B,
+                                 numerics=numerics, detector=det,
+                                 vad=VADConfig(0.02))
+    warm_session(sess, CHUNK)
+    warm_session(detect, CHUNK)
+
+    def run(s):
+        s.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(n):
+            s.process_audio(streams[:, c * CHUNK:(c + 1) * CHUNK]).events.cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    step_s = run(sess)
+    launches = {k: v // n for k, v in read_launches(wrappers).items() if v}
+    summ = sess.summary()
+    print(f"[always-on] cascade {numerics}: {B} slots x {n} chunks of "
+          f"{CHUNK} samples, VAD on: {step_s * 1e3:.3f} ms per step, "
+          f"{summ.frames / (step_s * n):.0f} decisions/s, stage-1 duty "
+          f"{summ.stage1_duty:.3f}, vad duty {summ.vad_duty:.3f}, sparsity "
+          f"{summ.sparsity:.4f}, kernel launches per step {launches} "
+          f"[{card}]")
+    if summ.frames != B * n * CHUNK // 128:
+        fail(f"cascade always-on phase counted {summ.frames} decisions")
+    if not 0.0 < summ.stage1_duty < 1.0:
+        fail(f"cascade always-on stage-1 duty {summ.stage1_duty}")
+    rounds = [(run(detect), run(sess)) for _ in range(3)]
+    med = [statistics.median(r[i] for r in rounds) for i in (0, 1)]
+    print(f"[always-on] cascade {numerics} vs detect on the same audio, 3 "
+          f"alternating rounds: detect "
+          f"{', '.join(f'{d * 1e3:.3f}' for d, _ in rounds)} ms, cascade "
+          f"{', '.join(f'{c * 1e3:.3f}' for _, c in rounds)} ms per step; "
+          f"medians {med[0] * 1e3:.3f} / {med[1] * 1e3:.3f} ms "
+          f"({med[1] / med[0]:.2f}x); the detect phase's own step "
+          f"{detect_ms:.3f} ms [{card}]")
+    if profile:
+        profile_steps(torch, detect, streams, f"detect {numerics} (same "
+                      f"audio)")
+        profile_steps(torch, sess, streams, f"cascade {numerics}")
+    # One step's stage-1 call, replayed alone at this run's duty.
+    mod, name = ((fp, "masked_int_gru_scan") if numerics == "int8"
+                 else (dg, "masked_delta_gru_scan"))
+    sess.reset()
+    for c in range(n // 2):
+        sess.process_audio(streams[:, c * CHUNK:(c + 1) * CHUNK])
+    with capture_args(mod, name) as cap:
+        sess.process_audio(streams[:, (n // 2) * CHUNK:(n // 2 + 1) * CHUNK])
+    args, _ = cap.calls[-1]
+    if numerics == "int8":
+        w, gfmt, xs, th, st, awake = args
+        th = gfmt.th_codes(th)
+        call = lambda a: dgs.delta_gru_seq_int(xs, *st, w.w_x, w.w_h, th,
+                                               fmt=gfmt, awake=a)
+        plain = lambda: dgs.delta_gru_seq_int_ref(xs, *st, w.w_x, w.w_h, th,
+                                                  fmt=gfmt, awake=awake)
+    else:
+        g, xs, th, st, awake = args
+        call = lambda a: dgs.delta_gru_seq(xs, *st, g.w_x, g.w_h, th,
+                                           awake=a)
+        plain = lambda: dgs.delta_gru_seq_ref(xs, *st, g.w_x, g.w_h, th,
+                                              awake)
+    T, Bs, I = xs.shape
+    H = st[0].shape[1]
+    ones = torch.ones_like(awake)
+    _, _, nzx, nzh = call(awake)
+    nz_total = int(nzx.sum() + nzh.sum())
+    n_awake = int(awake.sum())
+    duty = n_awake / awake.numel()
+    ms = graph_ms(torch, lambda: call(awake))
+    ms_all = graph_ms(torch, lambda: call(ones))
+    ms_plain_kernel = graph_ms(torch, lambda: call(None))
+    plain_ms = cuda_ms(torch, plain, 5, warmup=1)
+    bnd, by = masked_bound(T, Bs, I, H, nz_total, n_awake,
+                           numerics == "int8")
+    busiest = int(awake.sum(0).max())
+    rows = busiest_rows(nzx, nzh, max(busiest, 1))
+    print(f"[time] masked {'delta_gru_seq_int' if numerics == 'int8' else 'delta_gru_seq'}"
+          f" on one cascade step's inputs (T={T} B={Bs} I={I} H={H}): at "
+          f"this run's duty {duty:.3f} {ms:.4f} ms, awake everywhere "
+          f"{ms_all:.4f} ms, the unmasked instantiation {ms_plain_kernel:.4f}"
+          f" ms (device); plain version {plain_ms:.2f} ms; bound {bnd:.5f} "
+          f"ms ({by}); the busiest stream is awake {busiest} of {T} frames "
+          f"and sends {rows[0]} x + {rows[1]} h rows per awake frame "
+          f"[{card}]")
+    return {"step_ms": step_s * 1e3, "detect_ms": med[0] * 1e3,
+            "cascade_ms": med[1] * 1e3, "duty": summ.stage1_duty,
+            "launches": launches, "ms": ms, "ms_awake": ms_all,
+            "ms_unmasked": ms_plain_kernel, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "step_duty": duty,
+            "busiest_awake": busiest, "rows": rows, "shape":
+            f"T={T} B={Bs} I={I} H={H}"}
+
+
+def event_driven_on_card(torch, np, params, numerics: str):
+    """``event_driven=True`` on the card on VAD-held input: a detect
+    session runs 256 mostly silent continuous streams for 6 chunks; the
+    seventh step's ΔGRU call (its gated features and carried state) is
+    replayed dense and event-driven.  hs, the final state and both counts
+    must be equal bit for bit; int8 must skip slots."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.kernels import compaction
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    B, n = ALWAYS_ON_SLOTS, 7
+    streams = make_streams(300, B, duration_s=n * CHUNK / 8000 + 0.1,
+                           snr_db=20.0, events_per_min=6.0)
+    audio = np.stack([s.audio[:n * CHUNK] for s in streams])
+    sess = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=B,
+                               numerics=numerics, detector=DetectorConfig(),
+                               vad=VADConfig(0.02))
+    for c in range(n - 1):
+        sess.process_audio(audio[:, c * CHUNK:(c + 1) * CHUNK])
+    mod, name = ((fp, "int_gru_scan") if numerics == "int8"
+                 else (dg, "delta_gru_scan"))
+    with capture_args(mod, name) as cap:
+        sess.process_audio(audio[:, (n - 1) * CHUNK:])
+    args, kw = cap.calls[-1]
+    dense = getattr(mod, name)(*args, **kw)
+    compaction.reset_counters()
+    event = getattr(mod, name)(*args, **kw, event_driven=True)
+    torch.cuda.synchronize()
+    c = compaction.counters()
+    if numerics == "int8":
+        pairs = [(dense[0], event[0]), *zip(dense[1], event[1]),
+                 (dense[2], event[2]), (dense[3], event[3])]
+    else:
+        pairs = [(dense[0], event[0]), *zip(dense[1], event[1]),
+                 (dense[2].nz_dx, event[2].nz_dx),
+                 (dense[2].nz_dh, event[2].nz_dh)]
+    differ = sum(int((bits_view(torch, a) != bits_view(torch, b)).sum())
+                 for a, b in pairs)
+    print(f"[check] event_driven {numerics} on VAD-held input (B={B}, "
+          f"T={args[2 if numerics == 'int8' else 1].shape[0]}): bits "
+          f"differing from the dense scan {differ}; slots skipped "
+          f"{c['slots_skipped']} of {c['slots_total']}, frames entered "
+          f"{c['frames_entered']} of {c['frames_total']} (probe "
+          f"{c['probe_frames']})")
+    if differ:
+        fail(f"event_driven {numerics} differs from the dense scan")
+    if numerics == "int8" and c["slots_skipped"] == 0:
+        fail("event_driven int8 skipped no slot on VAD-held input")
+    return c
+
+
+def bits_view(torch, t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 def main() -> int:
@@ -2022,10 +2783,25 @@ def main() -> int:
     for numerics in ("float32", "int8"):
         head_launches[numerics] = serve_detect(torch, numerics)
         check_detect_against_cpu(torch, np, params, numerics)
+    masked_err = compare_masked(torch, np, gru_res, fex_int_res["feats"],
+                                bundle)
+    time_masked_duties(torch, gru_res, fex_int_res["feats"], bundle)
+    compare_wake_head(torch, np)
+    times["wake_head"] = time_wake_head(torch)
+    cascade_launches = {}
+    for numerics in ("float32", "int8"):
+        cascade_launches.update(serve_cascade(torch, numerics))
+        check_cascade_against_cpu(torch, np, params, numerics)
+    cascade_res = {}
     for numerics in ("float32", "int8"):
         step_s = always_on(torch, np, params, card, args.profile, numerics)
-        detect_always_on(torch, np, params, card, args.profile, numerics,
-                         step_s)
+        det_res = detect_always_on(torch, np, params, card, args.profile,
+                                   numerics, step_s)
+        cascade_res[numerics] = cascade_always_on(
+            torch, np, params, card, args.profile, numerics,
+            det_res["step_ms"])
+    for numerics in ("float32", "int8"):
+        event_driven_on_card(torch, np, params, numerics)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -2115,8 +2891,47 @@ def main() -> int:
         "ms_b256": hd256["ms"], "plain_ms_b256": hd256["plain"],
         "bound_ms_b256": hd256["bound"],
         "launch_floor_ms_b256": hd256["floor"]})
-    if len(kernels) != 7:
-        fail(f"the kernels line lists {len(kernels)} kernels, not 7")
+    for numerics, base, source, replaces, err in (
+            ("float32", "delta_gru_seq", "src/repro_torch/csrc/delta_gru_seq.cu",
+             "src/repro/core/delta_gru.py:376", masked_err),
+            ("int8", "delta_gru_seq_int",
+             "src/repro_torch/csrc/delta_gru_seq_int.cu",
+             "src/repro/core/fixed_point.py:476", 0.0)):
+        r = cascade_res[numerics]
+        kind = "gru_int" if numerics == "int8" else "gru"
+        cycles, chain_ms, _ = times[kind + "_chain"]
+        kernels.append({
+            "name": f"{base} (masked)", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "note": "no Pallas counterpart: the masked instantiation "
+                    "(template argument kMasked) of the kernel above, the "
+                    "port of the XLA-fused plain JAX masked scan",
+            "launches": cascade_launches[f"{base} (masked)"],
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"],
+            "path": f"kws-cascade {numerics}, stage 1, one launch per step",
+            "duty": r["step_duty"], "ms_awake_everywhere": r["ms_awake"],
+            "ms_unmasked_same_inputs": r["ms_unmasked"],
+            "chain_bound_ms_at_duty": chain_ms * r["busiest_awake"] / 32})
+    wk, wk256 = times["wake_head"][SLOTS], times["wake_head"][ALWAYS_ON_SLOTS]
+    kernels.append({
+        "name": "wake_head", "route": "cuda",
+        "source": "src/repro_torch/csrc/wake_head.cu",
+        "replaces": "src/repro/launch/streaming.py:197",
+        "note": "no Pallas counterpart: the XLA-fused plain JAX stage-0 "
+                "posterior (jax.nn.softmax(...)[..., 1], "
+                "src/repro/launch/streaming.py:712) and cascade_wake_scan",
+        "launches": cascade_launches["wake_head"],
+        "max_abs_err": 0.0, "ms": wk["ms"], "plain_ms": wk["plain"],
+        "bound_ms": wk["bound"], "bound_by": wk["by"], "library_ms": None,
+        "call_ms": wk["call"], "shape": f"F=32 B={SLOTS} K=2",
+        "path": "kws-cascade, one launch per step",
+        "launch_floor_ms": wk["floor"], "ms_b256": wk256["ms"],
+        "plain_ms_b256": wk256["plain"], "bound_ms_b256": wk256["bound"],
+        "launch_floor_ms_b256": wk256["floor"]})
+    if len(kernels) != 10:
+        fail(f"the kernels line lists {len(kernels)} kernels, not 10")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

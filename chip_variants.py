@@ -578,9 +578,11 @@ __device__ __forceinline__ float mask_sum(float acc, unsigned m,
   return acc;
 }
 
+template <bool kMasked>
 __global__ void delta_gru_seq_kernel(Args a) {"""
 _F_MASKS = (
-    ("\n__global__ void delta_gru_seq_kernel(Args a) {", _MASK_SUM),
+    ("\ntemplate <bool kMasked>\n__global__ void delta_gru_seq_kernel(Args a) {",
+     _MASK_SUM),
     ("""      const int n = compact(sent, d, xj * L.pitch, lx, 32 * xwarp);
       if (lane == 0) cnt[xwarp] = n;
       if (lane == 0 && n != 0) atomicAdd(&a.nz_dx[row], n);""",
@@ -925,12 +927,14 @@ _STAMPS = (
     ("      a.hs[row * H + j] = static_cast<int16_t>(hcur);\n    }\n",
      "      a.hs[row * H + j] = static_cast<int16_t>(hcur);\n    }\n"
      "    STAMP(6)\n"),
-    ("__global__ void delta_gru_seq_int_kernel(Args a) {",
+    ("template <bool kMasked>\n"
+     "__global__ void delta_gru_seq_int_kernel(Args a) {",
      "__device__ unsigned long long g_phase[7];\n"
      "#define STAMP(k) if (threadIdx.x == 0) { \\\n"
      "  const long long c_now = clock64(); \\\n"
      "  atomicAdd(&g_phase[k], static_cast<unsigned long long>(c_now - "
      "c_prev)); \\\n  c_prev = c_now; }\n"
+     "template <bool kMasked>\n"
      "__global__ void delta_gru_seq_int_kernel(Args a) {"),
 )
 _READ_PHASES = """

@@ -12,6 +12,11 @@ and the pre-activations are kept incrementally, M_t = M_{t-1} + W_x Δx_t
 are the type-2 GRU (reset gate on the candidate's hidden pre-activation):
 
     r = σ(M_r), u = σ(M_u), c = tanh(M_xc + r ⊙ M_hc), h = u ⊙ h + (1-u) ⊙ c
+
+``masked_delta_gru_scan`` is the stage-1 half of the two-stage wake
+cascade: a slot runs only its awake frames.  ``delta_gru_scan(...,
+event_driven=True)`` skips the slots that provably do nothing in a chunk
+(``kernels.compaction``).
 """
 from __future__ import annotations
 
@@ -121,13 +126,15 @@ def _auto_block(n: int, target: int = 128) -> int:
 
 def _delta_gru_scan_blocked(params: DeltaGRUParams, xs, threshold: float,
                             state: DeltaState, block_i: int | None,
-                            block_o: int | None
+                            block_o: int | None, awake=None
                             ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
     """The scan over the block-sparse ``delta_matvec`` kernel, two
     launches per frame, for a ΔGRU whose weights the sequence kernel
     cannot hold: each frame derives the block masks from the thresholded
     deltas on the device and skips the weight tiles (and the MACs) of
-    inactive blocks.  The state is carried as in every backend."""
+    inactive blocks.  The state is carried as in every backend.  With a
+    (T, B) bool ``awake``, each frame's new state and counts are kept
+    only on awake slots, as ``masked_delta_gru_scan`` keeps them."""
     T, B, I = xs.shape
     H = params.w_h.shape[0]
     # block_i describes the INPUT axis; it carries over to the hidden
@@ -146,10 +153,18 @@ def _delta_gru_scan_blocked(params: DeltaGRUParams, xs, threshold: float,
                            make_block_mask(dh, bi_h), block_i=bi_h,
                            block_o=bo)
         h = gru_gates(m_x, m_h, state.h, H)
-        state = DeltaState(h, x_hat, h_hat, m_x, m_h)
-        hs.append(h)
-        nz_dx.append(mx_mask.sum(-1, dtype=torch.int32))
-        nz_dh.append(mh_mask.sum(-1, dtype=torch.int32))
+        nx = mx_mask.sum(-1, dtype=torch.int32)
+        nh = mh_mask.sum(-1, dtype=torch.int32)
+        new = DeltaState(h, x_hat, h_hat, m_x, m_h)
+        if awake is not None:
+            a = awake[t][:, None]
+            new = DeltaState(*(torch.where(a, n, o)
+                               for n, o in zip(new, state)))
+            nx, nh = (torch.where(awake[t], n, 0) for n in (nx, nh))
+        state = new
+        hs.append(state.h)
+        nz_dx.append(nx)
+        nz_dh.append(nh)
     if T == 0:
         z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
         return xs.new_zeros((0, B, H)), state, _stats_from_counts(z, z, I, H)
@@ -161,7 +176,8 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
                    state: DeltaState | None = None, *,
                    backend: str = "xla", block_i: int | None = None,
                    block_o: int | None = None,
-                   smem_budget_bytes: int = MAX_SMEM_BYTES
+                   smem_budget_bytes: int = MAX_SMEM_BYTES,
+                   event_driven: bool = False
                    ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
     """Run a ΔGRU over ``xs`` of shape (T, B, I).
 
@@ -183,6 +199,13 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
       smem_budget_bytes: the shared memory the sequence kernel may use
         (the counterpart of the reference's ``vmem_budget_bytes``); 0
         forces the block-sparse path.
+      event_driven: active-slot compaction (``kernels.compaction``):
+        slots whose whole chunk lies inside the Δ dead zone of their
+        carried x̂ AND whose state a one-frame probe proves a bitwise
+        fixed point are skipped; the rest run gathered through
+        ``backend``.  Bit for bit the dense scan.  Host-level: it reads
+        the candidate set and the probe's verdict back (two host syncs
+        per call); the outputs stay on the device.
 
     Returns:
       (hs (T, B, H), final ``DeltaState``, ``DeltaStats`` stacked over T).
@@ -193,6 +216,22 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
     H = params.w_h.shape[0]
     if state is None:
         state = init_delta_state(B, I, H, params)
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown ΔGRU backend: {backend!r}")
+    if event_driven:
+        from repro_torch.kernels import compaction
+
+        def run(xs_c, st):
+            hs, fin, stats = delta_gru_scan(
+                params, xs_c, threshold, DeltaState(*st), backend=backend,
+                block_i=block_i, block_o=block_o,
+                smem_budget_bytes=smem_budget_bytes)
+            return hs, tuple(fin), stats.nz_dx, stats.nz_dh
+
+        held = compaction.held_slots(xs, state.x_hat, threshold)
+        hs, st, nz_dx, nz_dh, _ = compaction.event_driven_seq(
+            run, xs, tuple(state), held)
+        return hs, DeltaState(*st), _stats_from_counts(nz_dx, nz_dh, I, H)
     if backend == "pallas":
         if not seq_kernel_fits(I, H, smem_budget_bytes):
             return _delta_gru_scan_blocked(params, xs, threshold, state,
@@ -200,8 +239,6 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         hs, final, nz_dx, nz_dh = delta_gru_seq(
             xs.contiguous(), *state, params.w_x, params.w_h, threshold)
         return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)
-    if backend != "xla":
-        raise ValueError(f"unknown ΔGRU backend: {backend!r}")
     cell = DeltaGRUCell(hidden_dim=H, threshold=threshold)
     hs, per_step = [], []
     for t in range(T):
@@ -214,6 +251,37 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
                 _stats_from_counts(z, z, I, H))
     stats = DeltaStats(*(torch.stack(f) for f in zip(*per_step)))
     return torch.stack(hs), state, stats
+
+
+def masked_delta_gru_scan(params: DeltaGRUParams, xs, threshold: float,
+                          state: DeltaState, awake, *,
+                          block_i: int | None = None,
+                          block_o: int | None = None,
+                          smem_budget_bytes: int = MAX_SMEM_BYTES
+                          ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
+    """Wake-gated ΔGRU scan: the stage-1 half of the two-stage cascade.
+
+    ``awake`` is a (T, B) bool trace from the stage-0 wake machine; on
+    the frames where a slot sleeps its whole state (h, x̂, ĥ, M_x, M_h)
+    stays bit-frozen, hs repeats the frozen h and the transmit counts are
+    zero, so the stats count no executed MAC or weight read there while
+    ``macs_dense`` stays dense — the reference's contract.  On a CUDA
+    tensor one launch of the masked ``delta_gru_seq`` instantiation runs
+    the chunk (an asleep frame costs the store of h); on a CPU tensor its
+    plain version.  Where the sequence kernel cannot hold the weights
+    (``seq_kernel_fits``; ``smem_budget_bytes`` 0 forces it) the
+    block-sparse path runs with the same per-frame freeze.  Awake
+    everywhere it is ``delta_gru_scan(backend="pallas")`` bit for bit.
+    """
+    T, B, I = xs.shape
+    H = params.w_h.shape[0]
+    if not seq_kernel_fits(I, H, smem_budget_bytes):
+        return _delta_gru_scan_blocked(params, xs, threshold, state,
+                                       block_i, block_o, awake=awake)
+    hs, final, nz_dx, nz_dh = delta_gru_seq(
+        xs.contiguous(), *state, params.w_x, params.w_h, threshold,
+        awake=awake)
+    return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)
 
 
 def dense_gru_scan(params: DeltaGRUParams, xs, h0=None) -> torch.Tensor:

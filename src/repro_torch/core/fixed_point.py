@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.core.delta_gru import DeltaGRUParams, DeltaState
 from repro_torch.core.quantize import WEIGHT_Q
+from repro_torch.kernels import delta_gru_seq as dgs
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
 from repro_torch.kernels.xla_math import (INV_LN2, fma, xla_log, xla_sigmoid,
                                           xla_tanh)
@@ -320,25 +321,33 @@ def int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
     memory; weights above that are REFUSED (``NotImplementedError``), as
     the reference refuses weights above its VMEM budget — there is no
     blocked integer fallback.
+
+    ``event_driven`` enables active-slot compaction on the integer
+    datapath (``kernels.compaction``): slots whose whole chunk of codes
+    lies inside the integer Δ dead zone (|x − x̂| ≤ th_x) and whose
+    carried state a one-frame probe proves a bitwise fixed point are
+    skipped; the rest run gathered through ``backend``.  Bit for bit the
+    dense scan; host-level (two host syncs per call), outputs on the
+    device.
     """
-    from repro_torch.kernels import delta_gru_seq as dgs
-    if event_driven:
-        raise NotImplementedError(
-            "event_driven (active-slot compaction) is not ported to "
-            "repro_torch yet (ROADMAP.md queue 1 item 7)")
     T, B, I = xs_codes.shape
     H = w.w_h.shape[0]
     if state is None:
         state = init_int_delta_state(B, I, H, w)
     th = fmt.th_codes(threshold)
+    if event_driven:
+        from repro_torch.kernels import compaction
+
+        def run(xs_c, st):
+            return int_gru_scan(w, fmt, xs_c, threshold, DeltaState(*st),
+                                backend=backend, packed=packed)
+
+        held = compaction.held_slots(xs_codes, state.x_hat, th[0])
+        hs, st, nz_dx, nz_dh, _ = compaction.event_driven_seq(
+            run, xs_codes, tuple(state), held)
+        return hs, DeltaState(*st), nz_dx, nz_dh
     if backend == "pallas":
-        need = dgs.int_seq_kernel_smem_bytes(I, H)
-        if need > dgs.MAX_SMEM_BYTES:
-            raise NotImplementedError(
-                f"int8 ΔGRU I={I}, H={H} needs {need} B of shared memory; "
-                f"the delta_gru_seq_int kernel holds at most "
-                f"{dgs.MAX_SMEM_BYTES} B (227 KB on Hopper) and the blocked "
-                f"int fallback does not exist — use backend='xla'")
+        _check_int_kernel_budget(I, H)
         fn = functools.partial(dgs.delta_gru_seq_int, packed=packed)
     elif backend == "xla":
         fn = dgs.delta_gru_seq_int_ref
@@ -346,6 +355,38 @@ def int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
         raise ValueError(f"unknown int ΔGRU backend: {backend!r}")
     hs, final, nz_dx, nz_dh = fn(xs_codes, *state, w.w_x, w.w_h, th,
                                  fmt=fmt)
+    return hs, DeltaState(*final), nz_dx, nz_dh
+
+
+def _check_int_kernel_budget(I: int, H: int) -> None:
+    """Refuse an int8 ΔGRU whose weights the kernel cannot hold."""
+    need = dgs.int_seq_kernel_smem_bytes(I, H)
+    if need > dgs.MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"int8 ΔGRU I={I}, H={H} needs {need} B of shared memory; "
+            f"the delta_gru_seq_int kernel holds at most "
+            f"{dgs.MAX_SMEM_BYTES} B (227 KB on Hopper) and the blocked "
+            f"int fallback does not exist — use backend='xla'")
+
+
+def masked_int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
+                        threshold: float, state: DeltaState, awake):
+    """Wake-gated integer scan: the stage-1 half of the cascade on the
+    deployed datapath.  ``awake`` is a (T, B) bool trace from the stage-0
+    wake machine; on the frames where a slot sleeps its whole integer
+    state (h, x̂, ĥ, the fused M) stays bit-frozen, hs repeats the frozen
+    h codes and both transmit counts are zero.  One launch of the masked
+    ``delta_gru_seq_int`` instantiation on a CUDA tensor, its plain
+    version on a CPU tensor; weights above the kernel's shared memory are
+    refused, as ``int_gru_scan`` refuses them.  Awake everywhere it is
+    ``int_gru_scan`` bit for bit.  Returns ``(hs, final state, nz_dx,
+    nz_dh)``."""
+    T, B, I = xs_codes.shape
+    H = w.w_h.shape[0]
+    _check_int_kernel_budget(I, H)
+    hs, final, nz_dx, nz_dh = dgs.delta_gru_seq_int(
+        xs_codes, *state, w.w_x, w.w_h, fmt.th_codes(threshold), fmt=fmt,
+        awake=awake)
     return hs, DeltaState(*final), nz_dx, nz_dh
 
 

@@ -59,6 +59,16 @@
 // the frames gained); the counts summed by one thread instead of the
 // atomics.
 //
+// The masked instantiation (kMasked, the stage-1 half of the two-stage
+// wake cascade; no Pallas counterpart: it replaces the XLA-fused
+// src/repro/core/delta_gru.py::masked_delta_gru_scan :376) runs a frame
+// only where the stream's wake bit is set (wake_bits.cuh).  An asleep
+// frame stores the frozen h row into hs and leaves the prologue's zero
+// counts; the x prefetch still advances, so the next awake frame encodes
+// its own x against the x̂ that the asleep frames left frozen.  It skips
+// the encoders, the row sums, the gates and both barriers: its cost is
+// the h row's store.  Awake everywhere, it does the unmasked arithmetic.
+//
 // Numerics.  Compiled with --fmad=false (multiply then add, as PyTorch's
 // eager ops) and --ftz=true (XLA:CPU flushes denormals).  σ and tanh are
 // XLA's own float32 expansions (xla_math.cuh), and the gates fuse the two
@@ -68,6 +78,7 @@
 #include <stdint.h>
 
 #include "delta_gru_seq_frame.cuh"
+#include "wake_bits.cuh"
 
 namespace {
 
@@ -120,6 +131,7 @@ struct Args {
   float threshold;
   int T, B, I, H;
   int w_vec;   // 3H % 4 == 0 and both weight arrays 16-byte aligned
+  const uint8_t* awake;   // (T, B) wake trace; the masked instantiation's
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -156,6 +168,7 @@ __device__ __forceinline__ void stage_weights(float* dst, const float* src,
   }
 }
 
+template <bool kMasked>
 __global__ void delta_gru_seq_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;
@@ -195,6 +208,8 @@ __global__ void delta_gru_seq_kernel(Args a) {
     mx = a.mx0[static_cast<size_t>(b) * N + j];
     mh = a.mh0[static_cast<size_t>(b) * N + j];
   }
+  wake::Bits wb{0u, 0};
+  if (kMasked) wb = wake::first(a.awake, T, B, b, lane);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -202,6 +217,10 @@ __global__ void delta_gru_seq_kernel(Args a) {
     const size_t row = static_cast<size_t>(t) * B + b;
     const float xv = xnext;
     if (x_enc && t + 1 < T) xnext = a.xs[(row + B) * I + xj];
+    if (kMasked && !wake::is_awake(wb, a.awake, t, T, B, b, lane)) {
+      if (j < H) a.hs[row * H + j] = hcur;        // asleep: h frozen
+      continue;
+    }
     // 1. Δ encoders, each warp compacting its own transmitted components.
     if (xwarp >= 0) {
       float d = 0.0f;
@@ -275,8 +294,9 @@ extern "C" long long delta_gru_seq_smem_bytes(int I, int H) {
 
 // xs (T, B, I); h0, hh0, h_out, hh_out (B, H); xh0, xh_out (B, I);
 // mx0, mh0, mx_out, mh_out (B, 3H); wx (I, 3H); wh (H, 3H); hs (T, B, H);
-// nz_dx, nz_dh (T, B) int32.  All contiguous float32 (counts int32) on
-// the current device.  The launch follows the wrapper's plan
+// nz_dx, nz_dh (T, B) int32; awake null, or the (T, B) uint8 wake trace of
+// the masked instantiation.  All contiguous float32 (counts int32) on the
+// current device.  The launch follows the wrapper's plan
 // (kernels/delta_gru_seq.py::gru_launch_plan): one CTA per stream
 // (ctas == B) of `threads` threads, a warp multiple that covers 3H and I,
 // with smem_bytes of dynamic shared memory.  Launches on `stream` and
@@ -287,15 +307,17 @@ extern "C" int delta_gru_seq_launch(
     const float* mx0, const float* mh0, const float* wx, const float* wh,
     float threshold, float* hs, int* nz_dx, int* nz_dh, float* h_out,
     float* xh_out, float* hh_out, float* mx_out, float* mh_out, int T, int B,
-    int I, int H, int ctas, int threads, int smem_bytes, void* stream) {
+    int I, int H, int ctas, int threads, int smem_bytes,
+    const uint8_t* awake, void* stream) {
   if (ctas != B || threads % 32 != 0 || threads > 1024 ||
       threads < 3 * H || threads < I ||
       static_cast<size_t>(smem_bytes) < layout(I, H).total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  void (*kernel)(Args) = awake != nullptr ? delta_gru_seq_kernel<true>
+                                          : delta_gru_seq_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      delta_gru_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w_vec = (3 * H) % 4 == 0 &&
                             (reinterpret_cast<uintptr_t>(wx) & 15) == 0 &&
@@ -304,8 +326,7 @@ extern "C" int delta_gru_seq_launch(
                         : 0;
   const Args args{xs, h0, xh0, hh0, mx0, mh0, wx, wh, hs, nz_dx, nz_dh,
                   h_out, xh_out, hh_out, mx_out, mh_out, threshold, T, B, I,
-                  H, w_vec};
-  delta_gru_seq_kernel<<<B, threads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(args);
+                  H, w_vec, awake};
+  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,6 +61,16 @@
 // row sums unrolled by two and the x encoders in the first warps, after
 // the h encoders' turn: chip_variants.py, PERF.md).
 //
+// The masked instantiation (kMasked, the stage-1 half of the two-stage
+// wake cascade; no Pallas counterpart: it replaces the XLA-fused
+// src/repro/core/fixed_point.py::masked_int_gru_scan :476) runs a frame
+// only where the stream's wake bit is set (wake_bits.cuh).  An asleep
+// frame stores the frozen h codes into hs and leaves the prologue's zero
+// counts; the x staging still advances by blocks, so the next awake frame
+// encodes its own x codes against the frozen x̂.  It skips the encoders,
+// the row sums, the gates and both barriers.  Awake everywhere, it does
+// the unmasked arithmetic.
+//
 // Numerics.  Products |Δ|·|w| <= 2^16·2^7 = 2^23 are exact int32; the
 // column sums (up to K·2^23 for K terms), their combination across lanes,
 // the alignment left shift and the accumulator add are done in unsigned
@@ -77,6 +87,7 @@
 #include <stdint.h>
 
 #include "delta_gru_seq_int_frame.cuh"
+#include "wake_bits.cuh"
 
 namespace {
 
@@ -133,6 +144,7 @@ struct Args {
   int th_x, th_h, shift_x, shift_h, acc_bits, acc_frac, hid_frac;
   int T, B, I, H, x_frames;
   int w_vec;   // 3H % 16 == 0 and both weight arrays 16-byte aligned
+  const uint8_t* awake;   // (T, B) wake trace; the masked instantiation's
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -162,6 +174,7 @@ __device__ __forceinline__ void stage_weights(unsigned char* dst,
   }
 }
 
+template <bool kMasked>
 __global__ void delta_gru_seq_int_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;
@@ -227,6 +240,8 @@ __global__ void delta_gru_seq_int_kernel(Args a) {
     mx = a.mx0[static_cast<size_t>(b) * N + j];
     mh = a.mh0[static_cast<size_t>(b) * N + j];
   }
+  wake::Bits wb{0u, 0};
+  if (kMasked) wb = wake::first(a.awake, T, B, b, lane);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -234,6 +249,10 @@ __global__ void delta_gru_seq_int_kernel(Args a) {
   for (int t = 0; t < T; ++t, tf = tf + 1 == a.x_frames ? 0 : tf + 1) {
     const size_t row = static_cast<size_t>(t) * B + b;
     if (tf == 0 && t > 0 && xwarp >= 0 && xj < I) stage_x(t);
+    if (kMasked && !wake::is_awake(wb, a.awake, t, T, B, b, lane)) {
+      if (j < H) a.hs[row * H + j] = static_cast<int16_t>(hcur);  // frozen
+      continue;
+    }
     // 1. Δ encoders, each warp compacting its own transmitted components.
     if (xwarp >= 0) {
       int32_t d = 0;
@@ -305,7 +324,8 @@ extern "C" long long delta_gru_seq_int_smem_bytes(int I, int H) {
 
 // xs (T, B, I) int16; h0, hh0, h_out, hh_out (B, H) int16; xh0, xh_out
 // (B, I) int16; mx0, mh0, mx_out, mh_out (B, 3H) int32; wx (I, 3H) and wh
-// (H, 3H) int8; hs (T, B, H) int16; nz_dx, nz_dh (T, B) int32.  All
+// (H, 3H) int8; hs (T, B, H) int16; nz_dx, nz_dh (T, B) int32; awake null,
+// or the (T, B) uint8 wake trace of the masked instantiation.  All
 // contiguous on the current device.  Needs 2 <= acc_bits <= 31,
 // 1 <= hid_frac <= 15 and |shift_x|, |shift_h| <= 30.  The launch follows
 // the wrapper's plan (kernels/delta_gru_seq.py::gru_int_launch_plan): one
@@ -322,16 +342,18 @@ extern "C" int delta_gru_seq_int_launch(
     int32_t* nz_dx, int32_t* nz_dh, int16_t* h_out, int16_t* xh_out,
     int16_t* hh_out, int32_t* mx_out, int32_t* mh_out, int T, int B, int I,
     int H, int ctas, int threads, int smem_bytes, int x_frames,
-    void* stream) {
+    const uint8_t* awake, void* stream) {
   const Layout L = layout(I, H, x_frames > 0 ? x_frames : 1);
   if (ctas != B || threads % 32 != 0 || threads > 1024 ||
       threads < L.pitch || threads < I || x_frames < 1 ||
       static_cast<size_t>(smem_bytes) < L.total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  void (*kernel)(Args) = awake != nullptr
+                              ? delta_gru_seq_int_kernel<true>
+                              : delta_gru_seq_int_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      delta_gru_seq_int_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w_vec = (3 * H) % 16 == 0 &&
                             (reinterpret_cast<uintptr_t>(wx) & 15) == 0 &&
@@ -341,8 +363,7 @@ extern "C" int delta_gru_seq_int_launch(
   const Args args{xs, h0, xh0, hh0, mx0, mh0, wx, wh, hs, nz_dx, nz_dh,
                   h_out, xh_out, hh_out, mx_out, mh_out, th_x, th_h,
                   shift_x, shift_h, acc_bits, acc_frac, hid_frac, T, B, I,
-                  H, x_frames, w_vec};
-  delta_gru_seq_int_kernel<<<B, threads, smem_bytes,
-                             static_cast<cudaStream_t>(stream)>>>(args);
+                  H, x_frames, w_vec, awake};
+  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("iir_fex", "delta_gru_seq", "iir_fex_int", "delta_gru_seq_int",
-           "delta_matvec", "delta_gru_cell", "detect_head")
+           "delta_matvec", "delta_gru_cell", "detect_head", "wake_head")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "--ftz=true", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")

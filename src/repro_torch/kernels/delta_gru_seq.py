@@ -12,6 +12,14 @@ wrapper of ``csrc/delta_gru_seq_int.cu`` (the port of
 one ``core.fixed_point.gru_frame_step`` per frame on the fused
 ``[m_x | m_h]`` accumulator, as the reference's golden scan does.
 
+Both wrappers take ``awake=``, a (T, B) bool wake trace: the masked
+instantiation of each kernel (the stage-1 half of the two-stage wake
+cascade) freezes a slot's whole state on its asleep frames, emits the
+frozen h and counts no transmitted delta there, as the reference's
+``masked_delta_gru_scan`` / ``masked_int_gru_scan`` do.  Launches of the
+masked instantiations count in ``masked_launches``, those of the plain
+ones in ``launches``.
+
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 """
@@ -71,8 +79,9 @@ def gru_launch_plan(B: int, I: int, H: int) -> dict:
     """The float ΔGRU kernel's launch for B streams, input width I and
     hidden H: ``ctas`` (one per stream), ``threads`` (a warp multiple
     covering the 3H columns and the I x encoders) and dynamic
-    ``smem_bytes``.  Raises ``ValueError`` for a ΔGRU the kernel cannot
-    hold (``check_kernel_fits``)."""
+    ``smem_bytes``.  The masked instantiation launches alike: its wake
+    bits live in registers, not in shared memory.  Raises ``ValueError``
+    for a ΔGRU the kernel cannot hold (``check_kernel_fits``)."""
     check_kernel_fits(I, H)
     return {"ctas": B, "threads": -(-3 * H // 32) * 32,
             "smem_bytes": seq_kernel_smem_bytes(I, H)}
@@ -84,8 +93,9 @@ def gru_int_launch_plan(B: int, I: int, H: int, T: int) -> dict:
     multiple covering the 3H columns, four per column group, and the I
     x encoders), ``x_frames`` (frames of x codes staged at a time: up to
     INT_X_FRAMES, fewer where shared memory is short) and dynamic
-    ``smem_bytes``.  Raises ``ValueError`` for a ΔGRU the kernel cannot
-    hold (``check_int_kernel_fits``)."""
+    ``smem_bytes``; the masked instantiation launches alike.  Raises
+    ``ValueError`` for a ΔGRU the kernel cannot hold
+    (``check_int_kernel_fits``)."""
     check_int_kernel_fits(I, H)
     x_frames = max(1, min(INT_X_FRAMES, T))
     while (x_frames > 1 and int_seq_kernel_smem_bytes(I, H, x_frames)
@@ -145,11 +155,32 @@ def _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h):
                              f"{got[name].device}, xs on {xs.device}")
 
 
+def _check_awake(awake, xs):
+    """``awake`` must be a (T, B) bool tensor beside ``xs``."""
+    if awake is None:
+        return
+    if not isinstance(awake, torch.Tensor) or awake.dtype != torch.bool:
+        raise TypeError("awake must be a bool tensor")
+    if tuple(awake.shape) != tuple(xs.shape[:2]):
+        raise ValueError(f"awake has shape {tuple(awake.shape)}, expected "
+                         f"(T, B) = {tuple(xs.shape[:2])}")
+    if awake.device != xs.device:
+        raise ValueError(f"awake is on {awake.device}, xs on {xs.device}")
+
+
+def _freeze(awake_t, new, old):
+    """Per slot: the new row where awake, the old one where asleep."""
+    return torch.where(awake_t[:, None], new, old)
+
+
 def delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
-                      threshold):
+                      threshold, awake=None):
     """Plain PyTorch version of ``delta_gru_seq`` (same arguments and
-    returns), one frame at a time."""
+    returns), one frame at a time; with ``awake``, each frame's new state
+    is kept only on awake slots (``torch.where``), as the reference's
+    masked scan keeps it."""
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    _check_awake(awake, xs)
     T, B, _ = xs.shape
     H = h0.shape[1]
     h, x_hat, h_hat, m_x, m_h = (a.float() for a in
@@ -157,14 +188,22 @@ def delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
     w_x, w_h = w_x.float(), w_h.float()
     hs, nz_dx, nz_dh = [], [], []
     for t in range(T):
+        old = (h, x_hat, h_hat, m_x, m_h)
         dx, x_hat, mx_mask = delta_branch(xs[t].float(), x_hat, threshold)
         dh, h_hat, mh_mask = delta_branch(h, h_hat, threshold)
         m_x = m_x + dx @ w_x
         m_h = m_h + dh @ w_h
         h = gru_gates(m_x, m_h, h, H)
+        nx = mx_mask.sum(-1, dtype=torch.int32)
+        nh = mh_mask.sum(-1, dtype=torch.int32)
+        if awake is not None:
+            h, x_hat, h_hat, m_x, m_h = (
+                _freeze(awake[t], n, o)
+                for n, o in zip((h, x_hat, h_hat, m_x, m_h), old))
+            nx, nh = (torch.where(awake[t], n, 0) for n in (nx, nh))
         hs.append(h)
-        nz_dx.append(mx_mask.sum(-1, dtype=torch.int32))
-        nz_dh.append(mh_mask.sum(-1, dtype=torch.int32))
+        nz_dx.append(nx)
+        nz_dh.append(nh)
     if T == 0:
         z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
         return (torch.zeros((0, B, H), device=xs.device),
@@ -178,12 +217,13 @@ def _launcher():
     fn = lib.delta_gru_seq_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 8 + [i] * 7 + [p]
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 8 + [i] * 7 + [p] * 2
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
+def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
+                  awake=None):
     """Run a ΔGRU over a whole chunk of frames in ONE kernel launch.
 
     Args:
@@ -191,6 +231,9 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
       h0, x_hat0, h_hat0, m_x0, m_h0: initial delta state (see
         ``core.delta_gru.DeltaState``; m_x0 carries the bias).
       w_x: (I, 3H); w_h: (H, 3H); threshold: Δ_TH (a Python float).
+      awake: None, or a (T, B) bool wake trace: the masked instantiation
+        runs only the awake frames of each slot (an asleep frame stores
+        the frozen h and zero counts and leaves the state as it was).
 
     Returns ``(hs, (h, x_hat, h_hat, m_x, m_h), nz_dx, nz_dh)`` with
     hs (T, B, H) and nz_* (T, B) int32 per-frame transmit counts.  CPU
@@ -198,9 +241,10 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
     ``csrc/delta_gru_seq.cu`` (contiguous float32 only).
     """
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    _check_awake(awake, xs)
     if xs.device.type == "cpu":
         return delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
-                                 w_h, threshold)
+                                 w_h, threshold, awake)
     if xs.device.type != "cuda":
         raise ValueError(f"delta_gru_seq runs on cuda or cpu, not "
                          f"{xs.device}")
@@ -215,6 +259,9 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
     T, B, I = xs.shape
     H = h0.shape[1]
     plan = gru_launch_plan(B, I, H)
+    # Held until the launch is enqueued: a freed copy's block could be
+    # handed to an output below.
+    awake_c = None if awake is None else awake.contiguous()
     dev = xs.device
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     nz_dx = torch.empty((T, B), dtype=torch.int32, device=dev)
@@ -230,13 +277,18 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold):
         err = fn(*(a.data_ptr() for a in args), float(threshold),
                  hs.data_ptr(), nz_dx.data_ptr(), nz_dh.data_ptr(),
                  *(a.data_ptr() for a in final), T, B, I, H, plan["ctas"],
-                 plan["threads"], plan["smem_bytes"], stream)
+                 plan["threads"], plan["smem_bytes"],
+                 None if awake_c is None else awake_c.data_ptr(), stream)
     build.check(lib, err, "delta_gru_seq kernel launch")
-    delta_gru_seq.launches += 1
+    if awake is None:
+        delta_gru_seq.launches += 1
+    else:
+        delta_gru_seq.masked_launches += 1
     return hs, final, nz_dx, nz_dh
 
 
 delta_gru_seq.launches = 0
+delta_gru_seq.masked_launches = 0
 
 
 # --------------------------------------------------------------- int variant
@@ -251,12 +303,15 @@ def _th_pair(th) -> tuple:
 
 
 def delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th,
-                          *, fmt):
+                          *, fmt, awake=None):
     """Plain PyTorch version of ``delta_gru_seq_int`` with an integer
     ``fmt`` (same arguments and returns): one ``gru_frame_step`` per frame
-    on the fused ``[m_x | m_h]`` block, int16 codes carried."""
+    on the fused ``[m_x | m_h]`` block, int16 codes carried; with
+    ``awake``, each frame's new state is kept only on awake slots, as the
+    reference's ``masked_int_gru_scan`` keeps it."""
     from repro_torch.core.fixed_point import gru_frame_step
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
+    _check_awake(awake, xs)
     T, B, _ = xs.shape
     H = h0.shape[1]
     th_x, th_h = _th_pair(th)
@@ -264,12 +319,19 @@ def delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th,
     m = torch.cat([m_x0, m_h0], dim=-1).to(torch.int32)
     hs, nz_dx, nz_dh = [], [], []
     for t in range(T):
+        old = (h, xh, hh, m)
         h, xh, hh, m, mask_x, mask_h = gru_frame_step(
             fmt, xs[t], h, xh, hh, m, w_x, w_h, th_x, th_h)
         h, xh, hh = (a.to(torch.int16) for a in (h, xh, hh))
+        nx = mask_x.sum(-1, dtype=torch.int32)
+        nh = mask_h.sum(-1, dtype=torch.int32)
+        if awake is not None:
+            h, xh, hh, m = (_freeze(awake[t], n, o)
+                            for n, o in zip((h, xh, hh, m), old))
+            nx, nh = (torch.where(awake[t], n, 0) for n in (nx, nh))
         hs.append(h)
-        nz_dx.append(mask_x.sum(-1, dtype=torch.int32))
-        nz_dh.append(mask_h.sum(-1, dtype=torch.int32))
+        nz_dx.append(nx)
+        nz_dh.append(nh)
     final = (h, xh, hh, m[:, :3 * H], m[:, 3 * H:])
     if T == 0:
         z = torch.zeros((0, B), dtype=torch.int32, device=xs.device)
@@ -313,13 +375,13 @@ def _int_launcher():
     fn = lib.delta_gru_seq_int_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 8 + [p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 8 + [p] * 2
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
-                      fmt=None, packed: bool | None = None):
+                      fmt=None, packed: bool | None = None, awake=None):
     """Run the integer ΔGRU over a whole chunk of frames in ONE launch.
 
     With ``fmt`` a ``core.fixed_point.GruFormats``: xs (T, B, I), h0,
@@ -328,7 +390,8 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
     [th_x, th_h] (a pair or a (1, 2) tensor).  Returns ``(hs (T, B, H)
     int16, (h, x̂, ĥ, m_x, m_h), nz_dx, nz_dh)``.  CPU tensors run the
     plain version; CUDA tensors launch ``csrc/delta_gru_seq_int.cu``
-    (contiguous, exact dtypes only).
+    (contiguous, exact dtypes only).  ``awake`` (None, or a (T, B) bool
+    wake trace) selects the masked instantiation, as in ``delta_gru_seq``.
 
     ``fmt=None`` is the identity-quant mode: float operands through the
     float ΔGRU (``delta_gru_seq``), which the reference defines as bit-
@@ -357,10 +420,12 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
             raise ValueError(f"delta_gru_seq_int: the identity-quant mode "
                              f"takes one Δ_TH, got {th_x} and {th_h}")
         return delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
-                             float(th_x))
+                             float(th_x), awake)
+    _check_awake(awake, xs)
     if xs.device.type == "cpu":
         return delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0,
-                                     w_x, w_h, (th_x, th_h), fmt=fmt)
+                                     w_x, w_h, (th_x, th_h), fmt=fmt,
+                                     awake=awake)
     if xs.device.type != "cuda":
         raise ValueError(f"delta_gru_seq_int runs on cuda or cpu, not "
                          f"{xs.device}")
@@ -375,6 +440,9 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
             raise ValueError(f"delta_gru_seq_int: {name} must be contiguous")
     plan = gru_int_launch_plan(B, I, H, T)
     _check_int_formats(fmt)
+    # Held until the launch is enqueued: a freed copy's block could be
+    # handed to an output below.
+    awake_c = None if awake is None else awake.contiguous()
     dev = xs.device
     hs = torch.empty((T, B, H), dtype=torch.int16, device=dev)
     nz_dx = torch.empty((T, B), dtype=torch.int32, device=dev)
@@ -392,10 +460,15 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
                  fmt.hid_frac, hs.data_ptr(), nz_dx.data_ptr(),
                  nz_dh.data_ptr(), *(a.data_ptr() for a in final), T, B, I,
                  H, plan["ctas"], plan["threads"], plan["smem_bytes"],
-                 plan["x_frames"], stream)
+                 plan["x_frames"],
+                 None if awake_c is None else awake_c.data_ptr(), stream)
     build.check(lib, err, "delta_gru_seq_int kernel launch")
-    delta_gru_seq_int.launches += 1
+    if awake is None:
+        delta_gru_seq_int.launches += 1
+    else:
+        delta_gru_seq_int.masked_launches += 1
     return hs, final, nz_dx, nz_dh
 
 
 delta_gru_seq_int.launches = 0
+delta_gru_seq_int.masked_launches = 0

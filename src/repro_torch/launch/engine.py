@@ -139,9 +139,10 @@ def run_continuous_detect(sess, streams_audio, *, chunk: int,
     """The always-on detection loop (kws-detect), depth 1.
 
     Per step, every slot's next ``chunk`` samples of its stream go
-    through ``sess.process_audio`` (a detect-mode session), the step's
-    events are fetched and every slot's fires are appended in frame
-    order.  ``injector`` (fault injection) arrives with the fault
+    through ``sess.process_audio`` (a detect-mode session, or a cascade
+    session: its ``DetectResult`` carries events masked to the awake
+    frames already, so it is served unchanged), the step's events are
+    fetched and every slot's fires are appended in frame order.  ``injector`` (fault injection) arrives with the fault
     handling of a later slice and must be ``None``; ``depth >= 2`` raises
     as ``run_audio_requests`` does.
 

@@ -13,6 +13,16 @@ continuous synthesized stream (``--stream-seconds`` long, keywords at
 detection head kernel, and the fires are scored against the streams'
 ground-truth events: hits, misses, false alarms per hour, VAD duty.
 
+``--mode kws-cascade``: the same always-on detection through the
+two-stage wake cascade.  An always-on stage-0 micro-ΔGRU (16 units over
+the leading ``--s0-channels`` FEx channels, a binary head, Δ_TH
+``--s0-threshold``) scores every frame; the wake machine
+(``--wake-threshold`` / ``--sleep-threshold`` / ``--hangover-frames``)
+keeps stage 1 awake around candidate events, and stage 1 runs only on
+awake frames.  The report adds the stage-1 duty and the per-stage energy
+split.  Stage 0 is the seeded random init (seed 7, as the reference
+seeds it); the reference quick-trains it, which waits for training.
+
 Weights come from ``--params`` (a checkpoint's ``arrays.npz``, as the
 JAX package writes it) or, without it, from the seeded
 ``models.kws.init_kws``.  Runs on ``--device`` (default ``cuda``; raises
@@ -25,9 +35,9 @@ creation, or ``--bundle X.npz`` serves a promoted bundle as
 ``train.promote.save_bundle`` writes it (one the JAX package wrote loads
 unchanged) and implies ``--numerics int8``.
 
-Training (the reference's ``--train-steps``), ``--devices``, the
-admission controller, faults, the cascade and the pipelined engine are
-later slices of the port.
+Training (the reference's ``--train-steps``, for either stage),
+``--devices``, the admission controller, faults and the pipelined engine
+are later slices of the port.
 """
 from __future__ import annotations
 
@@ -42,11 +52,14 @@ import torch
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--mode", choices=["kws-audio", "kws-detect"],
+    ap.add_argument("--mode", choices=["kws-audio", "kws-detect",
+                                       "kws-cascade"],
                     default="kws-audio",
                     help="kws-audio: utterances by majority vote; "
                          "kws-detect: always-on detection on continuous "
-                         "streams.  Weights are never trained here "
+                         "streams; kws-cascade: the same through the "
+                         "two-stage wake cascade.  Weights are never "
+                         "trained here, stage 0's neither "
                          "(--train-steps is not offered: training is "
                          "ROADMAP.md queue 1 item 10); they come from "
                          "--params, --bundle or the seeded random init")
@@ -99,6 +112,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-seed", type=int, default=100,
                     help="stream-synthesis seed (one stream per slot), "
                          "separate from the weights' --seed")
+    # kws-cascade options
+    ap.add_argument("--wake-threshold", type=float, default=0.5,
+                    help="stage-0 posterior that wakes stage 1")
+    ap.add_argument("--sleep-threshold", type=float, default=0.25,
+                    help="stage-0 posterior below which an awake stage 1 "
+                         "starts its hangover countdown (hysteresis)")
+    ap.add_argument("--hangover-frames", type=int, default=15,
+                    help="frames stage 1 stays awake after stage 0 drops "
+                         "below the sleep threshold")
+    ap.add_argument("--s0-channels", type=int, default=4,
+                    help="leading FEx channels fed to the stage-0 micro "
+                         "model (its whole input width)")
+    ap.add_argument("--s0-threshold", type=float, default=0.05,
+                    help="stage-0 delta threshold.  Stage 0 serves its "
+                         "seeded random init: the reference's quick "
+                         "training (--train-steps) waits for ROADMAP.md "
+                         "queue 1 item 10")
     return ap
 
 
@@ -113,7 +143,7 @@ def validate_args(args):
     if not math.isfinite(args.threshold) or args.threshold < 0:
         raise ValueError(f"--threshold must be finite and >= 0, "
                          f"got {args.threshold}")
-    if args.mode == "kws-detect":
+    if args.mode in ("kws-detect", "kws-cascade"):
         if args.fire_threshold <= args.release_threshold:
             raise ValueError(
                 f"--fire-threshold ({args.fire_threshold}) must exceed "
@@ -129,6 +159,21 @@ def validate_args(args):
             raise ValueError(f"--snr-db must be finite, got {args.snr_db}")
         if args.tol_s < 0:
             raise ValueError(f"--tol-s must be >= 0, got {args.tol_s}")
+    if args.mode == "kws-cascade":
+        if args.sleep_threshold > args.wake_threshold:
+            raise ValueError(
+                f"--sleep-threshold ({args.sleep_threshold}) must not "
+                f"exceed --wake-threshold ({args.wake_threshold}): an "
+                f"inverted wake hysteresis band never sleeps")
+        if args.hangover_frames < 0:
+            raise ValueError(f"--hangover-frames must be >= 0, "
+                             f"got {args.hangover_frames}")
+        if args.s0_channels < 1:
+            raise ValueError(f"--s0-channels must be >= 1, "
+                             f"got {args.s0_channels}")
+        if not math.isfinite(args.s0_threshold) or args.s0_threshold < 0:
+            raise ValueError(f"--s0-threshold must be finite and >= 0, "
+                             f"got {args.s0_threshold}")
 
 
 def _load_model(args):
@@ -187,9 +232,25 @@ def serve_kws_audio(args):
     return sess, done, label_q, stats, time.perf_counter() - t0
 
 
+def stage0_params(args):
+    """The stage-0 micro model of kws-cascade: ``init_kws`` at 16 units
+    with a binary head over ``--s0-channels`` inputs, from a generator
+    seeded 7 (the reference's stage-0 seed), on the CPU (the session moves
+    it)."""
+    import dataclasses
+
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.models import kws
+    cfg0 = dataclasses.replace(CONFIG, vocab_size=2, d_model=16)
+    return kws.init_kws(torch.Generator().manual_seed(7), cfg0,
+                        input_dim=args.s0_channels)
+
+
 def serve_kws_detect(args):
-    """Build the model, the detect-mode session and one continuous stream
-    per slot, run the always-on loop over the streams and score the fires.
+    """Build the model, the detect-mode session (with ``--mode
+    kws-cascade``, the cascade session and its stage-0 model) and one
+    continuous stream per slot, run the always-on loop over the streams
+    and score the fires.
 
     Returns ``(sess, point, stats, seconds, n_samples)``: the session (for
     its ``summary()``), the pooled ``DetPoint``, the loop's stats, the wall
@@ -200,7 +261,8 @@ def serve_kws_detect(args):
     from repro_torch.data.gscd import FS
     from repro_torch.frontend.vad import VAD_OFF, VADConfig
     from repro_torch.launch.engine import run_continuous_detect
-    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.launch.streaming import (CascadeConfig,
+                                              StreamingKwsSession)
     from repro_torch.models.detector import (DetectorConfig, det_point,
                                              pool_points)
 
@@ -209,6 +271,14 @@ def serve_kws_detect(args):
         print("WARNING: serving a promoted bundle through the detection "
               "head — unless it was QAT-trained with frame-level labels, "
               "expect a poor (miscalibrated) operating point")
+    cascade = params0 = None
+    if args.mode == "kws-cascade":
+        cascade = CascadeConfig(wake_threshold=args.wake_threshold,
+                                sleep_threshold=args.sleep_threshold,
+                                hangover_frames=args.hangover_frames,
+                                s0_threshold=args.s0_threshold,
+                                s0_channels=args.s0_channels)
+        params0 = stage0_params(args)
     shift = fex.cfg.frame_shift
     streams = make_streams(args.stream_seed, args.slots,
                            duration_s=args.stream_seconds,
@@ -223,7 +293,8 @@ def serve_kws_detect(args):
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
                                numerics=args.numerics, bundle=bundle,
-                               detector=det, vad=vad)
+                               detector=det, vad=vad, cascade=cascade,
+                               stage0_params=params0)
     chunk = args.chunk_samples - args.chunk_samples % shift or shift
     t0 = time.perf_counter()
     fires, frame_base, stats = run_continuous_detect(
@@ -274,6 +345,45 @@ def _detect_main(args) -> int:
     return 0
 
 
+def _cascade_main(args) -> int:
+    """The reference's cascade report: the detect metrics, the stage-1
+    duty and the per-stage energy split."""
+    from repro_torch.data.gscd import FS
+    sess, point, stats, dt, n_samples = serve_kws_detect(args)
+    summ = sess.summary()
+    slo = stats["slo"]
+    steady_s = max(slo["steady_state_s"], 1e-9)
+    audio_s = args.slots * n_samples / FS
+    print(f"cascade: {args.slots} stream(s) x {n_samples / FS:.0f} s "
+          f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
+          f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
+          f"[{sess.numerics}, depth 1] — {audio_s / dt:.1f}x realtime")
+    print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
+          f"{slo['decisions'] / steady_s:.0f} decisions/s, step latency "
+          f"p50 {slo['step_ms']['p50']:.2f} / p99 "
+          f"{slo['step_ms']['p99']:.2f} ms ({stats['steps']} steps)")
+    print(f"operating point Δ_TH={sess.threshold} "
+          f"wake={args.wake_threshold} sleep={args.sleep_threshold} "
+          f"hang={args.hangover_frames} "
+          f"fire={args.fire_threshold} release={args.release_threshold}: "
+          f"{point.n_events} events, {point.hits} hits, "
+          f"{point.misses} misses (miss rate {point.miss_rate:.2f}), "
+          f"{point.false_alarms} false alarms "
+          f"({point.fa_per_hour:.1f} FA/hr)")
+    print(f"stage-1 duty {summ.stage1_duty:.3f} "
+          f"({summ.frames_entered_stage1}/{summ.frames} frames awake), "
+          f"vad duty {summ.vad_duty:.3f}, "
+          f"stream sparsity {summ.sparsity:.3f}")
+    print(f"{summ.energy_nj_per_decision:.1f} nJ/decision "
+          f"(stage-0 {summ.s0_energy_nj_per_decision:.2f} nJ, "
+          f"FEx {summ.fex_energy_nj_per_decision:.1f} nJ, "
+          f"VAD {summ.vad_energy_nj_per_decision:.2f} nJ), "
+          f"modeled latency {summ.latency_ms:.2f} ms, "
+          f"{len(sess.unhealthy_slots())} unhealthy slots"
+          + (", counters overflowed" if summ.overflowed else ""))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -283,6 +393,8 @@ def main(argv=None) -> int:
         ap.error(str(e))
     if args.mode == "kws-detect":
         return _detect_main(args)
+    if args.mode == "kws-cascade":
+        return _cascade_main(args)
     sess, done, labels, stats, dt = serve_kws_audio(args)
     name = _device_name(sess.device)
     correct = sum(1 for req, pred in done if pred == int(labels[req]))

@@ -1,7 +1,7 @@
 """Streaming KWS sessions — raw audio in, decisions or keyword events out.
 
-PyTorch port of the unsharded part of ``repro/launch/streaming.py``
-without the cascade, in both numerics.  The session keeps FEx
+PyTorch port of the unsharded part of ``repro/launch/streaming.py``, in
+both numerics.  The session keeps FEx
 state, ΔGRU state and op-count telemetry on the device between chunks;
 the host hands over a chunk of raw audio and gets device tensors back.
 One float32 chunk is one call of ``_process_audio_chunk``: 12-bit
@@ -27,6 +27,17 @@ features through the VAD (``frontend/vad.py``, in closed form: the same
 detection head kernel (``detect_head``: softmax → EMA → hysteresis latch
 over the chunk, one launch), which returns per-frame keyword events.
 
+With ``cascade=`` and ``stage0_params=`` the detector is a TWO-STAGE WAKE
+CASCADE (``_process_audio_chunk_cascade[_int]``): an always-on stage-0
+micro-ΔGRU (``delta_gru_seq`` on the leading ``s0_channels`` features)
+scores every frame, the wake head kernel (``wake_head``: stage 0's
+posterior and the wake machine over the chunk, one launch; its plain
+version is ``cascade_wake_scan``, in closed form) turns the scores into a
+per-frame wake trace, and stage 1 runs only on its awake
+frames (the masked ``delta_gru_seq`` instantiation: an asleep slot's
+state stays bit-frozen and costs a store of h); the head still sees
+every frame, and events on asleep frames are masked out.
+
 Chunk boundaries are invisible: samples past the last whole 16 ms frame
 are carried host-side and prepended to the next chunk.  Without
 ``device=`` the session runs on the GPU and raises when there is none.
@@ -42,8 +53,8 @@ import torch
 
 from repro_torch.core import delta_gru as dg
 from repro_torch.core import fixed_point as fp
-from repro_torch.core.energy_model import (fex_energy_nj, frame_cost,
-                                           vad_energy_nj)
+from repro_torch.core.energy_model import (cascade_frame_cost, fex_energy_nj,
+                                           frame_cost, vad_energy_nj)
 from repro_torch.core.quantize import quantize_audio_12b
 from repro_torch.frontend.fex import (FeatureExtractor, FExConfig, FExState,
                                       _pack_state, _unpack_state, fex_scan,
@@ -53,6 +64,7 @@ from repro_torch.frontend.vad import (VADConfig, VADState, frame_energy,
                                       vad_state_flags)
 from repro_torch.kernels.detect_head import detect_head
 from repro_torch.kernels.platform import resolve_device
+from repro_torch.kernels.wake_head import wake_head
 from repro_torch.models import kws
 from repro_torch.models.detector import (NO_EVENT, DetectorConfig,
                                          DetectorState, band_inverted,
@@ -77,12 +89,140 @@ class DetectResult(NamedTuple):
     nz: torch.Tensor       # (frames, batch) transmitted deltas per frame
     events: torch.Tensor   # (frames, batch) int32 fired class id, -1 = none
     gate: torch.Tensor     # (frames, batch) bool VAD gate (True = open)
+    awake: Any = None      # (frames, batch) bool stage-1 wake trace
+                           #   (cascade sessions only; None otherwise)
 
 
 class StreamInputError(ValueError):
     """Typed rejection at the ``process_audio`` boundary: non-finite
     samples, un-decodable dtypes, or out-of-range integer codes.  Raised
     before anything reaches the device."""
+
+
+# ------------------------------------------------- two-stage wake cascade --
+class CascadeConfig(NamedTuple):
+    """Policy of the stage-0 → stage-1 wake cascade (field names, order and
+    defaults are the reference's).
+
+    wake_threshold: stage-0 event posterior at or above which an asleep
+      slot wakes stage 1 (this frame already runs awake).
+    sleep_threshold: posterior at or above which an awake slot stays
+      awake with its hangover refreshed; must be <= wake_threshold.
+    hangover_frames: frames stage 1 stays powered after the score drops
+      below sleep_threshold.
+    s0_threshold: stage 0's own Δ_TH.
+    s0_channels: leading FEx channels stage 0 reads (its input width).
+    """
+
+    wake_threshold: float = 0.5
+    sleep_threshold: float = 0.25
+    hangover_frames: int = 15
+    s0_threshold: float = 0.0
+    s0_channels: int = 4
+
+
+class CascadeState(NamedTuple):
+    """Per-slot cascade state on the device: the wake latch, the hangover
+    countdown, and stage 0's own delta state (float or integer codes)."""
+
+    awake: torch.Tensor     # (B,) bool — stage 1 powered
+    hang: torch.Tensor      # (B,) int32 hangover countdown
+    s0: dg.DeltaState       # stage-0 carried delta state
+
+
+def init_cascade_state(batch: int, s0_gru, *, int8: bool) -> CascadeState:
+    """Fresh cascade state on the stage-0 weights' device: every slot
+    asleep, stage-0 state zeroed with M seeded at its bias."""
+    I = s0_gru.w_x.shape[0]
+    H = s0_gru.w_h.shape[0]
+    s0 = (fp.init_int_delta_state(batch, I, H, s0_gru) if int8
+          else dg.init_delta_state(batch, I, H, s0_gru))
+    dev = s0.h.device
+    return CascadeState(awake=torch.zeros((batch,), dtype=torch.bool,
+                                          device=dev),
+                        hang=torch.zeros((batch,), dtype=torch.int32,
+                                         device=dev), s0=s0)
+
+
+_NEVER = -(1 << 30)            # a frame index before every other
+
+
+def cascade_wake_scan(cfg: CascadeConfig, awake, hang, score):
+    """The wake/sleep machine over one chunk of stage-0 scores, in closed
+    form: a fixed number of tensor ops whatever the frame count.
+
+    score: (F, B) stage-0 event posteriors.  Per frame, as the reference's
+    loop (``cascade_wake_scan_loop``): a score at or above
+    ``wake_threshold`` wakes the slot; an awake slot whose score stays at
+    or above ``sleep_threshold`` holds, its hangover refreshed to
+    ``hangover_frames``; otherwise it stays awake while the hangover of
+    the frame before is positive.
+
+    Why the closed form holds (for the states the machine reaches, i.e.
+    hang == 0 when asleep and hang <= hangover_frames; W >= S, which the
+    session enforces, so every wake frame scores >= S).  Call a frame
+    that scores >= S a keep frame and a frame that refreshes a refresh.
+    Awake at t ⟺ t − (last refresh ≤ t) ≤ HF.  The carried (awake, hang)
+    acts as a refresh-and-wake at the virtual frame hang − 1 − HF.  A
+    keep frame refreshes iff it wakes or the frame before is awake.  Cut
+    the keep frames into chains wherever two follow each other more than
+    HF + 1 frames apart: inside a chain every keep frame from the chain's
+    first wake on refreshes (the one before it was a refresh at most
+    HF + 1 frames back), and none before it does (the last chain's
+    refreshes lie more than HF + 1 frames back).  So with p_t the last
+    keep frame ≤ t, c_t the start of its chain and w_t the last wake
+    frame ≤ t (the virtual frame counting as all three):
+
+        awake_t = (t − p_t ≤ HF) AND (w_t ≥ c_t)
+
+    and the carried hang' is max(HF − (F − 1 − r), 0) for the last frame
+    r that keeps and is awake (a refresh), else max(hang − F, 0).
+
+    Returns ``(awake_trace (F, B) bool, awake' (B,), hang' (B,) int32)``.
+    """
+    F = score.shape[0]
+    if F == 0:
+        return (torch.zeros((0,) + tuple(awake.shape), dtype=torch.bool,
+                            device=awake.device), awake, hang)
+    HF = int(cfg.hangover_frames)
+    t = torch.arange(F, dtype=torch.int32, device=score.device)[:, None]
+    keep = score >= cfg.sleep_threshold               # NaN: neither
+    wake = score >= cfg.wake_threshold
+    virtual = torch.where(awake, hang.to(torch.int32) - (1 + HF), _NEVER)
+
+    def last(mask):                # the last frame <= t in mask, or virtual
+        return torch.maximum(
+            torch.cummax(torch.where(mask, t, _NEVER), dim=0).values,
+            virtual)
+
+    p = last(keep)
+    before = torch.cat([virtual[None], p[:-1]])      # the keep frame before
+    start = keep & (t - before > HF + 1)
+    trace = (t - p <= HF) & (last(wake) >= last(start))
+    r = torch.where(keep & trace, t, _NEVER).amax(dim=0)
+    hang = torch.where(r > _NEVER, (r + (HF + 1 - F)).clamp(min=0),
+                       (hang.to(torch.int32) - F).clamp(min=0))
+    return trace, trace[-1], hang.to(torch.int32)
+
+
+def cascade_wake_scan_loop(cfg: CascadeConfig, awake, hang, score):
+    """The reference's frame-by-frame wake machine (``repro/launch/
+    streaming.py::cascade_wake_scan``'s ``lax.scan``), ~6 launches a
+    frame; ``cascade_wake_scan`` must equal it bit for bit.  Same
+    arguments and returns."""
+    trace = []
+    hang = hang.to(torch.int32)
+    for s in score:
+        wake = s >= cfg.wake_threshold
+        hold = awake & (s >= cfg.sleep_threshold)
+        awake = wake | hold | (awake & (hang > 0))
+        hang = torch.where(wake | hold, cfg.hangover_frames,
+                           (hang - 1).clamp(min=0)).to(torch.int32)
+        trace.append(awake)
+    if not trace:
+        return (torch.zeros((0,) + tuple(awake.shape), dtype=torch.bool,
+                            device=awake.device), awake, hang)
+    return torch.stack(trace), awake, hang
 
 
 # --------------------------------------------------------- health bitmask --
@@ -181,6 +321,9 @@ class _Accum(NamedTuple):
     fex_samples: torch.Tensor  # raw audio samples through the FEx
     vad_open: torch.Tensor     # frame-slots the VAD gate was open
                                #   (== frames when no VAD is gating)
+    s0_macs: torch.Tensor      # stage-0 ΔGRU MACs executed (cascade)
+    awake: torch.Tensor        # frame-slots stage 1 ran (cascade;
+                               #   == frames without a cascade)
 
 
 def _zero_accum(device) -> _Accum:
@@ -204,6 +347,9 @@ class StreamSummary:
     fex_energy_nj_per_decision: float = 0.0
     vad_duty: float = 1.0                  # gate-open fraction of frames
     vad_energy_nj_per_decision: float = 0.0
+    stage1_duty: float = 1.0               # stage-1 awake fraction (cascade)
+    s0_energy_nj_per_decision: float = 0.0  # always-on stage-0 cost
+    frames_entered_stage1: int = 0         # frame-slots stage 1 executed
     overflowed: bool = False               # any telemetry counter saturated
     # Serve-loop timing attached by ``launch.engine.run_audio_requests``.
     slo: dict = dataclasses.field(default_factory=dict)
@@ -217,10 +363,13 @@ def _classify(w_fc, b_fc, hs, stats):
 
 
 def _bump(acc: _Accum, stats, n_frames: int, n_samples: int,
-          vad_open=None) -> _Accum:
+          vad_open=None, awake=None, s0_macs=0) -> _Accum:
     """Accumulate one chunk's telemetry (int64 sums, no host sync).
     ``vad_open`` is the device count of gate-open frame-slots (detect
-    mode); ungated paths count every frame as open (duty 1.0)."""
+    mode); ungated paths count every frame as open (duty 1.0).
+    ``awake`` / ``s0_macs`` are the cascade's stage-1 frame-slots and
+    stage-0 MACs; without a cascade every frame counts as awake (duty
+    1.0) and stage 0 as idle."""
     return _Accum(
         macs=_count_add(acc.macs, stats.macs.sum(dtype=torch.int64)),
         macs_dense=_count_add(acc.macs_dense,
@@ -229,6 +378,8 @@ def _bump(acc: _Accum, stats, n_frames: int, n_samples: int,
         fex_samples=_count_add(acc.fex_samples, n_samples),
         vad_open=_count_add(acc.vad_open,
                             n_frames if vad_open is None else vad_open),
+        s0_macs=_count_add(acc.s0_macs, s0_macs),
+        awake=_count_add(acc.awake, n_frames if awake is None else awake),
     )
 
 
@@ -334,18 +485,25 @@ def _process_audio_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
 
 
 def _detect_tail(w_fc, b_fc, hs, stats, gate, *, logit_frac=None,
-                 det_cfg: DetectorConfig, det_state: DetectorState):
+                 det_cfg: DetectorConfig, det_state: DetectorState,
+                 awake=None):
     """Shared back half of the detect steps: FC → the detection head
     kernel (softmax → EMA → hysteresis events, one launch).
     ``logit_frac`` set = integer FC on hidden codes (the head consumes the
-    dequantized, grid-exact logits)."""
+    dequantized, grid-exact logits).  ``awake`` (cascade sessions) masks
+    events on asleep frames to -1 after the head, which still runs on
+    every frame: a frozen stage 1 keeps emitting its held logits, and no
+    keyword may fire while stage 0 says nothing is happening."""
     if logit_frac is None:
         cls = _classify(w_fc, b_fc, hs, stats)
     else:
         cls = _classify_int(w_fc, b_fc, hs, stats, logit_frac)
     det_state, events = detect_head(cls.logits, det_state, det_cfg)
+    if awake is not None:
+        events = torch.where(awake, events, NO_EVENT)
     return det_state, DetectResult(logits=cls.logits, votes=cls.votes,
-                                   nz=cls.nz, events=events, gate=gate)
+                                   nz=cls.nz, events=events, gate=gate,
+                                   awake=awake)
 
 
 def _process_audio_chunk_detect(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
@@ -418,6 +576,113 @@ def _process_audio_chunk_detect_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
     return fex_state, state, vad_state, det_state, acc, out, health
 
 
+def _process_audio_chunk_cascade(gru: dg.DeltaGRUParams, w_fc, b_fc,
+                                 gru0: dg.DeltaGRUParams, w_fc0, b_fc0,
+                                 coef, fex_state: FExState,
+                                 state: dg.DeltaState,
+                                 cas_state: CascadeState,
+                                 vad_state: VADState,
+                                 det_state: DetectorState, acc: _Accum,
+                                 audio, *, threshold: float,
+                                 frame_shift: int, env_alpha: float,
+                                 log_eps: float, vad_cfg: VADConfig,
+                                 det_cfg: DetectorConfig,
+                                 cas_cfg: CascadeConfig):
+    """Two-stage cascade step: audio → FEx kernel → VAD gate → stage-0
+    micro-ΔGRU (``delta_gru_seq`` on the leading channels) → FC → the
+    wake head kernel (stage 0's posterior → wake machine) → stage-1 ΔGRU
+    on the awake frames only (the masked ``delta_gru_seq``)
+    → FC → detection head kernel, events masked on asleep frames.
+    Returns (fex_state', state', cas_state', vad_state', det_state',
+    acc', DetectResult, health), all on the device."""
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    energy = frame_energy(audio, frame_shift)        # (F, B)
+    feats, fex_state = fex_scan(
+        audio, coef, fex_state, frame_shift=frame_shift,
+        env_alpha=env_alpha, log_eps=log_eps, compress=True,
+        backend="pallas")
+    xs = feats.movedim(1, 0)                         # (F, B, C)
+    xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
+    # Stage 0: always on, the leading channels, its own Δ_TH.
+    xs0 = xs[..., :cas_cfg.s0_channels].contiguous()
+    hs0, s0_state, stats0 = dg.delta_gru_scan(
+        gru0, xs0, cas_cfg.s0_threshold, cas_state.s0, backend="pallas")
+    awake_t, awake, hang = wake_head(hs0 @ w_fc0 + b_fc0, cas_state.awake,
+                                     cas_state.hang, cas_cfg)
+    hs, state, stats = dg.masked_delta_gru_scan(gru, xs.contiguous(),
+                                                threshold, state, awake_t)
+    det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
+                                  det_cfg=det_cfg, det_state=det_state,
+                                  awake=awake_t)
+    decisions = xs.shape[0] * xs.shape[1]
+    acc = _bump(acc, stats, decisions, decisions * frame_shift,
+                vad_open=gate.sum(dtype=torch.int64),
+                awake=awake_t.sum(dtype=torch.int64),
+                s0_macs=stats0.macs.sum(dtype=torch.int64))
+    health = slot_health(in_bad, fex_state, state, vad_state, det_state)
+    health |= slot_health(torch.zeros_like(in_bad), None, s0_state)
+    return (fex_state, state, CascadeState(awake, hang, s0_state),
+            vad_state, det_state, acc, out, health)
+
+
+def _process_audio_chunk_cascade_int(gru: fp.IntGruWeights, w_fc, b_fc,
+                                     gru0: fp.IntGruWeights, w_fc0, b_fc0,
+                                     coef, fex_state: FExState,
+                                     state: dg.DeltaState,
+                                     cas_state: CascadeState,
+                                     vad_state: VADState,
+                                     det_state: DetectorState, acc: _Accum,
+                                     audio, *, threshold: float,
+                                     frame_shift: int, gfmt: fp.GruFormats,
+                                     ffmt: fp.FexFormats,
+                                     gfmt0: fp.GruFormats,
+                                     vad_cfg: VADConfig,
+                                     det_cfg: DetectorConfig,
+                                     cas_cfg: CascadeConfig):
+    """Integer mirror of ``_process_audio_chunk_cascade``: both stages on
+    the deployed code-domain datapath (stage 0 through its own promoted
+    formats ``gfmt0``), the wake head on stage 0's dequantized
+    (grid-exact) logits, and asleep slots' integer stage-1
+    state frozen bit for bit (the masked ``delta_gru_seq_int``)."""
+    in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
+    audio = quantize_audio_12b(audio.float())
+    energy = frame_energy(audio, frame_shift)        # float, pre-codes
+    audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
+    feats, fex_buf = fp.int_fex_scan(
+        audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
+        frame_shift=frame_shift, backend="pallas")
+    xs = feats.movedim(1, 0)                         # (F, B, C) codes
+    xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
+    xs0 = xs[..., :cas_cfg.s0_channels].contiguous()
+    hs0, s0_state, nzx0, nzh0 = fp.int_gru_scan(
+        gru0, gfmt0, xs0, cas_cfg.s0_threshold, cas_state.s0,
+        backend="pallas")
+    logits0 = fp.from_code(fp.int_fc(hs0, w_fc0, b_fc0), gfmt0.logit_frac)
+    awake_t, awake, hang = wake_head(logits0, cas_state.awake,
+                                     cas_state.hang, cas_cfg)
+    hs, state, nz_dx, nz_dh = fp.masked_int_gru_scan(
+        gru, gfmt, xs.contiguous(), threshold, state, awake_t)
+    stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
+                                  gru.w_h.shape[0])
+    stats0 = dg._stats_from_counts(nzx0, nzh0, xs0.shape[-1],
+                                   gru0.w_h.shape[0])
+    det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
+                                  logit_frac=gfmt.logit_frac,
+                                  det_cfg=det_cfg, det_state=det_state,
+                                  awake=awake_t)
+    decisions = xs.shape[0] * xs.shape[1]
+    acc = _bump(acc, stats, decisions, decisions * frame_shift,
+                vad_open=gate.sum(dtype=torch.int64),
+                awake=awake_t.sum(dtype=torch.int64),
+                s0_macs=stats0.macs.sum(dtype=torch.int64))
+    fex_state = _unpack_state(fex_buf)
+    health = slot_health(in_bad, fex_state, state, vad_state, det_state)
+    health |= slot_health(torch.zeros_like(in_bad), None, s0_state)
+    return (fex_state, state, CascadeState(awake, hang, s0_state),
+            vad_state, det_state, acc, out, health)
+
+
 def _reset_gru_slots(state: dg.DeltaState, bias, mask) -> dg.DeltaState:
     """Fresh-stream ΔGRU state for every slot where ``mask`` is True: one
     mask-select per field resets a whole admission wave.  Dtype-
@@ -464,6 +729,15 @@ def _reset_det_slots(state: DetectorState, mask) -> DetectorState:
                             state.refract))
 
 
+def _reset_cascade_slots(state: CascadeState, bias0, mask) -> CascadeState:
+    """Fresh cascade state for masked slots: asleep, no hangover, stage-0
+    state zeroed with its M seeded at the stage-0 bias."""
+    return CascadeState(
+        awake=torch.where(mask, False, state.awake),
+        hang=torch.where(mask, torch.zeros_like(state.hang), state.hang),
+        s0=_reset_gru_slots(state.s0, bias0, mask))
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
@@ -505,9 +779,19 @@ class StreamingKwsSession:
         the ΔGRU's delta path during silence (detect mode only; default
         ``VADConfig()``; ``vad=VAD_OFF`` disables gating and keeps the
         head).
-      mesh, cascade, supervisor: parts of the reference session that
-        later slices of the port add; setting any of them raises
-        ``NotImplementedError``.
+      cascade: a ``CascadeConfig`` turning the detector into the two-stage
+        wake cascade: an always-on stage-0 micro-ΔGRU on the leading
+        ``cascade.s0_channels`` features scores every frame, and stage 1
+        runs only on the frames the wake machine keeps awake (asleep
+        slots keep their whole stage-1 state bit-frozen and execute no
+        stage-1 MAC).  Needs ``detector`` and ``stage0_params``.  Per-stage
+        energy is priced by ``core.energy_model.cascade_frame_cost`` in
+        ``summary()``.
+      stage0_params: the stage-0 model's parameter dict (``init_kws`` with
+        ``vocab_size=2`` and the reduced width and input); under
+        ``numerics="int8"`` it gets its own promotion at session creation.
+      mesh, supervisor: parts of the reference session that later slices
+        of the port add; setting either raises ``NotImplementedError``.
       input_policy: what ``process_audio`` does with hostile samples —
         "reject" (default) raises ``StreamInputError`` on non-finite
         samples, "sanitize" squashes NaN to silence and clamps ±Inf to
@@ -521,7 +805,8 @@ class StreamingKwsSession:
                  device=None, mesh=None, numerics: str = "float32",
                  bundle: fp.IntKwsBundle | None = None,
                  detector: DetectorConfig | None = None,
-                 vad: VADConfig | None = None, cascade=None,
+                 vad: VADConfig | None = None,
+                 cascade: CascadeConfig | None = None, stage0_params=None,
                  supervisor=None, input_policy: str = "reject"):
         if mesh is not None:
             raise _not_ported("slot sharding over a device mesh", "9")
@@ -538,7 +823,25 @@ class StreamingKwsSession:
                 f"band degrades the head into a refractory-paced pulse "
                 f"generator")
         if cascade is not None:
-            raise _not_ported("the two-stage wake cascade", "7")
+            if detector is None:
+                raise ValueError("the wake cascade gates the always-on "
+                                 "pipeline: pass a DetectorConfig "
+                                 "alongside the CascadeConfig")
+            if stage0_params is None:
+                raise ValueError("cascade mode needs the stage-0 micro "
+                                 "model: pass stage0_params")
+            if cascade.sleep_threshold > cascade.wake_threshold:
+                raise ValueError(
+                    f"inverted wake hysteresis: sleep_threshold "
+                    f"({cascade.sleep_threshold}) must be <= "
+                    f"wake_threshold ({cascade.wake_threshold})")
+            if cascade.hangover_frames < 0:
+                raise ValueError("hangover_frames must be >= 0")
+            s0_in = int(stage0_params["w_x"].shape[0])
+            if s0_in != cascade.s0_channels:
+                raise ValueError(
+                    f"stage-0 model consumes {s0_in} channels but "
+                    f"cascade.s0_channels={cascade.s0_channels}")
         if supervisor is not None:
             raise _not_ported("the self-healing supervisor", "8")
         if input_policy not in ("reject", "sanitize", "trust"):
@@ -570,6 +873,24 @@ class StreamingKwsSession:
                       for k, v in params.items()}
             self._gru, self._w_fc, self._b_fc = kws.serving_weights(params)
         self.n_classes = int(self._b_fc.shape[-1])
+        self._cascade = cascade
+        self._bundle0 = None
+        if cascade is not None:
+            if numerics == "int8":
+                # Stage 0 gets its own promotion: its own formats from its
+                # own weights' range (gfmt0 differs from gfmt).
+                self._bundle0 = fp.promote_kws(stage0_params,
+                                               cascade.s0_threshold)
+                on_dev = fp.bundle_to(self._bundle0, self.device)
+                self._gru0, self._w_fc0, self._b_fc0 = (
+                    on_dev.gru, on_dev.w_fc, on_dev.b_fc)
+            else:
+                self._gru0, self._w_fc0, self._b_fc0 = kws.serving_weights(
+                    {k: v.to(self.device, torch.float32)
+                     for k, v in stage0_params.items()})
+            self._s0_hidden = int(self._gru0.w_h.shape[0])
+            self._s0_classes = int(self._b_fc0.shape[-1])
+        self._cas_state: CascadeState | None = None
         self._state: dg.DeltaState | None = None
         self._coef = None
         self._fex_state: FExState | None = None
@@ -620,7 +941,13 @@ class StreamingKwsSession:
                 self._vad_state = self._fresh_vad_state(fcfg.n_active)
                 self._det_state = init_detector_state(
                     self.batch, self.n_classes, self.device)
+            if self._cascade is not None:
+                self._cas_state = self._fresh_cascade_state()
         return self._fex
+
+    def _fresh_cascade_state(self) -> CascadeState:
+        return init_cascade_state(self.batch, self._gru0,
+                                  int8=self.numerics == "int8")
 
     def _fresh_vad_state(self, n_channels: int) -> VADState:
         # The VAD holds what the ΔGRU eats: float features, or int16
@@ -692,10 +1019,11 @@ class StreamingKwsSession:
             logits = torch.zeros((0, self.batch, self.n_classes),
                                  device=self.device)
             if self._detector is not None:
+                none = torch.zeros((0, self.batch), dtype=torch.bool,
+                                   device=self.device)
                 return DetectResult(
-                    logits=logits, votes=z, nz=z, events=z,
-                    gate=torch.zeros((0, self.batch), dtype=torch.bool,
-                                     device=self.device))
+                    logits=logits, votes=z, nz=z, events=z, gate=none,
+                    awake=none if self._cascade is not None else None)
             return ChunkResult(logits=logits, votes=z, nz=z)
         block = torch.from_numpy(
             np.ascontiguousarray(audio[:, :n_frames * shift])).to(self.device)
@@ -705,7 +1033,20 @@ class StreamingKwsSession:
         else:
             kw = dict(env_alpha=fcfg.env_alpha, log_eps=fcfg.log_eps)
         weights = (self._gru, self._w_fc, self._b_fc, self._coef)
-        if self._detector is not None:
+        if self._cascade is not None:
+            step = _process_audio_chunk_cascade
+            if self.numerics == "int8":
+                step = _process_audio_chunk_cascade_int
+                kw["gfmt0"] = self._bundle0.gfmt
+            (self._fex_state, self._state, self._cas_state, self._vad_state,
+             self._det_state, self._acc, out, self._last_health) = step(
+                self._gru, self._w_fc, self._b_fc, self._gru0, self._w_fc0,
+                self._b_fc0, self._coef, self._fex_state, self._state,
+                self._cas_state, self._vad_state, self._det_state, self._acc,
+                block, threshold=self.threshold, frame_shift=shift,
+                vad_cfg=self._vad, det_cfg=self._detector,
+                cas_cfg=self._cascade, **kw)
+        elif self._detector is not None:
             step = (_process_audio_chunk_detect_int
                     if self.numerics == "int8"
                     else _process_audio_chunk_detect)
@@ -773,6 +1114,10 @@ class StreamingKwsSession:
     def det_state(self) -> DetectorState | None:
         return self._det_state
 
+    @property
+    def cas_state(self) -> CascadeState | None:
+        return self._cas_state
+
     def reset(self):
         """Forget stream state + telemetry (keeps weights)."""
         if self._input_dim is not None:
@@ -785,6 +1130,8 @@ class StreamingKwsSession:
         if self._det_state is not None:
             self._det_state = init_detector_state(self.batch, self.n_classes,
                                                   self.device)
+        if self._cas_state is not None:
+            self._cas_state = self._fresh_cascade_state()
         self._acc = _zero_accum(self.device)
         self._chunks = 0
         self._last_health = None
@@ -820,6 +1167,9 @@ class StreamingKwsSession:
             self._vad_state = _reset_vad_slots(self._vad_state, mask)
         if self._det_state is not None:
             self._det_state = _reset_det_slots(self._det_state, mask)
+        if self._cas_state is not None:
+            self._cas_state = _reset_cascade_slots(self._cas_state,
+                                                   self._gru0.b, mask)
         if self._audio_rem is not None and self._audio_rem.shape[1]:
             self._audio_rem[slots] = 0.0
 
@@ -854,18 +1204,34 @@ class StreamingKwsSession:
         vad_nj = (vad_energy_nj(float(totals["fex_samples"])) / frames
                   if self._vad is not None
                   and self._vad.energy_threshold >= 0 else 0.0)
+        energy_nj, latency_ms = c.energy_nj_per_decision, c.latency_ms
+        cascade_kw: dict = {}
+        if self._cascade is not None:
+            # Two-stage pricing: stage 0 always on, stage 1's FC and SRAM
+            # words weighted by the awake fraction; ``macs`` counts only
+            # the awake stage-1 frames already.
+            duty = totals["awake"] / frames
+            cc = cascade_frame_cost(
+                totals["s0_macs"] / frames, totals["macs"] / frames, duty,
+                s0_hidden=self._s0_hidden, s0_classes=self._s0_classes,
+                s1_hidden=int(self._gru.w_h.shape[0]),
+                s1_classes=self.n_classes, n_channels=n_ch)
+            energy_nj, latency_ms = cc.energy_nj_per_decision, cc.latency_ms
+            cascade_kw = dict(stage1_duty=duty,
+                              s0_energy_nj_per_decision=cc.s0_energy_nj,
+                              frames_entered_stage1=totals["awake"])
         return StreamSummary(
             frames=frames, chunks=self._chunks,
             sparsity=1.0 - totals["macs"] / max(totals["macs_dense"], 1),
-            energy_nj_per_decision=c.energy_nj_per_decision + vad_nj,
-            latency_ms=c.latency_ms,
+            energy_nj_per_decision=energy_nj + vad_nj,
+            latency_ms=latency_ms,
             dense_energy_nj=frame_cost(totals["macs_dense"] / frames,
                                        n_channels=n_ch).energy_nj_per_decision,
             fex_samples=totals["fex_samples"],
             fex_energy_nj_per_decision=fex_energy_nj(
                 float(totals["fex_samples"]), n_ch) / frames,
             vad_duty=totals["vad_open"] / frames,
-            vad_energy_nj_per_decision=vad_nj,
+            vad_energy_nj_per_decision=vad_nj, **cascade_kw,
             overflowed=overflow, slo=dict(self._slo))
 
 

@@ -344,8 +344,12 @@ def test_packed_checks_and_refusals(model, feats):
                             torch.zeros(3 * 600, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="shared memory"):
         tfp.int_gru_scan(big, tb.gfmt, xs, TH, backend="pallas")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, event_driven=True)
+    # event_driven (active-slot compaction) is ported: the same codes.
+    ev = tfp.int_gru_scan(tb.gru, tb.gfmt, xs, TH, backend="pallas",
+                          event_driven=True)
+    for a, b in zip((ev[0], *ev[1], ev[2], ev[3]),
+                    (off[0], *off[1], off[2], off[3])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_packed_int8_dot_exact_at_extremes():

@@ -37,6 +37,35 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.split()[-1]) >= 30      # the whole package
 
 
+_IMPORT_CASCADE = """
+import sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+from repro_torch.kernels import compaction, wake_head
+from repro_torch.launch import streaming
+from repro_torch.core import delta_gru, fixed_point
+for name in ("CascadeConfig", "CascadeState", "init_cascade_state",
+             "cascade_wake_scan", "cascade_wake_scan_loop",
+             "_process_audio_chunk_cascade",
+             "_process_audio_chunk_cascade_int"):
+    assert hasattr(streaming, name), name
+assert delta_gru.masked_delta_gru_scan and fixed_point.masked_int_gru_scan
+assert compaction.event_driven_seq and compaction.held_slots
+assert wake_head.wake_head and wake_head.wake_head_ref
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_cascade_modules_import_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CASCADE],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -70,6 +99,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="is_available"):
         serve.serve_kws_detect(args)
+    args = serve.build_parser().parse_args(["--mode", "kws-cascade"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.serve_kws_detect(args)
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():
@@ -90,6 +123,14 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
                                torch.rand(I, 3 * H), torch.rand(H, 3 * H),
                                0.1)
     assert hs.shape == (3, B, H) and np.isfinite(hs.numpy()).all()
+    dgs.delta_gru_seq.masked_launches = 0
+    dgs.delta_gru_seq_int.masked_launches = 0
+    awake = torch.tensor([[True, False]] * 3)
+    hs, *_ = dgs.delta_gru_seq(torch.rand(3, B, I), z(B, H), z(B, I),
+                               z(B, H), z(B, 3 * H), z(B, 3 * H),
+                               torch.rand(I, 3 * H), torch.rand(H, 3 * H),
+                               0.1, awake=awake)
+    assert hs.shape == (3, B, H) and not hs[:, 1].any()
     from repro_torch.core import fixed_point as fp
     iir_fex.batched_iir_fex_int.launches = 0
     dgs.delta_gru_seq_int.launches = 0
@@ -106,6 +147,10 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
         torch.randint(-2048, 2048, (3, B, I), dtype=torch.int16), *st,
         w.w_x, w.w_h, (0, 0), fmt=fp.GruFormats())
     assert hs.shape == (3, B, H) and hs.dtype == torch.int16
+    hs, *_ = dgs.delta_gru_seq_int(
+        torch.randint(-2048, 2048, (3, B, I), dtype=torch.int16), *st,
+        w.w_x, w.w_h, (0, 0), fmt=fp.GruFormats(), awake=awake)
+    assert hs.shape == (3, B, H) and not hs[:, 1].any()
     from repro_torch.kernels import ops
     ops.delta_matvec.launches = ops.delta_gru_cell.launches = 0
     out, mask = ops.delta_matvec_auto(torch.rand(B, 8), torch.rand(8, 6),
@@ -121,7 +166,17 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     st, ev = ops.detect_head(torch.rand(3, B, 12), det.init_detector_state(
         B, 12), det.DetectorConfig(fire_threshold=0.05))
     assert ev.shape == (3, B) and st.smooth.shape == (B, 12)
+    from repro_torch.launch.streaming import CascadeConfig
+    ops.wake_head.launches = 0
+    tr, aw, hg = ops.wake_head(torch.rand(3, B, 2),
+                               torch.zeros(B, dtype=torch.bool),
+                               torch.zeros(B, dtype=torch.int32),
+                               CascadeConfig())
+    assert tr.shape == (3, B) and aw.shape == hg.shape == (B,)
     for wrapper in (iir_fex.batched_iir_fex, dgs.delta_gru_seq,
                     iir_fex.batched_iir_fex_int, dgs.delta_gru_seq_int,
-                    ops.delta_matvec, ops.delta_gru_cell, ops.detect_head):
+                    ops.delta_matvec, ops.delta_gru_cell, ops.detect_head,
+                    ops.wake_head):
         assert wrapper.launches == 0
+    assert dgs.delta_gru_seq.masked_launches == 0
+    assert dgs.delta_gru_seq_int.masked_launches == 0
