@@ -46,7 +46,11 @@ Phases, each exiting non-zero on failure:
      Δ_TH 0, 0.1, 0.2, -1 and above every |Δ|, x̂/ĥ equal, h and M
      within 1e-5.  The block-sparse ΔGRU path at full width (forced,
      two carried chunks) against delta_gru_seq: hs and final state bit
-     for bit, transmit counts equal;
+     for bit, transmit counts equal.  NaN as the reference treats it: the
+     float ΔGRU kernel on features with NaN rows against its plain
+     version (NaN positions and bits equal, no NaN transmitted), and
+     ``fp.to_code`` of NaN, -NaN and ±Inf audio on CUDA against the CPU
+     (every code equal, NaN → 0);
   3. time each kernel on the device (20 calls captured in a CUDA graph,
      replayed between CUDA events, median) and per call with its
      wrapper's host time (CUDA events around each call, the method of
@@ -113,7 +117,28 @@ Phases, each exiting non-zero on failure:
      (``--profile``: device busy share and device activities per step);
      then ``event_driven=True`` on a detect step's VAD-held ΔGRU input
      in each numerics, bit for bit the dense scan (int8 must skip slots);
-  8. the ``kernels`` JSON line (the eight kernels and the two masked
+  8. fault handling, overload and the pipelined engine: a CUDA session
+     against the CPU session under ``adversarial_plan(7)`` (4 slots × 24
+     steps of 512 samples, supervisor on, input policy trust) in both
+     numerics, every vote, health mask, recovery and reason equal;
+     ``set_threshold`` mid-stream (0.1 → 0.4 → 0.1) against the CPU in a
+     plain and a cascade session, the cascade's wake trace equal to that
+     of a session never switched; ``set_sync_debug_mode("error")`` around
+     ``process_audio`` and ``reset_streams`` of unsupervised plain,
+     detect and cascade sessions (no synchronisation); the reference's
+     soak at full width (256 slots × 4096 samples, 2 chunks per
+     utterance, adversarial_plan(7), 4 + 60 + 24 steps, bursty arrival
+     waves, ladder 0.1 / 0.4, queue 512) in both numerics at depth 1 and
+     2, every gate of ``BENCH_soak.json`` true and depth 2 equal to depth
+     1 in every vote, controller level and recovery; ``serve --faults``
+     in-process (kws-audio, kws-detect, kws-cascade × both numerics ×
+     depth 1 and 2), counts zeroed before each run: decisions or fires
+     equal between the depths, one launch of each path kernel per piece
+     with a whole frame; the always-on plain step through the engine at
+     depth 1 and 2, without and with the supervisor, five alternating
+     rounds after an untimed one (``--profile``: device busy share),
+     times not gated;
+  9. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations), the card line, and the final ``{"ok": true, ...}``
      line.
 
@@ -1610,15 +1635,10 @@ def check_int8_against_cpu(torch, np, params):
 def always_on(torch, np, params, card, profile: bool,
               numerics: str = "float32"):
     from repro_torch.configs.deltakws import CONFIG
-    from repro_torch.data.gscd import synth_batch
     from repro_torch.launch.engine import warm_session
     from repro_torch.launch.streaming import StreamingKwsSession
     B, n = ALWAYS_ON_SLOTS, ALWAYS_ON_CHUNKS
-    pool, _ = synth_batch(np.random.default_rng(3), 64)
-    rng = np.random.default_rng(4)
-    per_stream = -(-n * CHUNK // pool.shape[1])
-    streams = pool[rng.integers(0, len(pool), (B, per_stream))].reshape(B, -1)
-    streams = np.ascontiguousarray(streams[:, :n * CHUNK])
+    streams = always_on_streams(np)
     sess = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=B,
                                numerics=numerics)
     warm_session(sess, CHUNK)
@@ -2728,6 +2748,675 @@ def event_driven_on_card(torch, np, params, numerics: str):
     return c
 
 
+# ------------------------------ fault handling, overload and the engine --
+FAULT_SLOTS, FAULT_CHUNK, FAULT_STEPS = 4, 512, 24
+SOAK_CHUNKS_PER_UTT = 2
+SOAK_STEPS = (4, 60, 24)                  # warm-up, faulty, cooldown
+SOAK_LADDER, SOAK_QUEUE, SOAK_SEED = (0.1, 0.4), 512, 7
+SERVE_FAULTS = ("nan_burst:0.05,dup_chunk:0.05,one_sample_chunk:0.05,"
+                "churn_storm:0.05")
+# A replay seed under which every armed kind fires within the kws-audio
+# run's five steps (at these rates most seeds fire one kind or none).
+SERVE_FAULT_SEED = 704
+SERVE_FAULT_SECONDS = 10.0                # kws-detect / kws-cascade streams
+TH_SCHEDULE = (0.1, 0.4, 0.1)             # set_threshold, chunk by chunk
+TH_SPANS = ((0, 4000), (4000, 8000), (8000, 12000))
+
+
+class Failures:
+    """Collects a phase's failed checks, so one run reports them all;
+    ``raise_any`` fails the run at the phase's end."""
+
+    def __init__(self, phase):
+        self.phase, self.msgs = phase, []
+
+    def check(self, ok, msg):
+        if not ok:
+            print(f"[FAIL] {msg}")
+            self.msgs.append(msg)
+
+    def raise_any(self):
+        if self.msgs:
+            fail(f"{self.phase}: {len(self.msgs)} checks failed: "
+                 + "; ".join(self.msgs))
+
+
+def compare_nan_semantics(torch, np, gru_res, bundle):
+    """NaN on the card as the reference treats it.  The float ΔGRU kernel
+    on features with NaN rows (whole rows, part of the first frame's row,
+    one channel of the last frame) against its plain version: NaN
+    positions equal and their bits too, everything else within HS_ATOL
+    (the state relative to 1 + |x|), transmit counts equal, and no NaN
+    transmitted (x̂, h and M stay finite).  ``fp.to_code`` of NaN, -NaN
+    and ±Inf audio after the 12-bit quantizer, as the int8 step computes
+    it, on CUDA against the CPU: every code equal (XLA and the CPU give
+    0 for NaN)."""
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.core.quantize import quantize_audio_12b
+    from repro_torch.kernels import delta_gru_seq as dgs
+    gru = gru_res["gru"]
+    xs = gru_res["xs"].clone()                          # (T, B, I)
+    T, B, I = xs.shape
+    H = gru.w_h.shape[0]
+    nan = float("nan")
+    xs[3:7, 1] = nan
+    xs[0, 2, :3] = nan
+    xs[T - 1, 5, 4] = nan
+    st0 = dg.init_delta_state(B, I, H, gru)
+    hk, sk, nxk, nhk = dgs.delta_gru_seq(xs, *st0, gru.w_x, gru.w_h, 0.1)
+    hp, sp, nxp, nhp = dgs.delta_gru_seq_ref(xs, *st0, gru.w_x, gru.w_h, 0.1)
+    torch.cuda.synchronize()
+    nan_m = nan_bits = 0
+    err = 0.0
+    for a, b, rel in ((hk, hp, False), *((x, y, True)
+                                         for x, y in zip(sk, sp))):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        nan_m += int((na != nb).sum())
+        both = na & nb
+        nan_bits += bits_differ(torch, a[both], b[both])
+        fin = ~(na | nb)
+        d = (a[fin] - b[fin]).abs()
+        if rel:
+            d = d / (1.0 + b[fin].abs())
+        err = max(err, d.max().item() if d.numel() else 0.0)
+    nz_m = int((nxk != nxp).sum() + (nhk != nhp).sum())
+    finite = all(bool(torch.isfinite(t).all()) for t in (*sk, hk))
+    print(f"[compare] delta_gru_seq on NaN feature rows (T={T} B={B}): NaN "
+          f"position mismatches {nan_m}, NaN bits differing {nan_bits}, max "
+          f"diff elsewhere {err:.3g}, nz mismatches {nz_m}, hs and state "
+          f"finite {finite}")
+    if nan_m or nan_bits or err > HS_ATOL or nz_m or not finite:
+        fail("the float ΔGRU kernel handles NaN features unlike its plain "
+             "version or transmits a NaN")
+    vals = [nan, -nan, float("inf"), float("-inf"), 0.5, -1.5, 2.0,
+            1.0 - 2.0 ** -12, -0.0, 1e-30]
+    audio = torch.tensor(vals, dtype=torch.float32).repeat(3, 40)
+    codes = {}
+    for dev in ("cuda", "cpu"):
+        q = quantize_audio_12b(audio.to(dev).float())
+        codes[dev] = fp.to_code(q, bundle.ffmt.feat_frac, 16,
+                                torch.int16).cpu()
+    mism = int((codes["cuda"] != codes["cpu"]).sum())
+    print(f"[compare] fp.to_code of NaN / -NaN / ±Inf audio: CUDA codes "
+          f"{codes['cuda'][0, :len(vals)].tolist()}, CPU "
+          f"{codes['cpu'][0, :len(vals)].tolist()}, mismatches {mism}")
+    if mism or codes["cuda"][0, 0] != 0 or codes["cuda"][0, 1] != 0:
+        fail("fp.to_code of NaN audio on CUDA differs from the CPU's 0")
+
+
+def fault_audio(np, slots, n_samples, seed):
+    from repro_torch.data.continuous import make_streams
+    streams = make_streams(seed, slots, duration_s=n_samples / 8000 + 0.1,
+                           snr_db=20.0, events_per_min=60.0)
+    return np.stack([s.audio[:n_samples] for s in streams])
+
+
+def check_faults_against_cpu(torch, np, params, numerics, bad):
+    """A CUDA session against the CPU session under one fault campaign:
+    FAULT_SLOTS slots × FAULT_CHUNK-sample chunks, FAULT_STEPS steps of
+    ``adversarial_plan(SOAK_SEED)`` (each step's pieces, then its churn
+    resets), the supervisor on, input policy trust.  Every vote, transmit
+    count, per-step health mask, flagged set, recovery count and reason
+    equal; int8 logits equal, float within 1e-4."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.launch.faults import FaultInjector, adversarial_plan
+    from repro_torch.launch.streaming import (StreamingKwsSession,
+                                              SupervisorConfig)
+    audio = fault_audio(np, FAULT_SLOTS, FAULT_CHUNK * FAULT_STEPS, 11)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sess = StreamingKwsSession(
+            params, CONFIG, threshold=0.1, batch=FAULT_SLOTS, device=dev,
+            numerics=numerics, supervisor=SupervisorConfig(),
+            input_policy="trust")
+        inj = FaultInjector(adversarial_plan(SOAK_SEED), FAULT_SLOTS)
+        outs, health, kinds = [], [], []
+        for step in range(FAULT_STEPS):
+            pieces, actions = inj.inject(
+                audio[:, step * FAULT_CHUNK:(step + 1) * FAULT_CHUNK])
+            for p in pieces:
+                o = sess.process_audio(p)
+                outs.append([o.logits.cpu(), o.votes.cpu(), o.nz.cpu()])
+                health.append((sess.unhealthy_slots(), sess.flagged_slots()))
+            for act in actions:
+                kinds.append(act.kind)
+                if act.kind == "churn_storm":
+                    sess.reset_streams(act.slots)
+        s = sess.summary()
+        runs[dev] = (outs, health, s.recoveries, s.recovery_reasons,
+                     s.frames)
+    (oc, hc, rc, rrc, fc), (op, hp, rp, rrp, fp_) = runs["cuda"], runs["cpu"]
+    err = max(((a[0] - b[0]).abs().max().item() if a[0].numel() else 0.0)
+              for a, b in zip(oc, op))
+    vote_m = sum(int((a[1] != b[1]).sum() + (a[2] != b[2]).sum())
+                 for a, b in zip(oc, op))
+    health_m = sum(a != b for a, b in zip(hc, hp))
+    print(f"[faults] {numerics} CUDA vs CPU session under adversarial_plan"
+          f"({SOAK_SEED}), {FAULT_SLOTS} slots x {FAULT_STEPS} steps of "
+          f"{FAULT_CHUNK} samples ({len(oc)} pieces; faults {kinds}): "
+          f"logits max abs diff {err:.3g}, vote/nz mismatches {vote_m}, "
+          f"health masks differing in {health_m} pieces, recoveries "
+          f"{rc} {rrc} / {rp} {rrp}, frames {fc} / {fp_}")
+    tol = 0.0 if numerics == "int8" else 1e-4
+    bad.check(err <= tol and not vote_m and not health_m and rc == rp
+              and rrc == rrp and fc == fp_ and rc >= 1,
+              f"{numerics} CUDA session differs from the CPU one under "
+              f"faults (or nothing recovered)")
+
+
+def check_set_threshold(torch, np, params, numerics, bad):
+    """``set_threshold`` mid-stream on the card (Δ_TH 0.1 → 0.4 → 0.1,
+    chunk by chunk) against the CPU session doing the same, in a plain
+    session and a cascade session: votes, counts, events and awake bits
+    equal, int8 logits equal and float within 1e-4; the cascade's wake
+    trace equal to that of a CUDA cascade session never switched (stage
+    0 keeps its own Δ_TH), and its stage-0 state bit for bit too."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    audio = fault_audio(np, 4, TH_SPANS[-1][1], 7)
+    p0 = stage0(torch)
+
+    def run(dev, cascade, schedule):
+        kw = (dict(detector=DetectorConfig(0.3, 0.095, 0.09, 4),
+                   vad=VADConfig(0.02), cascade=cascade_config(CASCADE_CHECK),
+                   stage0_params=p0) if cascade else {})
+        sess = StreamingKwsSession(params, CONFIG, threshold=0.1, batch=4,
+                                   device=dev, numerics=numerics, **kw)
+        outs = []
+        for (lo, hi), th in zip(TH_SPANS, schedule):
+            sess.set_threshold(th)
+            o = sess.process_audio(audio[:, lo:hi])
+            outs.append({f: getattr(o, f).cpu() for f in o._fields
+                         if getattr(o, f) is not None})
+        s0 = [t.cpu() for t in sess.cas_state.s0] if cascade else []
+        return outs, s0, sess.summary()
+
+    for cascade in (False, True):
+        cu, s0c, sc = run("cuda", cascade, TH_SCHEDULE)
+        cp, _, sp = run("cpu", cascade, TH_SCHEDULE)
+        fixed, s0f, sf = run("cuda", cascade, (TH_SCHEDULE[0],) * 3)
+        err = max((a["logits"] - b["logits"]).abs().max().item()
+                  for a, b in zip(cu, cp))
+        mism = sum(int((a[f] != b[f]).sum()) for a, b in zip(cu, cp)
+                   for f in a if f != "logits")
+        wake_m = sum(int((a["awake"] != b["awake"]).sum())
+                     for a, b in zip(cu, fixed)) if cascade else 0
+        s0_m = sum(int((a != b).sum()) for a, b in zip(s0c, s0f))
+        kind = "cascade" if cascade else "plain"
+        print(f"[faults] set_threshold {TH_SCHEDULE} {numerics} {kind} "
+              f"session, CUDA vs CPU: logits max abs diff {err:.3g}, other "
+              f"mismatches {mism}, sparsity {sc.sparsity:.4f} / "
+              f"{sp.sparsity:.4f} (never switched: {sf.sparsity:.4f})"
+              + (f"; wake trace vs the session never switched: {wake_m} "
+                 f"bits differ, stage-0 state {s0_m}" if cascade else ""))
+        tol = 0.0 if numerics == "int8" else 1e-4
+        bad.check(err <= tol and not mism and not wake_m and not s0_m
+                  and sc.sparsity == sp.sparsity
+                  and sc.sparsity != sf.sparsity,
+                  f"set_threshold {numerics} {kind} session differs from "
+                  f"the CPU's, moved stage 0, or changed nothing")
+
+
+def soak_session(params, numerics, **kw):
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.launch.streaming import (StreamingKwsSession,
+                                              SupervisorConfig)
+    return StreamingKwsSession(params, CONFIG, threshold=SOAK_LADDER[0],
+                               batch=ALWAYS_ON_SLOTS, numerics=numerics,
+                               supervisor=SupervisorConfig(),
+                               input_policy="trust", **kw)
+
+
+def soak(torch, np, params, numerics, depth):
+    """The reference's soak (``benchmarks/serve_bench.py --soak``) at full
+    width: ALWAYS_ON_SLOTS slots × CHUNK-sample chunks, SOAK_CHUNKS_PER_UTT
+    chunks per utterance, ``adversarial_plan(SOAK_SEED)``, SOAK_STEPS
+    warm-up / faulty / cooldown steps, bursty arrival waves (4× the
+    service rate for 8 of every 20 steps), the Δ_TH ladder SOAK_LADDER
+    and a queue of SOAK_QUEUE, through ``PipelinedEngine`` at ``depth``.
+    Returns the votes of every step (in dispatch order), the controller
+    level after every step, the summary, the controller's stats and the
+    gates of ``BENCH_soak.json`` but the recovery probe's."""
+    from repro_torch.launch.engine import PipelinedEngine
+    from repro_torch.launch.faults import FaultInjector, adversarial_plan
+    from repro_torch.launch.serve import AdmissionController, OverloadPolicy
+    from repro_torch.launch.streaming import QUARANTINE_DEFAULT, SlotScheduler
+    slots, chunk, per_utt = ALWAYS_ON_SLOTS, CHUNK, SOAK_CHUNKS_PER_UTT
+    sess = soak_session(params, numerics)
+    sched = SlotScheduler(sess)
+    eng = PipelinedEngine(sess, depth=depth, field="votes", scheduler=sched)
+    ctl = AdmissionController(sess, sched, OverloadPolicy(
+        thresholds=SOAK_LADDER, max_queue=SOAK_QUEUE))
+    injector = FaultInjector(adversarial_plan(SOAK_SEED), slots)
+    pool = np.random.default_rng(1).uniform(
+        -0.5, 0.5, (slots, per_utt, chunk)).astype(np.float32)
+    progress: dict[int, int] = {}
+    st = {"req": 0, "frames_host": 0}
+    votes, levels, lat_s, fired = [], [], [], {}
+
+    def take(drained):
+        for f in drained:
+            votes.append(np.concatenate(f.arrays) if f.arrays
+                         else np.zeros((0, slots), np.int32))
+
+    def run_steps(n_steps, faulty, arrivals):
+        for step in range(n_steps):
+            for _ in range(arrivals(step)):
+                ctl.submit(st["req"])
+                st["req"] += 1
+            for slot, _ in sched.admit():
+                progress[slot] = 0
+            t0 = time.perf_counter()
+            eng.begin()
+            block = np.zeros((slots, chunk), np.float32)
+            for slot in sched.live:
+                block[slot] = pool[slot, progress[slot] % per_utt]
+            pieces, actions = (injector.inject(block) if faulty
+                               else ([block], []))
+            stalled = False
+            for act in actions:
+                fired[act.kind] = fired.get(act.kind, 0) + 1
+                if act.kind == "stall":
+                    stalled = True
+                    time.sleep(act.detail)
+                elif act.kind == "churn_storm":
+                    storm = [s for s in act.slots if s in sched.live]
+                    sess.reset_streams(storm)
+                    for s in storm:
+                        progress[s] = 0
+            piece_frames, drained = eng.submit(pieces)
+            st["frames_host"] += sum(piece_frames) * slots
+            eng.end()
+            dt = time.perf_counter() - t0
+            if not stalled:
+                lat_s.append(dt)
+            take(drained)
+            for slot in list(sched.live):
+                progress[slot] += 1
+                if progress[slot] >= per_utt:
+                    sched.evict(slot)
+            ctl.observe(dt)
+            levels.append(ctl.level)
+
+    steady = max(1, slots // per_utt)
+    warm, faulty, cool = SOAK_STEPS
+    run_steps(warm, False, lambda s: steady)
+    run_steps(faulty, True, lambda s: steady * 4 if s % 20 < 8 else steady)
+    run_steps(cool, False, lambda s: 0)
+    take(eng.flush())
+    torch.cuda.synchronize()
+    summ = sess.summary()
+    unrecovered = {s: m for s, m in sess.unhealthy_slots().items()
+                   if m & QUARANTINE_DEFAULT}
+    cst = ctl.stats()
+    lat = np.asarray(lat_s[1:] or lat_s) * 1e3
+    third = max(1, len(lat) // 3)
+    drift = (float(np.median(lat[-third:]))
+             / max(float(np.median(lat[:third])), 1e-9))
+    gates = {
+        "unrecovered_slots_zero": not unrecovered,
+        "controller_at_base": ctl.level == 0,
+        "controller_escalated": cst["escalations"] >= 1
+        and cst["releases"] >= 1,
+        "telemetry_exact": summ.frames == st["frames_host"]
+        and not summ.overflowed,
+        "latency_drift_ok": drift < 3.0,
+    }
+    return {"votes": votes, "levels": levels, "summary": summ,
+            "controller": cst, "gates": gates, "faults": fired,
+            "step_ms_p50": float(np.percentile(lat, 50)),
+            "step_ms_p99": float(np.percentile(lat, 99)), "drift": drift}
+
+
+def soak_recovery_probe(torch, np, params, numerics) -> bool:
+    """The soak's recovery gate on dedicated sessions: slot 0 poisoned
+    with NaN for half a chunk and healed by the supervisor decides the
+    next two chunks bit for bit as a fresh session reset at the same
+    point (and the supervisor recovered it)."""
+    rng = np.random.default_rng(2)
+    probe = rng.uniform(-0.5, 0.5, (3, ALWAYS_ON_SLOTS, CHUNK)).astype(
+        np.float32)
+    poison = probe[0].copy()
+    poison[0, :CHUNK // 2] = np.nan
+    healed = soak_session(params, numerics)
+    healed.process_audio(poison)
+    h = [healed.process_audio(p).votes.cpu() for p in probe[1:]]
+    fresh = soak_session(params, numerics)
+    fresh.process_audio(probe[0])
+    fresh.reset_streams([0])
+    f = [fresh.process_audio(p).votes.cpu() for p in probe[1:]]
+    return (all(torch.equal(a, b) for a, b in zip(h, f))
+            and healed.summary().recoveries >= 1)
+
+
+def soak_phase(torch, np, params, card, bad):
+    """The soak in both numerics at depth 1 and 2: every gate true, and
+    depth 2 equal to depth 1 in every vote, controller level, recovery,
+    reason and summary field (timing aside)."""
+    out = {}
+    for numerics in ("float32", "int8"):
+        runs = {d: soak(torch, np, params, numerics, d) for d in (1, 2)}
+        probe_ok = soak_recovery_probe(torch, np, params, numerics)
+        r1, r2 = runs[1], runs[2]
+        same = (len(r1["votes"]) == len(r2["votes"])
+                and all(np.array_equal(a, b)
+                        for a, b in zip(r1["votes"], r2["votes"]))
+                and r1["levels"] == r2["levels"]
+                and r1["controller"] == r2["controller"]
+                and dataclasses.replace(r1["summary"], slo={})
+                == dataclasses.replace(r2["summary"], slo={}))
+        for d, r in runs.items():
+            s = r["summary"]
+            print(f"[soak] {numerics} depth {d}: {sum(SOAK_STEPS)} steps on "
+                  f"{ALWAYS_ON_SLOTS} slots x {CHUNK}, faults {r['faults']}, "
+                  f"{s.recoveries} recoveries {s.recovery_reasons}, "
+                  f"sat_events {s.sat_events}, controller {r['controller']},"
+                  f" levels seen {sorted(set(r['levels']))}, frames "
+                  f"{s.frames}, step p50 {r['step_ms_p50']:.3f} / p99 "
+                  f"{r['step_ms_p99']:.3f} ms, drift "
+                  f"{r['drift']:.3f}, gates {r['gates']} [{card}]")
+            for gate, ok in r["gates"].items():
+                bad.check(ok, f"soak {numerics} depth {d}: {gate}")
+        print(f"[soak] {numerics}: recovery bit-identical {probe_ok}; depth 2"
+              f" equals depth 1 in every vote, level, recovery and summary "
+              f"field: {same}")
+        bad.check(probe_ok, f"soak {numerics}: recovery_bit_identical")
+        bad.check(same, f"soak {numerics}: depth 2 differs from depth 1")
+        out[numerics] = {d: {k: v for k, v in r.items() if k != "votes"}
+                         for d, r in runs.items()}
+    return out
+
+
+def fault_serve_argv(mode, numerics, depth):
+    argv = ["--mode", mode, "--numerics", numerics, "--slots", str(SLOTS),
+            "--chunk-samples", str(CHUNK), "--seed", "0", "--faults",
+            SERVE_FAULTS, "--fault-seed", str(SERVE_FAULT_SEED)]
+    if depth == 1:
+        argv.append("--sync-loop")
+    if mode == "kws-audio":
+        return argv + ["--requests", str(REQUESTS), "--degrade-thresholds",
+                       "0.2,0.4", "--max-queue", "48"]
+    argv += ["--stream-seconds", str(SERVE_FAULT_SECONDS),
+             "--fire-threshold", str(DETECT_FIRE), "--release-threshold",
+             str(DETECT_RELEASE)]
+    if mode == "kws-cascade":
+        wake, sleep, hang = CASCADE_SERVE
+        argv += ["--wake-threshold", str(wake), "--sleep-threshold",
+                 str(sleep), "--hangover-frames", str(hang)]
+    return argv
+
+
+def fault_path(mode, numerics):
+    gru = "delta_gru_seq_int" if numerics == "int8" else "delta_gru_seq"
+    fex = "batched_iir_fex_int" if numerics == "int8" else "batched_iir_fex"
+    return {"kws-audio": (fex, gru),
+            "kws-detect": (fex, gru, "detect_head"),
+            "kws-cascade": (fex, gru, "wake_head", f"{gru} (masked)",
+                            "detect_head")}[mode]
+
+
+def serve_faulty(torch, wrappers, mode, numerics, depth):
+    """One ``serve --faults`` run through the CLI's entry points, with
+    every kernel's count set to 0 just before and read just after."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(
+        fault_serve_argv(mode, numerics, depth))
+    serve.validate_args(args)
+    zero_launches(wrappers)
+    if mode == "kws-audio":
+        sess, results, _, stats, _ = serve.serve_kws_audio(args)
+    else:
+        sess, _, stats, _, _ = serve.serve_kws_detect(args)
+        results = stats.pop("fires")
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    summ = sess.summary()
+    print(f"[faults] serve {mode} {numerics} {depth}: "
+          f"{serve._host_blocked_line(stats['slo'])}; "
+          f"{serve._robustness_line(sess, summ, stats.get('controller'))}")
+    return {"results": results, "stats": stats, "launches": launches,
+            "summary": dataclasses.replace(summ, slo={})}
+
+
+def serve_under_faults(torch, bad):
+    """``serve --faults`` in-process, one run after another: kws-audio
+    (SLOTS slots, REQUESTS requests, ladder 0.2,0.4, queue 48), kws-detect
+    and kws-cascade (SLOTS slots × SERVE_FAULT_SECONDS streams), each in
+    both numerics at depth 1 (--sync-loop) and 2.  Depth 2 must equal
+    depth 1 in every decision or fire, loop counter, controller stat and
+    summary field; each run's launch counts must read one launch of every
+    kernel of its path per dispatched piece that held a whole frame, plus
+    the warm-up, and none of any other kernel."""
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    launches = {}
+    for mode in ("kws-audio", "kws-detect", "kws-cascade"):
+        for numerics in ("float32", "int8"):
+            r1, r2 = (serve_faulty(torch, wrappers, mode, numerics, d)
+                      for d in (1, 2))
+            same = r1["results"] == r2["results"]
+            for k in ("steps", "pieces", "faults", "frames_served",
+                      "pad_frames", "frames", "controller"):
+                same &= r1["stats"].get(k) == r2["stats"].get(k)
+            s1 = r1["summary"]
+            same &= s1 == r2["summary"]
+            path = fault_path(mode, numerics)
+            launch_ok = True
+            for r in (r1, r2):
+                want = r["stats"]["pieces"] + 1          # + the warm-up
+                launch_ok &= all(r["launches"][k] == want for k in path)
+                launch_ok &= not any(v for k, v in r["launches"].items()
+                                     if k not in path)
+            key = "decisions" if mode == "kws-audio" else "fires"
+            n = (len(r1["results"]) if mode == "kws-audio"
+                 else sum(map(len, r1["results"])))
+            print(f"[faults] serve {mode} {numerics}: depth 1 vs 2 equal "
+                  f"{same} ({n} {key}; recoveries {s1.recoveries} "
+                  f"{s1.recovery_reasons}; faults {r1['stats']['faults']}; "
+                  f"controller {r1['stats'].get('controller')}); pieces "
+                  f"with a frame {r1['stats']['pieces']} / "
+                  f"{r2['stats']['pieces']} in {r1['stats']['steps']} steps; "
+                  f"launches depth 1 {r1['launches']}, depth 2 "
+                  f"{r2['launches']}")
+            bad.check(same, f"serve {mode} {numerics}: depth 2 differs "
+                            f"from depth 1")
+            bad.check(launch_ok, f"serve {mode} {numerics}: launches are "
+                                 f"not one per piece with a frame")
+            bad.check(s1.recoveries >= 1
+                      or not r1["stats"]["faults"].get("nan_burst"),
+                      f"serve {mode} {numerics}: a NaN burst fired and "
+                      f"nothing recovered")
+            launches[(mode, numerics)] = {k: r2["launches"][k] for k in path}
+    print(f"[faults] 12 serve runs in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_no_syncs(torch, np, params, bad):
+    """``torch.cuda.set_sync_debug_mode("error")`` around
+    ``process_audio`` and ``reset_streams`` of unsupervised sessions,
+    plain in both numerics, detect and cascade: three chunks (one not
+    frame-aligned, one a single sample) and a reset wave each, after a
+    warm-up chunk outside the mode.  No synchronisation may be
+    reported."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch.streaming import StreamingKwsSession
+    from repro_torch.models.detector import DetectorConfig
+    audio = fault_audio(np, SLOTS, 3 * CHUNK, 5)
+    det = dict(detector=DetectorConfig(0.3, 0.095, 0.09, 4),
+               vad=VADConfig(0.02))
+    kinds = (("plain", "float32", {}), ("plain", "int8", {}),
+             ("detect", "float32", det), ("detect", "int8", det),
+             ("cascade", "float32", dict(det, cascade=cascade_config(),
+                                         stage0_params=stage0(torch))))
+    for kind, numerics, kw in kinds:
+        sess = StreamingKwsSession(params, CONFIG, threshold=0.1,
+                                   batch=SLOTS, numerics=numerics, **kw)
+        sess.process_audio(audio[:, :CHUNK])
+        sess.reset_streams([0, 1])
+        torch.cuda.synchronize()
+        err = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for lo, hi in ((CHUNK, 2 * CHUNK - 100), (2 * CHUNK - 100,
+                                                     2 * CHUNK - 99),
+                           (2 * CHUNK - 99, 3 * CHUNK)):
+                sess.process_audio(audio[:, lo:hi])
+                sess.reset_streams([lo % SLOTS, 3])
+        except RuntimeError as e:
+            err = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[faults] sync debug mode 'error', unsupervised {kind} "
+              f"{numerics} session, process_audio + reset_streams x3: "
+              f"{'no synchronisation' if err is None else err}")
+        bad.check(err is None, f"{kind} {numerics} process_audio or "
+                               f"reset_streams synchronised: {err}")
+
+
+def always_on_streams(np):
+    """ALWAYS_ON_SLOTS streams × ALWAYS_ON_CHUNKS chunks of keyword audio
+    (the always-on phases' audio)."""
+    from repro_torch.data.gscd import synth_batch
+    B, n = ALWAYS_ON_SLOTS, ALWAYS_ON_CHUNKS
+    pool, _ = synth_batch(np.random.default_rng(3), 64)
+    rng = np.random.default_rng(4)
+    per_stream = -(-n * CHUNK // pool.shape[1])
+    streams = pool[rng.integers(0, len(pool), (B, per_stream))].reshape(B, -1)
+    return np.ascontiguousarray(streams[:, :n * CHUNK])
+
+
+ENGINE_CONFIGS = ((1, False), (2, False), (1, True), (2, True))
+ENGINE_ROUNDS = 5
+
+
+def engine_timing(torch, np, params, card, profile, numerics, bad):
+    """The always-on plain step through ``PipelinedEngine`` at depth 1 and
+    2, without and with the default supervisor, in alternating rounds on
+    the same audio (ALWAYS_ON_SLOTS slots × ALWAYS_ON_CHUNKS chunks), one
+    untimed round each first (the staging rings allocate their pinned
+    buffers on first use): medians over ENGINE_ROUNDS rounds of step ms,
+    decisions/s and host-blocked ms per phase; every configuration's
+    votes equal.  No gate on the times.  ``profile``: the device busy
+    share at depth 1 and 2 (unsupervised)."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.launch.engine import PipelinedEngine, warm_session
+    from repro_torch.launch.streaming import (StreamingKwsSession,
+                                              SupervisorConfig)
+    streams = always_on_streams(np)
+    n = ALWAYS_ON_CHUNKS
+    blocks = [streams[:, c * CHUNK:(c + 1) * CHUNK] for c in range(n)]
+    sessions = {}
+    for depth, sup in ENGINE_CONFIGS:
+        sessions[(depth, sup)] = StreamingKwsSession(
+            params, CONFIG, threshold=0.1, batch=ALWAYS_ON_SLOTS,
+            numerics=numerics, supervisor=SupervisorConfig() if sup else None)
+        warm_session(sessions[(depth, sup)], CHUNK)
+    res = {cfg: [] for cfg in ENGINE_CONFIGS}
+    votes = {}
+    for r in range(-1, ENGINE_ROUNDS):               # round -1: untimed
+        for cfg in (ENGINE_CONFIGS if r % 2 == 0 else ENGINE_CONFIGS[::-1]):
+            sess = sessions[cfg]
+            sess.reset()
+            eng = PipelinedEngine(sess, depth=cfg[0])
+            got = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in blocks:
+                eng.begin()
+                _, drained = eng.submit([b])
+                eng.end()
+                got += [f.arrays[0] for f in drained]
+            got += [f.arrays[0] for f in eng.flush()]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            votes[(cfg, r)] = np.concatenate(got)
+            if r >= 0:
+                res[cfg].append((dt * 1e3 / n, sess.summary().frames / dt,
+                                 eng.report()["host_blocked_ms_per_step"]))
+    ref = votes[(ENGINE_CONFIGS[0], 0)]
+    same = all(np.array_equal(v, ref) for v in votes.values())
+    bad.check(same, f"engine timing {numerics}: votes differ between "
+                    f"depths or with the supervisor")
+    out = {}
+    for cfg, rows in res.items():
+        med = lambda i, k=None: statistics.median(
+            (row[i] if k is None else row[i][k]) for row in rows)
+        out[cfg] = {"step_ms": med(0), "decisions_per_s": med(1),
+                    **{f"host_{k}_ms": med(2, k) for k in
+                       ("assemble", "dispatch", "fetch", "total")},
+                    "rounds_step_ms": [row[0] for row in rows]}
+        o = out[cfg]
+        print(f"[engine] {numerics} depth {cfg[0]}, supervisor "
+              f"{'on' if cfg[1] else 'off'}: step {o['step_ms']:.3f} ms "
+              f"(rounds {[round(x, 3) for x in o['rounds_step_ms']]}), "
+              f"{o['decisions_per_s']:.0f} decisions/s, host-blocked per "
+              f"step: assemble {o['host_assemble_ms']:.3f}, dispatch "
+              f"{o['host_dispatch_ms']:.3f}, fetch {o['host_fetch_ms']:.3f} "
+              f"ms [{card}]")
+    for sup in (False, True):
+        print(f"[engine] {numerics} supervisor {'on' if sup else 'off'}: "
+              f"depth 2 / depth 1 step {out[(2, sup)]['step_ms'] / out[(1, sup)]['step_ms']:.3f}x"
+              f"; votes equal across all configurations and rounds: {same}")
+    if profile:
+        for depth in (1, 2):
+            profile_engine(torch, sessions[(depth, False)], blocks, depth,
+                           numerics)
+    return out
+
+
+def profile_engine(torch, sess, blocks, depth, numerics):
+    """torch.profiler over 8 engine steps at ``depth``: device busy share
+    of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.engine import PipelinedEngine
+    sess.reset()
+    eng = PipelinedEngine(sess, depth=depth)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in blocks[:8]:
+            eng.begin()
+            eng.submit([b])
+            eng.end()
+        eng.flush()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages())
+    if not busy:
+        print("[profile] no device time in the trace: not measured")
+        return
+    print(f"[profile] engine {numerics} depth {depth}, 8 steps: wall "
+          f"{wall_us / 8:.1f} us/step, device busy {busy / 8:.1f} us/step "
+          f"({100 * busy / wall_us:.1f}% of wall)")
+
+
+def faults_phase(torch, np, params, card, profile):
+    """Phase 8: fault handling, overload and the pipelined engine."""
+    bad = Failures("fault / overload / engine phase")
+    t0 = time.perf_counter()
+    for numerics in ("float32", "int8"):
+        check_faults_against_cpu(torch, np, params, numerics, bad)
+        check_set_threshold(torch, np, params, numerics, bad)
+    check_no_syncs(torch, np, params, bad)
+    soak_res = soak_phase(torch, np, params, card, bad)
+    serve_launches = serve_under_faults(torch, bad)
+    timing = {numerics: engine_timing(torch, np, params, card, profile,
+                                      numerics, bad)
+              for numerics in ("float32", "int8")}
+    print(f"[faults] phase {time.perf_counter() - t0:.1f} s")
+    bad.raise_any()
+    return {"soak": soak_res, "serve_launches": serve_launches,
+            "timing": timing}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -2763,6 +3452,7 @@ def main() -> int:
     compare_fex_int_tails(torch, np, bundle)
     gru_int_res = compare_gru_int(torch, fex_int_res["feats"], bundle)
     compare_gru_int_edges(torch, np, fex_int_res["feats"], bundle)
+    compare_nan_semantics(torch, np, gru_res, bundle)
     times = time_kernels(torch, x, fex, gru_res, fex_res["plain_ms"])
     times.update(time_int_kernels(torch, x, gru_int_res, bundle,
                                   fex_int_res["plain_ms"]))
@@ -2802,6 +3492,8 @@ def main() -> int:
             det_res["step_ms"])
     for numerics in ("float32", "int8"):
         event_driven_on_card(torch, np, params, numerics)
+    fault_res = faults_phase(torch, np, params, card, args.profile)
+    fault_launches = fault_res["serve_launches"]
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -2821,6 +3513,7 @@ def main() -> int:
              "src/repro/kernels/delta_gru_seq.py:245",
              gru_int_res["max_abs_err"])):
         ms, bnd, by, call = times[(kind, SLOTS)]
+        numerics = "int8" if kind.endswith("int") else "float32"
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -2829,6 +3522,8 @@ def main() -> int:
             "bound_by": by, "library_ms": None, "call_ms": call,
             "ms_b256": times[(kind, ALWAYS_ON_SLOTS)][0],
             "bound_ms_b256": times[(kind, ALWAYS_ON_SLOTS)][1],
+            "launches_faults_run": fault_launches.get(
+                ("kws-audio", numerics), {}).get(name),
             "shape": (f"B={SLOTS} S={CHUNK} C={C}" if kind.startswith("fex")
                       else f"T=32 B={SLOTS} I={C} H={H}")})
         if kind + "_chain" in times:
@@ -2882,6 +3577,8 @@ def main() -> int:
                 "detector_scan)",
         "launches": head_launches["float32"],
         "launches_int8_run": head_launches["int8"],
+        "launches_faults_run": fault_launches.get(
+            ("kws-detect", "float32"), {}).get("detect_head"),
         "max_abs_err": head_res["max_abs_err"], "ms": hd["ms"],
         "plain_ms": hd["plain"], "bound_ms": hd["bound"],
         "bound_by": hd["by"], "library_ms": None, "call_ms": hd["call"],
@@ -2907,6 +3604,8 @@ def main() -> int:
                     "(template argument kMasked) of the kernel above, the "
                     "port of the XLA-fused plain JAX masked scan",
             "launches": cascade_launches[f"{base} (masked)"],
+            "launches_faults_run": fault_launches.get(
+                ("kws-cascade", numerics), {}).get(f"{base} (masked)"),
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "shape": r["shape"],
@@ -2923,6 +3622,8 @@ def main() -> int:
                 "posterior (jax.nn.softmax(...)[..., 1], "
                 "src/repro/launch/streaming.py:712) and cascade_wake_scan",
         "launches": cascade_launches["wake_head"],
+        "launches_faults_run": fault_launches.get(
+            ("kws-cascade", "float32"), {}).get("wake_head"),
         "max_abs_err": 0.0, "ms": wk["ms"], "plain_ms": wk["plain"],
         "bound_ms": wk["bound"], "bound_by": wk["by"], "library_ms": None,
         "call_ms": wk["call"], "shape": f"F=32 B={SLOTS} K=2",

@@ -35,19 +35,186 @@ creation, or ``--bundle X.npz`` serves a promoted bundle as
 ``train.promote.save_bundle`` writes it (one the JAX package wrote loads
 unchanged) and implies ``--numerics int8``.
 
-Training (the reference's ``--train-steps``, for either stage),
-``--devices``, the admission controller, faults and the pipelined engine
-are later slices of the port.
+Every mode serves through the pipelined engine (``launch.engine``):
+while one step computes on the card the host assembles the next block
+and drains an earlier step's results, keeping ``--inflight-depth`` steps
+in flight (default 2; ``--sync-loop`` is depth 1).  Decisions and
+counters are equal at every depth.
+
+Fault tolerance: ``--faults "nan_burst:0.05,clip:0.1"`` arms a seeded
+``launch.faults`` campaign (replay it from ``--fault-seed``), the session
+runs with the self-healing supervisor unless ``--no-supervisor``, and
+``--input-policy`` picks what ``process_audio`` does with hostile
+samples (forced to ``trust`` while faults are armed, so injected NaNs
+reach the card).  ``AdmissionController`` is the overload half: a
+bounded request queue (``--max-queue``) that sheds when full, a Δ_TH
+ladder (``--degrade-thresholds``) stepped up under sustained queue
+pressure and back down with hysteresis, and a step-latency watchdog
+(``--watchdog-ms``) whose breaches count as pressure.
+
+Training (the reference's ``--train-steps``, for either stage) and
+``--devices`` (the slot mesh across cards) are later slices of the port.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import sys
 import time
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OverloadPolicy:
+    """Graceful-degradation policy for ``AdmissionController``.
+
+    thresholds: the Δ_TH ladder, base operating point FIRST, ascending —
+      each escalation moves one rung up (cheaper, less accurate), each
+      release one rung down.
+    max_queue: bounded-queue depth; ``submit`` beyond it is SHED.
+    high_water / low_water: queue-pressure fractions that count a step
+      toward escalation / release.  The dead band between them is the
+      hysteresis that keeps the controller from flapping.
+    up_after / down_after: consecutive high- (low-) pressure steps
+      before the ladder moves.  ``down_after > up_after`` by default:
+      degrade fast, recover deliberately.
+    watchdog_ms: step-latency budget; a breach counts as a high-pressure
+      observation even with an empty queue (None disables).
+    """
+
+    thresholds: tuple = (0.1,)
+    max_queue: int = 64
+    high_water: float = 0.75
+    low_water: float = 0.25
+    up_after: int = 3
+    down_after: int = 8
+    watchdog_ms: float | None = None
+
+    def __post_init__(self):
+        if not self.thresholds:
+            raise ValueError("need at least one (base) Δ_TH rung")
+        if list(self.thresholds) != sorted(set(self.thresholds)):
+            raise ValueError(f"Δ_TH ladder must be strictly ascending, "
+                             f"got {self.thresholds}")
+        if self.max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        if not (0.0 <= self.low_water < self.high_water <= 1.0):
+            raise ValueError(
+                f"need 0 <= low_water < high_water <= 1, got "
+                f"low={self.low_water} high={self.high_water}")
+        if self.up_after < 1 or self.down_after < 1:
+            raise ValueError("up_after / down_after must be >= 1")
+
+
+class AdmissionController:
+    """Bounded admission + graceful degradation for a KWS serve loop.
+
+    Host-side only.  The loop calls ``submit(payload)`` instead of
+    enqueueing directly (False = queue full, request shed) and
+    ``observe(step_s)`` once per serve step; the controller tracks queue
+    pressure against the ``OverloadPolicy`` watermarks and drives the
+    session's ``set_threshold`` up and down the Δ_TH ladder with
+    hysteresis.  ``level`` is the current rung (0 = base operating
+    point); ``stats()`` reports sheds, escalations, releases and
+    watchdog breaches.
+    """
+
+    def __init__(self, session, scheduler, policy: OverloadPolicy):
+        self._sess = session
+        self._sched = scheduler
+        self.policy = policy
+        self.level = 0
+        self.shed = 0
+        self.escalations = 0
+        self.releases = 0
+        self.watchdog_breaches = 0
+        self._hi_streak = 0
+        self._lo_streak = 0
+        session.set_threshold(policy.thresholds[0])
+
+    def submit(self, payload) -> bool:
+        """Admit one request into the bounded queue; False = shed."""
+        if len(self._sched) >= self.policy.max_queue:
+            self.shed += 1
+            return False
+        self._sched.submit(payload)
+        return True
+
+    @property
+    def threshold(self) -> float:
+        return self.policy.thresholds[self.level]
+
+    def observe(self, step_s: float):
+        """One per-step pressure observation (queue depth + latency)."""
+        p = self.policy
+        pressure = len(self._sched) / p.max_queue
+        slow = p.watchdog_ms is not None and step_s * 1e3 > p.watchdog_ms
+        if slow:
+            self.watchdog_breaches += 1
+        if pressure >= p.high_water or slow:
+            self._hi_streak += 1
+            self._lo_streak = 0
+            if self._hi_streak >= p.up_after and \
+                    self.level < len(p.thresholds) - 1:
+                self.level += 1
+                self.escalations += 1
+                self._hi_streak = 0
+                self._sess.set_threshold(p.thresholds[self.level])
+        elif pressure <= p.low_water:
+            self._lo_streak += 1
+            self._hi_streak = 0
+            if self._lo_streak >= p.down_after and self.level > 0:
+                self.level -= 1
+                self.releases += 1
+                self._lo_streak = 0
+                self._sess.set_threshold(p.thresholds[self.level])
+        else:                       # dead band: hold level, reset streaks
+            self._hi_streak = 0
+            self._lo_streak = 0
+
+    def stats(self) -> dict:
+        return {"level": self.level, "threshold": self.threshold,
+                "shed": self.shed, "escalations": self.escalations,
+                "releases": self.releases,
+                "watchdog_breaches": self.watchdog_breaches}
+
+
+def _parse_ladder(text: str, base: float) -> tuple:
+    """CLI Δ_TH ladder: ``--degrade-thresholds "0.2,0.4"`` lists the
+    degraded rungs ABOVE the base operating point (empty = no
+    degradation, base rung only)."""
+    rungs = tuple(float(x) for x in
+                  filter(None, (s.strip() for s in text.split(","))))
+    return (base,) + rungs
+
+
+def _session_extras(args):
+    """Fault-tolerance wiring shared by the modes: (supervisor,
+    input_policy, injector) from the flags."""
+    from repro_torch.launch.faults import (FaultInjector, FaultPlan,
+                                           parse_fault_specs)
+    from repro_torch.launch.streaming import SupervisorConfig
+
+    supervisor = None if args.no_supervisor else SupervisorConfig()
+    injector = None
+    if args.faults:
+        plan = FaultPlan(seed=args.fault_seed,
+                         specs=parse_fault_specs(args.faults))
+        injector = FaultInjector(plan, args.slots)
+    # Injected NaN/Inf must REACH the device for self-healing to have
+    # anything to heal: rejecting them at the host boundary would test
+    # the validator, not the supervisor.
+    policy = args.input_policy
+    if injector is not None and policy == "reject":
+        policy = "trust"
+    return supervisor, policy, injector
+
+
+def _depth(args) -> int:
+    return 1 if args.sync_loop else args.inflight_depth
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +239,46 @@ def build_parser() -> argparse.ArgumentParser:
                          "of the 128-sample frame shift so slot resets "
                          "stay frame-aligned)")
     ap.add_argument("--threshold", type=float, default=0.1,
-                    help="delta threshold Δ_TH")
+                    help="delta threshold Δ_TH (the base rung of the "
+                         "degradation ladder)")
+    # the pipelined engine
+    ap.add_argument("--inflight-depth", type=int, default=2,
+                    help="steps in flight on the card before the host "
+                         "waits for one's results (>= 2 overlaps "
+                         "assemble, compute and fetch; ignored under "
+                         "--sync-loop)")
+    ap.add_argument("--sync-loop", action="store_true",
+                    help="serve with pipeline depth 1 (the synchronous "
+                         "loop); decisions are equal either way")
+    # fault tolerance and overload
+    ap.add_argument("--faults", default="",
+                    help='seeded fault campaign, "kind:rate,..." pairs '
+                         '(e.g. "nan_burst:0.05,clip:0.1"); see '
+                         "launch.faults for the kinds")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="replay seed for --faults (same seed = "
+                         "bit-identical corruption)")
+    ap.add_argument("--input-policy",
+                    choices=["reject", "sanitize", "trust"],
+                    default="reject",
+                    help="process_audio boundary policy for hostile "
+                         "samples (forced to 'trust' while --faults is "
+                         "armed, so injected NaNs reach the card)")
+    ap.add_argument("--no-supervisor", action="store_true",
+                    help="disable the self-healing slot supervisor "
+                         "(poisoned slots stay poisoned; without it "
+                         "process_audio never waits for the card)")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="bounded request-queue depth (kws-audio); "
+                         "submissions beyond it are shed")
+    ap.add_argument("--degrade-thresholds", default="",
+                    help='Δ_TH degradation ladder above the base, '
+                         'ascending (e.g. "0.2,0.4"); stepped up under '
+                         "sustained queue pressure, released with "
+                         "hysteresis")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="step-latency watchdog budget in ms (0 = off); "
+                         "breaches count as overload pressure")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the requests")
     ap.add_argument("--device", default="cuda",
@@ -133,8 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(args):
-    """Reject nonsensical flags with a clear ``ValueError``."""
-    for name in ("slots", "chunk_samples"):
+    """Reject nonsensical flags with a clear ``ValueError`` before any
+    device work starts."""
+    for name in ("slots", "chunk_samples", "inflight_depth", "max_queue"):
         if getattr(args, name) < 1:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 1, "
                              f"got {getattr(args, name)}")
@@ -174,6 +381,14 @@ def validate_args(args):
         if not math.isfinite(args.s0_threshold) or args.s0_threshold < 0:
             raise ValueError(f"--s0-threshold must be finite and >= 0, "
                              f"got {args.s0_threshold}")
+    if args.watchdog_ms < 0:
+        raise ValueError(f"--watchdog-ms must be >= 0, got {args.watchdog_ms}")
+    if args.faults:
+        from repro_torch.launch.faults import parse_fault_specs
+        parse_fault_specs(args.faults)      # raises on a malformed spec
+    if args.degrade_thresholds:
+        ladder = _parse_ladder(args.degrade_thresholds, args.threshold)
+        OverloadPolicy(thresholds=ladder)   # raises on a bad ladder
 
 
 def _load_model(args):
@@ -217,18 +432,26 @@ def serve_kws_audio(args):
     device, fex, params, bundle = _load_model(args)
     audio_q, label_q = synth_batch(np.random.default_rng(args.seed + 1),
                                    args.requests)
+    supervisor, input_policy, injector = _session_extras(args)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
-                               numerics=args.numerics, bundle=bundle)
+                               numerics=args.numerics, bundle=bundle,
+                               supervisor=supervisor,
+                               input_policy=input_policy)
     sched = SlotScheduler(sess)
+    ctl = AdmissionController(sess, sched, OverloadPolicy(
+        thresholds=_parse_ladder(args.degrade_thresholds, args.threshold),
+        max_queue=args.max_queue, watchdog_ms=args.watchdog_ms or None))
     for req in range(args.requests):
-        sched.submit(req)
+        ctl.submit(req)
     chunk = args.chunk_samples
     t0 = time.perf_counter()
     done, stats = run_audio_requests(
-        sess, sched, None, audio_q=audio_q, chunk=chunk,
+        sess, sched, ctl, audio_q=audio_q, chunk=chunk,
         chunks_per_utt=-(-UTT_SAMPLES // chunk),
-        real_frames=UTT_SAMPLES // fex.cfg.frame_shift)
+        real_frames=UTT_SAMPLES // fex.cfg.frame_shift,
+        injector=injector, depth=_depth(args))
+    stats["controller"] = ctl.stats()
     return sess, done, label_q, stats, time.perf_counter() - t0
 
 
@@ -237,8 +460,6 @@ def stage0_params(args):
     with a binary head over ``--s0-channels`` inputs, from a generator
     seeded 7 (the reference's stage-0 seed), on the CPU (the session moves
     it)."""
-    import dataclasses
-
     from repro_torch.configs.deltakws import CONFIG
     from repro_torch.models import kws
     cfg0 = dataclasses.replace(CONFIG, vocab_size=2, d_model=16)
@@ -253,8 +474,9 @@ def serve_kws_detect(args):
     and score the fires.
 
     Returns ``(sess, point, stats, seconds, n_samples)``: the session (for
-    its ``summary()``), the pooled ``DetPoint``, the loop's stats, the wall
-    seconds of the loop (warm-up included) and the samples per stream.
+    its ``summary()``), the pooled ``DetPoint``, the loop's stats (with the
+    per-slot ``fires`` and the ``frames`` per slot), the wall seconds of
+    the loop (warm-up included) and the samples per stream.
     """
     from repro_torch.configs.deltakws import CONFIG
     from repro_torch.data.continuous import make_streams
@@ -290,22 +512,47 @@ def serve_kws_detect(args):
                          release_threshold=args.release_threshold)
     vad = (VAD_OFF if args.no_vad
            else VADConfig(energy_threshold=args.vad_threshold))
+    supervisor, input_policy, injector = _session_extras(args)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
                                numerics=args.numerics, bundle=bundle,
                                detector=det, vad=vad, cascade=cascade,
-                               stage0_params=params0)
+                               stage0_params=params0, supervisor=supervisor,
+                               input_policy=input_policy)
     chunk = args.chunk_samples - args.chunk_samples % shift or shift
     t0 = time.perf_counter()
     fires, frame_base, stats = run_continuous_detect(
-        sess, [s.audio for s in streams], chunk=chunk, n_samples=n_samples)
+        sess, [s.audio for s in streams], chunk=chunk, n_samples=n_samples,
+        injector=injector, depth=_depth(args))
     dt = time.perf_counter() - t0
+    stats.update(fires=fires, frames=frame_base)
     tol = int(round(args.tol_s * FS / shift))
     point = pool_points([
         det_point(fires[slot], streams[slot].truth_frames(shift),
                   frame_base, tol_frames=tol, frame_s=shift / FS)
         for slot in range(args.slots)])
     return sess, point, stats, dt, n_samples
+
+
+def _host_blocked_line(slo: dict) -> str:
+    hb = slo["host_blocked_ms_per_step"]
+    return (f"host-blocked/step {hb['total']:.2f} ms (assemble "
+            f"{hb['assemble']:.2f}, dispatch {hb['dispatch']:.2f}, fetch "
+            f"{hb['fetch']:.2f}), e2e decision latency p50 "
+            f"{slo['e2e_ms']['p50']:.2f} / p99.9 {slo['e2e_ms']['p999']:.2f}"
+            f" ms")
+
+
+def _robustness_line(sess, summ, cst: dict | None = None) -> str:
+    line = (f"robustness: {summ.recoveries} slot recoveries "
+            f"{summ.recovery_reasons or '{}'}, "
+            f"{len(sess.unhealthy_slots())} unhealthy")
+    if cst is not None:
+        line += (f", controller level {cst['level']} "
+                 f"(Δ_TH={cst['threshold']}), {cst['shed']} shed, "
+                 f"{cst['escalations']} escalations / {cst['releases']} "
+                 f"releases, {cst['watchdog_breaches']} watchdog breaches")
+    return line + (", counters overflowed" if summ.overflowed else "")
 
 
 def _device_name(dev) -> str:
@@ -323,11 +570,13 @@ def _detect_main(args) -> int:
     print(f"detect: {args.slots} stream(s) x {n_samples / FS:.0f} s "
           f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
           f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
-          f"[{sess.numerics}, depth 1] — {audio_s / dt:.1f}x realtime")
+          f"[{sess.numerics}, depth {slo['depth']}] — "
+          f"{audio_s / dt:.1f}x realtime")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
           f"{slo['decisions'] / steady_s:.0f} decisions/s, step latency "
           f"p50 {slo['step_ms']['p50']:.2f} / p99 "
           f"{slo['step_ms']['p99']:.2f} ms ({stats['steps']} steps)")
+    print(_host_blocked_line(slo))
     print(f"operating point Δ_TH={sess.threshold} "
           f"fire={args.fire_threshold} release={args.release_threshold}: "
           f"{point.n_events} events, {point.hits} hits, "
@@ -339,9 +588,8 @@ def _detect_main(args) -> int:
           f"{summ.energy_nj_per_decision:.1f} nJ/decision "
           f"(FEx {summ.fex_energy_nj_per_decision:.1f} nJ, "
           f"VAD {summ.vad_energy_nj_per_decision:.2f} nJ), "
-          f"modeled latency {summ.latency_ms:.2f} ms, "
-          f"{len(sess.unhealthy_slots())} unhealthy slots"
-          + (", counters overflowed" if summ.overflowed else ""))
+          f"modeled latency {summ.latency_ms:.2f} ms")
+    print(_robustness_line(sess, summ))
     return 0
 
 
@@ -357,11 +605,13 @@ def _cascade_main(args) -> int:
     print(f"cascade: {args.slots} stream(s) x {n_samples / FS:.0f} s "
           f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
           f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
-          f"[{sess.numerics}, depth 1] — {audio_s / dt:.1f}x realtime")
+          f"[{sess.numerics}, depth {slo['depth']}] — "
+          f"{audio_s / dt:.1f}x realtime")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
           f"{slo['decisions'] / steady_s:.0f} decisions/s, step latency "
           f"p50 {slo['step_ms']['p50']:.2f} / p99 "
           f"{slo['step_ms']['p99']:.2f} ms ({stats['steps']} steps)")
+    print(_host_blocked_line(slo))
     print(f"operating point Δ_TH={sess.threshold} "
           f"wake={args.wake_threshold} sleep={args.sleep_threshold} "
           f"hang={args.hangover_frames} "
@@ -378,9 +628,8 @@ def _cascade_main(args) -> int:
           f"(stage-0 {summ.s0_energy_nj_per_decision:.2f} nJ, "
           f"FEx {summ.fex_energy_nj_per_decision:.1f} nJ, "
           f"VAD {summ.vad_energy_nj_per_decision:.2f} nJ), "
-          f"modeled latency {summ.latency_ms:.2f} ms, "
-          f"{len(sess.unhealthy_slots())} unhealthy slots"
-          + (", counters overflowed" if summ.overflowed else ""))
+          f"modeled latency {summ.latency_ms:.2f} ms")
+    print(_robustness_line(sess, summ))
     return 0
 
 
@@ -405,17 +654,17 @@ def main(argv=None) -> int:
     print(f"served {len(done)} utterances ({audio_s:.0f} s audio) on "
           f"{args.slots} slots in {dt:.2f} s end-to-end (warm-up "
           f"{stats['warmup_s']:.2f} s) on {name} [{sess.numerics}, Δ_TH "
-          f"{sess.threshold}]: "
+          f"{sess.threshold}], pipeline depth {slo['depth']}: "
           f"{correct}/{len(done)} correct")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
           f"{stats['frames_served'] / steady_s:.0f} decisions/s, step "
           f"latency p50 {slo['step_ms']['p50']:.2f} / p99 "
           f"{slo['step_ms']['p99']:.2f} ms ({stats['steps']} steps)")
+    print(_host_blocked_line(slo))
     print(f"stream sparsity {summ.sparsity:.3f}, "
           f"{summ.energy_nj_per_decision:.1f} nJ/decision modeled "
-          f"(FEx {summ.fex_energy_nj_per_decision:.1f} nJ), "
-          f"{len(sess.unhealthy_slots())} unhealthy slots"
-          + (", counters overflowed" if summ.overflowed else ""))
+          f"(FEx {summ.fex_energy_nj_per_decision:.1f} nJ)")
+    print(_robustness_line(sess, summ, stats["controller"]))
     return 0
 
 

@@ -12,8 +12,12 @@ datapath instead (``_process_audio_chunk_int``): 12-bit ADC codes →
 integer FEx (``batched_iir_fex_int``) → int8-weight / int16-state ΔGRU
 with the 24-bit saturating accumulator (``delta_gru_seq_int``) → integer
 FC, decisions as argmaxes over int32 logit codes.  Nothing in the step
-calls ``.item()`` or ``.cpu()``; only the caller's fetch of the results
-syncs.
+calls ``.item()`` or ``.cpu()``, and the audio block and the reset masks
+go up through pinned memory with ``non_blocking=True``
+(``_upload``), so without a supervisor ``process_audio`` and
+``reset_streams`` never wait for the card; only the caller's fetch of
+the results does (``launch.engine`` fetches through pinned memory and
+one CUDA event per step).
 
     sess = StreamingKwsSession(params, cfg, threshold=0.1, batch=32)
     for audio in chunks:                       # (32, samples) raw audio
@@ -37,6 +41,12 @@ per-frame wake trace, and stage 1 runs only on its awake
 frames (the masked ``delta_gru_seq`` instantiation: an asleep slot's
 state stays bit-frozen and costs a store of h); the head still sees
 every frame, and events on asleep frames are masked out.
+
+With ``supervisor=SupervisorConfig(...)`` a host supervisor reads the
+per-slot health mask every ``check_every`` chunks (a fetch that waits
+for the step), quarantines the slots whose state cannot recover on its
+own and resets them; ``set_threshold`` moves Δ_TH mid-stream, the lever
+of ``launch.serve.AdmissionController``.
 
 Chunk boundaries are invisible: samples past the last whole 16 ms frame
 are carried host-side and prepended to the next chunk.  Without
@@ -242,6 +252,11 @@ HEALTH_REASONS = {
     HEALTH_VAD: "vad_state",
     HEALTH_SAT: "accumulator_saturation",
 }
+# Default quarantine set: every unrecoverable-state bit.  HEALTH_SAT is
+# left out: a saturating accumulator recovers once the input calms down,
+# so it is counted (``StreamSummary.sat_events``), not healed.
+QUARANTINE_DEFAULT = (HEALTH_INPUT | HEALTH_FEX | HEALTH_GRU
+                      | HEALTH_DET | HEALTH_VAD)
 _FEX_MAG_BOUND = 1e6       # float biquad register blow-up bound
 _INT16_RAIL = 32767        # int16 register saturation rail
 _FEAT_CODE_BOUND = 1 << 12  # 12-bit feature grid + 1 bit of slack
@@ -304,6 +319,42 @@ def slot_health(input_bad, fex_state: FExState | None,
     return flags
 
 
+class SupervisorConfig(NamedTuple):
+    """Host-side self-healing policy.
+
+    check_every: chunks between health-mask fetches (each fetch is one
+      (batch,) int32 copy that waits for its step; 1 checks after every
+      chunk).
+    quarantine_after: consecutive flagged checks before a slot is reset
+      (1 = immediate; raise it to ride out transient flags).
+    quarantine_mask: which HEALTH_* bits trigger a reset (default: every
+      poisoned-state bit; saturation stays telemetry only).
+    """
+
+    check_every: int = 1
+    quarantine_after: int = 1
+    quarantine_mask: int = QUARANTINE_DEFAULT
+
+
+# ------------------------------------------------------ host → device --
+def _upload(arr: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``.
+
+    A copy from pageable memory, or with non_blocking=False, makes
+    PyTorch wait for every earlier operation of the stream: the host
+    could never run ahead of the card.  On CUDA the array is therefore
+    copied once into pinned memory from PyTorch's caching host allocator
+    and sent with ``non_blocking=True``; the allocator reuses that block
+    only after the copies recorded on it have completed, so the host
+    never waits for the stream.  On the CPU it is a plain copy.
+    """
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(arr, order="C"))       # a copy
+    host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    np.copyto(host.numpy(), arr)          # one copy, from a strided view too
+    return host.to(device, non_blocking=True)
+
+
 # ------------------------------------------------------ exact telemetry --
 # Counters are int64 scalars on the device.  They saturate at the
 # capacity of the reference's split int32 counters (hi < 2^31 - 8 carries
@@ -351,7 +402,10 @@ class StreamSummary:
     s0_energy_nj_per_decision: float = 0.0  # always-on stage-0 cost
     frames_entered_stage1: int = 0         # frame-slots stage 1 executed
     overflowed: bool = False               # any telemetry counter saturated
-    # Serve-loop timing attached by ``launch.engine.run_audio_requests``.
+    recoveries: int = 0                    # slots auto-reset by supervisor
+    recovery_reasons: dict = dataclasses.field(default_factory=dict)
+    sat_events: int = 0                    # HEALTH_SAT slot-checks observed
+    # Serve-loop timing attached by the serve loops (``launch.engine``).
     slo: dict = dataclasses.field(default_factory=dict)
 
 
@@ -790,8 +844,16 @@ class StreamingKwsSession:
       stage0_params: the stage-0 model's parameter dict (``init_kws`` with
         ``vocab_size=2`` and the reduced width and input); under
         ``numerics="int8"`` it gets its own promotion at session creation.
-      mesh, supervisor: parts of the reference session that later slices
-        of the port add; setting either raises ``NotImplementedError``.
+      mesh: the slot mesh across cards, a later slice of the port;
+        setting it raises ``NotImplementedError``.
+      supervisor: a ``SupervisorConfig`` enabling the self-healing
+        supervisor: the per-slot health mask the step emits is fetched
+        every ``check_every`` chunks, and slots whose quarantine-mask bits
+        stay set for ``quarantine_after`` consecutive checks are reset to
+        fresh-stream state (``reset_streams``); recoveries and their
+        reasons surface in ``StreamSummary``.  ``None`` (default): the
+        flags are still computed, nobody reads them, and ``process_audio``
+        never waits for the card.
       input_policy: what ``process_audio`` does with hostile samples —
         "reject" (default) raises ``StreamInputError`` on non-finite
         samples, "sanitize" squashes NaN to silence and clamps ±Inf to
@@ -809,7 +871,7 @@ class StreamingKwsSession:
                  cascade: CascadeConfig | None = None, stage0_params=None,
                  supervisor=None, input_policy: str = "reject"):
         if mesh is not None:
-            raise _not_ported("slot sharding over a device mesh", "9")
+            raise _not_ported("slot sharding over a device mesh", "9b")
         if numerics not in ("float32", "int8"):
             raise ValueError(f"unknown numerics: {numerics!r}")
         if vad is not None and detector is None:
@@ -842,8 +904,6 @@ class StreamingKwsSession:
                 raise ValueError(
                     f"stage-0 model consumes {s0_in} channels but "
                     f"cascade.s0_channels={cascade.s0_channels}")
-        if supervisor is not None:
-            raise _not_ported("the self-healing supervisor", "8")
         if input_policy not in ("reject", "sanitize", "trust"):
             raise ValueError(f"unknown input_policy: {input_policy!r} "
                              f"(choose reject / sanitize / trust)")
@@ -853,6 +913,7 @@ class StreamingKwsSession:
                      if detector is not None else None)
         self.cfg = cfg
         self.batch = batch
+        self.n_shards = 1                  # the slot mesh is a later slice
         self.threshold = float(cfg.delta_threshold if threshold is None
                                else threshold)
         self.input_policy = input_policy
@@ -901,6 +962,12 @@ class StreamingKwsSession:
         self._chunks = 0
         self._input_dim = input_dim
         self._last_health: torch.Tensor | None = None
+        self.supervisor = supervisor
+        self._strikes = np.zeros((batch,), np.int64)
+        self._recoveries = 0
+        self._recovery_reasons: dict[str, int] = {}
+        self._sat_events = 0
+        self._flagged: frozenset[int] = frozenset()
         self._slo: dict = {}
         if input_dim is not None:
             self._init_state(input_dim)
@@ -1009,7 +1076,8 @@ class StreamingKwsSession:
         if audio.shape[0] != self.batch:
             raise ValueError(f"audio carries {audio.shape[0]} streams, "
                              f"session was created with batch={self.batch}")
-        audio = np.concatenate([self._audio_rem, audio], axis=1)
+        if self._audio_rem.shape[1]:
+            audio = np.concatenate([self._audio_rem, audio], axis=1)
         shift = fex.cfg.frame_shift
         n_frames = audio.shape[1] // shift
         self._audio_rem = audio[:, n_frames * shift:]
@@ -1025,8 +1093,8 @@ class StreamingKwsSession:
                     logits=logits, votes=z, nz=z, events=z, gate=none,
                     awake=none if self._cascade is not None else None)
             return ChunkResult(logits=logits, votes=z, nz=z)
-        block = torch.from_numpy(
-            np.ascontiguousarray(audio[:, :n_frames * shift])).to(self.device)
+        block = _upload(audio[:, :n_frames * shift], self.device,
+                        torch.float32)
         fcfg = fex.cfg
         if self.numerics == "int8":
             kw = dict(gfmt=self._bundle.gfmt, ffmt=self._bundle.ffmt)
@@ -1064,6 +1132,7 @@ class StreamingKwsSession:
                 *weights, self._fex_state, self._state, self._acc, block,
                 threshold=self.threshold, frame_shift=shift, **kw)
         self._chunks += 1
+        self._maybe_heal()
         return out
 
     def process_chunk(self, feats) -> ChunkResult:
@@ -1076,8 +1145,8 @@ class StreamingKwsSession:
         if self._detector is not None:
             raise ValueError("detection mode needs raw audio (the VAD "
                              "gates on sample energy): use process_audio")
-        feats = torch.as_tensor(np.asarray(feats, np.float32),
-                                device=self.device)
+        feats = _upload(np.asarray(feats, np.float32), self.device,
+                        torch.float32)
         if feats.dim() == 2:
             feats = feats[:, None, :]                 # (F, 1, C)
         if feats.shape[0] == 0:
@@ -1096,6 +1165,7 @@ class StreamingKwsSession:
             self._gru, self._w_fc, self._b_fc, self._state, self._acc, feats,
             threshold=self.threshold, **kw)
         self._chunks += 1
+        self._maybe_heal()
         return out
 
     @property
@@ -1135,6 +1205,11 @@ class StreamingKwsSession:
         self._acc = _zero_accum(self.device)
         self._chunks = 0
         self._last_health = None
+        self._strikes = np.zeros((self.batch,), np.int64)
+        self._recoveries = 0
+        self._recovery_reasons = {}
+        self._sat_events = 0
+        self._flagged = frozenset()
         self._slo = {}
 
     def reset_stream(self, i: int):
@@ -1158,7 +1233,7 @@ class StreamingKwsSession:
             return
         mask = np.zeros((self.batch,), bool)
         mask[slots] = True
-        mask = torch.from_numpy(mask).to(self.device)
+        mask = _upload(mask, self.device, torch.bool)
         if self._state is not None:
             self._state = _reset_gru_slots(self._state, self._gru.b, mask)
         if self._fex_state is not None:
@@ -1172,14 +1247,106 @@ class StreamingKwsSession:
                                                    self._gru0.b, mask)
         if self._audio_rem is not None and self._audio_rem.shape[1]:
             self._audio_rem[slots] = 0.0
+        self._strikes[slots] = 0          # a reset slot restarts clean
+        if self._flagged:
+            self._flagged = self._flagged - set(slots)
+
+    # ------------------------------------------------ self-healing --
+
+    def set_threshold(self, threshold: float):
+        """Move the serving step to another Δ_TH mid-stream: the
+        graceful-degradation lever the admission controller pulls.
+
+        Carried stream state is untouched; the next chunk runs with the
+        new delta deadband (int8: its codes through ``gfmt.th_codes`` at
+        step time).  A cascade session moves stage 1 only; stage 0 keeps
+        ``cascade.s0_threshold``.  Raises ``ValueError`` for a non-finite
+        or negative threshold; a no-op at the current one.
+        """
+        threshold = float(threshold)
+        if not np.isfinite(threshold) or threshold < 0.0:
+            raise ValueError(f"delta threshold must be finite and >= 0, "
+                             f"got {threshold}")
+        self.threshold = threshold
+
+    def _health_flags(self) -> np.ndarray:
+        """The last step's (batch,) health mask on the host (waits for
+        that step)."""
+        return self._last_health.cpu().numpy()
+
+    def _count_reasons(self, flags: np.ndarray, victims, mask: int):
+        for s in victims:
+            for bit, reason in HEALTH_REASONS.items():
+                if flags[s] & bit & mask:
+                    self._recovery_reasons[reason] = \
+                        self._recovery_reasons.get(reason, 0) + 1
+        self._recoveries += len(victims)
+
+    def _quarantine(self, flags: np.ndarray, mask: int) -> list[int]:
+        """Reset every slot whose strike count cleared the bar; returns
+        the slots reset.  ``flags`` is the fetched (batch,) health mask,
+        ``mask`` the quarantine bit set."""
+        bad = (flags & mask) != 0
+        self._strikes = np.where(bad, self._strikes + 1, 0)
+        after = (self.supervisor.quarantine_after
+                 if self.supervisor is not None else 1)
+        victims = [int(s) for s in np.flatnonzero(self._strikes >= after)]
+        if victims:
+            self._count_reasons(flags, victims, mask)
+            self.reset_streams(victims)
+        return victims
+
+    def _maybe_heal(self):
+        """One supervisor tick (called after every processed chunk)."""
+        sup = self.supervisor
+        if sup is None or self._last_health is None:
+            return
+        if self._chunks % sup.check_every:
+            return
+        flags = self._health_flags()
+        self._sat_events += int(np.count_nonzero(flags & HEALTH_SAT))
+        healed = self._quarantine(flags, sup.quarantine_mask)
+        # Host cache of who is STILL flagged (below the strike bar, not
+        # yet quarantined): the scheduler reads it at admit() without a
+        # fetch of its own.
+        bad = (flags & sup.quarantine_mask) != 0
+        bad[healed] = False               # quarantined slots restart clean
+        self._flagged = frozenset(int(s) for s in np.flatnonzero(bad))
+
+    def heal(self, mask: int | None = None) -> list[int]:
+        """Force one supervisor pass now, ignoring ``check_every`` and
+        the strike bar: every slot the last chunk flagged in ``mask``
+        (default: the supervisor's quarantine mask, or
+        ``QUARANTINE_DEFAULT`` without one) is reset at once.  Returns
+        the slots reset.  Safe without a supervisor."""
+        if self._last_health is None:
+            return []
+        if mask is None:
+            mask = (self.supervisor.quarantine_mask
+                    if self.supervisor is not None else QUARANTINE_DEFAULT)
+        flags = self._health_flags()
+        victims = [int(s) for s in np.flatnonzero((flags & mask) != 0)]
+        if victims:
+            self._count_reasons(flags, victims, mask)
+            self.reset_streams(victims)
+        return victims
 
     def unhealthy_slots(self) -> dict[int, int]:
         """Slots flagged by the LAST processed chunk: {slot: HEALTH_*
         bitmask}, empty when everything is healthy (one host fetch)."""
         if self._last_health is None:
             return {}
-        flags = self._last_health.cpu().numpy()
+        flags = self._health_flags()
         return {int(i): int(flags[i]) for i in np.flatnonzero(flags)}
+
+    def flagged_slots(self) -> frozenset:
+        """Slots the supervisor holds under suspicion: flagged by the
+        last health check but still below the strike bar.  Host-cached by
+        ``_maybe_heal``, so reading it never waits for the card; always
+        empty without a supervisor.  ``SlotScheduler.admit`` skips them:
+        a stream admitted into a still-poisoned slot would inherit its
+        corrupted state."""
+        return self._flagged
 
     def attach_slo(self, report: dict):
         """Attach a serve-loop timing block; ``summary().slo`` carries it.
@@ -1191,11 +1358,13 @@ class StreamingKwsSession:
         totals = dict(zip(_Accum._fields,
                           torch.stack(list(self._acc)).cpu().tolist()))
         overflow = any(v >= _COUNT_SAT for v in totals.values())
+        robust = dict(overflowed=overflow, recoveries=self._recoveries,
+                      recovery_reasons=dict(self._recovery_reasons),
+                      sat_events=self._sat_events, slo=dict(self._slo))
         if totals["frames"] == 0:
             return StreamSummary(frames=0, chunks=0, sparsity=0.0,
                                  energy_nj_per_decision=0.0, latency_ms=0.0,
-                                 dense_energy_nj=0.0, overflowed=overflow,
-                                 slo=dict(self._slo))
+                                 dense_energy_nj=0.0, **robust)
         frames = totals["frames"]
         n_ch = self._fex.cfg.n_active if self._fex is not None else 10
         c = frame_cost(totals["macs"] / frames, n_channels=n_ch)
@@ -1231,8 +1400,7 @@ class StreamingKwsSession:
             fex_energy_nj_per_decision=fex_energy_nj(
                 float(totals["fex_samples"]), n_ch) / frames,
             vad_duty=totals["vad_open"] / frames,
-            vad_energy_nj_per_decision=vad_nj, **cascade_kw,
-            overflowed=overflow, slo=dict(self._slo))
+            vad_energy_nj_per_decision=vad_nj, **cascade_kw, **robust)
 
 
 class SlotScheduler:
@@ -1252,6 +1420,7 @@ class SlotScheduler:
     def __init__(self, session: StreamingKwsSession):
         self._sess = session
         self.n_slots = session.batch
+        self.n_shards = session.n_shards
         self._queue: collections.deque = collections.deque()
         self._free = list(range(self.n_slots - 1, -1, -1))  # pop(): low first
         self.live: dict[int, Any] = {}               # slot -> payload
@@ -1267,13 +1436,25 @@ class SlotScheduler:
         """Enqueue one stream request (admitted at the next ``admit()``)."""
         self._queue.append(payload)
 
+    def occupancy(self) -> list[int]:
+        """Live streams per shard: ``[len(live)]`` on one device."""
+        return [len(self.live)]
+
     def admit(self) -> list[tuple[int, Any]]:
         """Map queued requests onto free slots (the most recently freed
         slot first, like the reference) and reset the whole wave with ONE
-        batched ``reset_streams``.  Returns the (slot, payload) pairs."""
+        batched ``reset_streams``.  Slots the supervisor flags
+        (``session.flagged_slots()``) are skipped and stay on the free
+        list until it heals or clears them.  Returns the (slot, payload)
+        pairs."""
+        flagged = self._sess.flagged_slots()
         admitted = []
-        while self._queue and self._free:
-            slot = self._free.pop()
+        while self._queue:
+            idx = next((i for i in range(len(self._free) - 1, -1, -1)
+                        if self._free[i] not in flagged), None)
+            if idx is None:
+                break                     # full, or only unhealthy slots
+            slot = self._free.pop(idx)
             payload = self._queue.popleft()
             self.live[slot] = payload
             admitted.append((slot, payload))

@@ -257,7 +257,7 @@ def test_serve_kws_cascade_on_cpu(numerics, capsys):
             "--sleep-threshold", "0.4"]
     assert tserve.main(argv) == 0
     out = capsys.readouterr().out
-    assert f"[{numerics}, depth 1]" in out
+    assert f"[{numerics}, depth 2]" in out
     for text in ("stage-1 duty", "miss rate", "stage-0", "FA/hr",
                  "decisions/s"):
         assert text in out, text

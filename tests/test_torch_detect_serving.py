@@ -231,7 +231,7 @@ def test_serve_kws_detect_on_cpu(numerics, capsys):
             "--release-threshold", "0.085"]
     assert tserve.main(argv) == 0
     out = capsys.readouterr().out
-    assert f"[{numerics}, depth 1]" in out and "FA/hr" in out
+    assert f"[{numerics}, depth 2]" in out and "FA/hr" in out
     assert "vad duty" in out and "decisions/s" in out
 
 
@@ -250,13 +250,13 @@ def test_detect_loop_and_cli_checks(weights):
     assert (args.stream_seed, args.seed, args.fire_threshold) == (100, 0, 0.4)
     sess = _port(weights[1], "float32", batch=1)
     z = [np.zeros(256, np.float32)]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="depth"):
         tengine.run_continuous_detect(sess, z, chunk=128, n_samples=256,
-                                      depth=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tengine.run_continuous_detect(sess, z, chunk=128, n_samples=256,
-                                      injector=object())
-    fires, frames, stats = tengine.run_continuous_detect(
-        sess, z, chunk=128, n_samples=256, warm=False)
-    assert fires == [[]] and frames == 2 and stats["steps"] == 2
-    assert sess.summary().slo["decisions"] == 2
+                                      depth=0)
+    for depth in (1, 2):              # the pipelined engine is ported
+        sess.reset()
+        fires, frames, stats = tengine.run_continuous_detect(
+            sess, z, chunk=128, n_samples=256, warm=False, depth=depth)
+        assert fires == [[]] and frames == 2 and stats["steps"] == 2
+        assert sess.summary().slo["decisions"] == 2
+        assert sess.summary().slo["depth"] == depth

@@ -66,6 +66,35 @@ def test_cascade_modules_import_with_jax_blocked():
     assert out.stdout.split()[-1] == "ok"
 
 
+_IMPORT_FAULTS = """
+import sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+from repro_torch.launch import engine, faults, serve, streaming
+for mod, names in ((faults, ("FaultSpec", "FaultPlan", "FaultInjector",
+                             "adversarial_plan", "parse_fault_specs")),
+                   (streaming, ("SupervisorConfig", "QUARANTINE_DEFAULT",
+                                "_upload")),
+                   (serve, ("OverloadPolicy", "AdmissionController",
+                            "_parse_ladder", "_session_extras")),
+                   (engine, ("PipelinedEngine", "FetchedStep",
+                             "run_audio_requests", "run_continuous_detect"))):
+    for name in names:
+        assert hasattr(mod, name), (mod.__name__, name)
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_fault_and_engine_modules_import_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_FAULTS],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

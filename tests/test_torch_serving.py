@@ -176,6 +176,15 @@ def test_unported_session_options_raise(weights, option):
             tstream.StreamingKwsSession(tkws.params_from_numpy(weights[1]),
                                         T_SMOKE, device="cpu", **option)
         return
+    if "supervisor" in option:
+        # The supervisor is ported: the session takes it as the reference
+        # does, and nothing is flagged before a chunk has run.
+        sess = tstream.StreamingKwsSession(
+            tkws.params_from_numpy(weights[1]), T_SMOKE, device="cpu",
+            **option)
+        assert sess.supervisor is option["supervisor"]
+        assert sess.flagged_slots() == frozenset() and sess.heal() == []
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstream.StreamingKwsSession(tkws.params_from_numpy(weights[1]),
                                     T_SMOKE, device="cpu", **option)
