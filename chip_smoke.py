@@ -138,7 +138,28 @@ Phases, each exiting non-zero on failure:
      depth 1 and 2, without and with the supervisor, five alternating
      rounds after an untimed one (``--profile``: device busy share),
      times not gated;
-  9. the ``kernels`` JSON line (the eight kernels and the two masked
+  9. training on the card: the gradients of ``kws.loss_fn`` and
+     ``kws.frame_loss_fn`` at full width (I = 10, H = 64, K = 12, 62
+     frames, B = 8, Δ_TH 0.1), float and QAT, on the card against the CPU
+     (transmit counts equal, losses within 1e-6, gradients within 5e-6 ×
+     max|g| per leaf); ``launch.train --arch deltakws`` in-process at
+     B = 64 for 16 steps (QAT, --promote; counts zeroed just before and
+     read just after: ``batched_iir_fex`` once per training batch + once
+     for the evaluation, ``delta_gru_seq`` and ``delta_gru_seq_int`` once
+     each for the float and int8 evaluation; the loss finite and falling;
+     float and int8 eval accuracy and ms per step printed); ms per step
+     of the four step kinds (utterance B = 64 and frame-level B = 32 × 2 s,
+     float and QAT), device activities per step (torch.profiler) and the
+     device's busy share of two (utterance QAT, frame-level float); a
+     Trainer whose step 3 raises resumes from its checkpoint to the
+     unfaulted run's params and moments bit for bit;
+     the promoted bundle loads back code for code and serves 64 requests
+     through the int8 kernels (once per step); ``serve --train-steps 2``
+     for kws-detect and kws-cascade in both numerics (the float FEx
+     kernel once per training batch of each stage, the serving path's
+     kernels once per step as in phases 5–6; fires and stage-1 duty
+     printed, not gated);
+  10. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations), the card line, and the final ``{"ok": true, ...}``
      line.
 
@@ -3417,6 +3438,379 @@ def faults_phase(torch, np, params, card, profile):
             "timing": timing}
 
 
+# --------------------------------------------------------- training phase --
+TRAIN_STEPS, TRAIN_BATCH = 16, 64         # launch.train --arch deltakws
+TRAIN_GRAD_B = 8                          # the CUDA-vs-CPU gradient batch
+# CUDA vs CPU gradients, per leaf, times the leaf's max |g|: cuBLAS sums
+# Δ·W, the FC and the weight gradients in another order than the CPU
+# (measured ≤ 7.3e-7 on the H100, my probe before this phase existed).
+TRAIN_GRAD_TOL = 5e-6
+TRAIN_FAULT_STEPS, TRAIN_FAULT_AT, TRAIN_FAULT_B = 5, 3, 16
+TRAIN_SERVE_STEPS = 2                     # serve --train-steps, per stage
+TRAIN_TIMED_STEPS = 2                     # per step kind, after one untimed
+
+
+def cuda_activities(torch, fn):
+    """Run ``fn`` once under torch.profiler, device activity only (the
+    host-side trace of ~10^5 eager ops costs tens of seconds): (its
+    result, the device activities — every kernel, this package's and
+    PyTorch's eager ones, and every copy — and the device's busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (out, sum(e.count for e in dev),
+            sum(e.self_device_time_total for e in dev) / 1e3)
+
+
+def train_grads_against_cpu(torch, np, bad):
+    """The gradients of ``kws.loss_fn`` (keyword utterances) and
+    ``kws.frame_loss_fn`` (continuous streams with frame labels) at the
+    paper model's full width (I = 10, H = 64, K = 12, 62 frames, Δ_TH
+    0.1), float and QAT, autograd on the card against autograd on the CPU
+    (the plain path the CPU tests hold against ``jax.grad``): transmit
+    counts equal, losses within 1e-6 relative, every gradient within
+    TRAIN_GRAD_TOL × max|g| of the CPU's.  Returns the largest relative
+    gradient difference."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import synth_frame_batch
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.frontend.fex import FeatureExtractor
+    from repro_torch.models import kws
+    fex = FeatureExtractor()
+    params = kws.init_kws(torch.Generator().manual_seed(0), CONFIG,
+                          input_dim=10)
+    audio, labels = synth_batch(np.random.default_rng(11), TRAIN_GRAD_B)
+    stream, frame_labels = synth_frame_batch(
+        np.random.default_rng(12), TRAIN_GRAD_B, duration_s=62 * 128 / 8000)
+    # The features from the FEx kernel, bit for bit its plain version's
+    # (phase 2), copied to the CPU.
+    cuda = {"utterance": {"feats": fex(torch.from_numpy(audio).cuda()),
+                          "labels": torch.from_numpy(labels).cuda()},
+            "frame": {"feats": fex(torch.from_numpy(stream).cuda()),
+                      "frame_labels": torch.from_numpy(frame_labels).cuda()}}
+    batches = {"cuda": cuda, "cpu": {
+        kind: {k: v.cpu() for k, v in b.items()} for kind, b in cuda.items()}}
+    worst = 0.0
+    for kind, loss in (("utterance", kws.loss_fn),
+                       ("frame", kws.frame_loss_fn)):
+        for qat in (False, True):
+            res = {}
+            for dev in ("cpu", "cuda"):
+                batch = batches[dev][kind]
+                p = {k: v.to(dev).requires_grad_(True)
+                     for k, v in params.items()}
+                value, _ = loss(p, CONFIG, batch, 0.1, qat=qat)
+                grads = torch.autograd.grad(value, list(p.values()))
+                with torch.no_grad():
+                    _, st = kws.forward(p, CONFIG, batch["feats"], 0.1,
+                                        qat=qat)
+                res[dev] = (value.item(), {k: g.cpu() for k, g in
+                                           zip(p, grads)},
+                            st.nz_dx.cpu(), st.nz_dh.cpu())
+            (cv, cg, cx, ch), (gv, gg, gx, gh) = res["cpu"], res["cuda"]
+            counts = torch.equal(cx, gx) and torch.equal(ch, gh)
+            rel = {k: float((cg[k] - gg[k]).abs().max()
+                            / cg[k].abs().max()) for k in cg}
+            finite = all(bool(torch.isfinite(g).all()) for g in gg.values())
+            worst = max(worst, *rel.values())
+            print(f"[train] gradients {kind} {'QAT' if qat else 'float'} "
+                  f"(B={TRAIN_GRAD_B}, 62 frames): loss cpu {cv:.7f} cuda "
+                  f"{gv:.7f}; transmit counts equal {counts} "
+                  f"({int(cx.sum())} + {int(ch.sum())} sent); max |Δg| / "
+                  f"max |g| " + " ".join(f"{k} {v:.1e}"
+                                         for k, v in rel.items()))
+            bad.check(counts, f"{kind} {qat}: transmit counts differ "
+                              f"between the card and the CPU")
+            bad.check(finite and abs(gv - cv) <= 1e-6 * abs(cv),
+                      f"{kind} {qat}: loss {gv} on the card, {cv} on "
+                      f"the CPU")
+            bad.check(max(rel.values()) <= TRAIN_GRAD_TOL,
+                      f"{kind} {qat}: gradients differ by {rel}")
+    return worst
+
+
+def train_run(torch, np, tmp, bad):
+    """``launch.train --arch deltakws`` in-process at B = 64 for
+    TRAIN_STEPS steps (QAT, Δ_TH 0.1, --promote), every kernel's count set
+    to 0 just before and read just after: ``batched_iir_fex`` once per
+    training batch and once for the evaluation, ``delta_gru_seq`` (the
+    float evaluation) and ``delta_gru_seq_int`` (the promoted int8 one)
+    once each, nothing else.  The loss must be finite and fall (the mean
+    of the last five steps below the first five's)."""
+    from repro_torch.launch import train
+    wrappers = kernel_wrappers()
+    args = train.build_parser().parse_args(
+        ["--arch", "deltakws", "--steps", str(TRAIN_STEPS), "--batch",
+         str(TRAIN_BATCH), "--ckpt-dir", str(tmp / "ckpt"),
+         "--ckpt-every", "10", "--promote", str(tmp / "trained.npz")])
+    zero_launches(wrappers)
+    t0 = time.perf_counter()
+    run = train.train_kws(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    hist = run["trainer"].history
+    losses = [h.metrics["loss"] for h in hist]
+    walls = [h.wall_s * 1e3 for h in hist]
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    want = {"batched_iir_fex": TRAIN_STEPS + 1, "delta_gru_seq": 1,
+            "delta_gru_seq_int": 1}
+    print(f"[train] launch.train --arch deltakws (QAT, B={TRAIN_BATCH}, "
+          f"Δ_TH 0.1) {len(hist)} steps in {secs:.1f} s: loss "
+          f"{losses[0]:.4f} → {losses[-1]:.4f} (mean of first 5 "
+          f"{first:.4f}, last 5 {last:.4f}), train acc "
+          f"{hist[-1].metrics['acc']:.3f}, sparsity "
+          f"{hist[-1].metrics['sparsity']:.3f}; ms/step median "
+          f"{statistics.median(walls[1:]):.1f} (first {walls[0]:.1f}, min "
+          f"{min(walls):.1f}, max {max(walls):.1f}); eval acc float "
+          f"{run['acc_float']:.3f} / int8 {run['acc_int8']:.3f}; "
+          f"launches {launches}")
+    bad.check(all(np.isfinite(losses)) and last < first,
+              f"the training loss did not fall: {losses}")
+    bad.check(all(launches[k] == v for k, v in want.items())
+              and not any(v for k, v in launches.items() if k not in want),
+              f"launch.train launched {launches}, want {want}")
+    bad.check(run["trainer"].recoveries == 0, "launch.train recovered")
+    trainer = run["trainer"]
+    batch = trainer.data_fn(trainer.step)
+    _, n, busy = cuda_activities(torch, lambda: trainer.step_fn(
+        trainer.params, trainer.opt_state, batch))
+    return {"run": run, "losses": losses, "ms": walls, "launches": launches,
+            "step_launches": n, "step_busy_ms": busy}
+
+
+def train_step_times(torch, np, res):
+    """ms per training step of the four step kinds — utterance-level at
+    B = 64 × 1 s (QAT: the launch.train run's steps; float) and
+    frame-level at B = 32 × 2 s streams (float, QAT) — each but the first
+    TRAIN_TIMED_STEPS timed steps after an untimed one (host clock around
+    the step and a synchronise); device activities per step and the busy
+    share of one step under torch.profiler for utterance QAT and
+    frame-level float (tracing a step takes ~20 s; the count does not
+    depend on the numerics but for QAT's few extra ops)."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import synth_frame_batch
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.frontend.fex import FeatureExtractor
+    from repro_torch.models import kws
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.promote import make_kws_step_fn
+    fex = FeatureExtractor()
+    out = {("utterance", True): {
+        "ms": statistics.median(res["ms"][1:]), "launches":
+        res["step_launches"], "busy_ms": res["step_busy_ms"]}}
+    for kind, qat in (("utterance", False), ("frame", False),
+                      ("frame", True)):
+        frame = kind == "frame"
+        params = {k: v.cuda() for k, v in kws.init_kws(
+            torch.Generator().manual_seed(0), CONFIG, input_dim=10).items()}
+        state = opt.init(params)
+        step = make_kws_step_fn(CONFIG, opt.AdamWConfig(
+            lr=3e-3, weight_decay=0.01, warmup_steps=20, total_steps=100),
+            0.1, qat=qat, frame_level=frame)
+        rng = np.random.default_rng(0)
+        walls = []
+        for i in range(TRAIN_TIMED_STEPS + 1):
+            if frame:
+                audio, labels = synth_frame_batch(rng, 32)
+                key = "frame_labels"
+            else:
+                audio, labels = synth_batch(rng, TRAIN_BATCH)
+                key = "labels"
+            batch = {"feats": fex(torch.from_numpy(audio).cuda()),
+                     key: torch.from_numpy(labels).cuda()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        r = {"ms": statistics.median(walls[1:]), "launches": None,
+             "busy_ms": None}
+        if (kind, qat) == ("frame", False):
+            _, r["launches"], r["busy_ms"] = cuda_activities(
+                torch, lambda: step(params, state, batch))
+        out[(kind, qat)] = r
+    for (kind, qat), r in out.items():
+        shape = "B=32 x 2 s" if kind == "frame" else f"B={TRAIN_BATCH} x 1 s"
+        traced = ("" if r["launches"] is None else
+                  f", {r['launches']} device activities (kernels and copies) "
+                  f"per step, device busy {r['busy_ms']:.1f} ms/step "
+                  f"({r['busy_ms'] / r['ms']:.3f} of the step)")
+        print(f"[train] step {kind} {'QAT' if qat else 'float'} ({shape}): "
+              f"{r['ms']:.1f} ms/step{traced}")
+    return out
+
+
+def train_fault_resume(torch, np, tmp, bad):
+    """A Trainer on the card (QAT, B = TRAIN_FAULT_B, a checkpoint every
+    2 steps) whose step TRAIN_FAULT_AT raises once: it restores step 2,
+    replays, and ends on the unfaulted run's params bit for bit."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.frontend.fex import FeatureExtractor
+    from repro_torch.models import kws
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.promote import make_kws_step_fn
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    fex = FeatureExtractor()
+    step = make_kws_step_fn(CONFIG, opt.AdamWConfig(
+        lr=3e-3, weight_decay=0.01, warmup_steps=2, total_steps=10), 0.1)
+
+    def data_fn(i):
+        audio, labels = synth_batch(np.random.default_rng(i), TRAIN_FAULT_B)
+        return {"feats": fex(torch.from_numpy(audio).cuda()),
+                "labels": torch.from_numpy(labels).cuda()}
+
+    def trainer(name):
+        params = {k: v.cuda() for k, v in kws.init_kws(
+            torch.Generator().manual_seed(0), CONFIG, input_dim=10).items()}
+        return Trainer(TrainerConfig(ckpt_dir=str(tmp / name), ckpt_every=2),
+                       step, params, opt.init(params), data_fn)
+
+    ref = trainer("ref")
+    ref.run(TRAIN_FAULT_STEPS)
+    armed = [True]
+
+    def hook(i):
+        if i == TRAIN_FAULT_AT and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected device loss")
+
+    ft = trainer("faulted")
+    ft.run(TRAIN_FAULT_STEPS, fault_hook=hook)
+    same = all(torch.equal(ft.params[k], ref.params[k]) for k in ref.params)
+    same &= all(torch.equal(a, b) for a, b in zip(
+        (ft.opt_state.m[k] for k in ref.params),
+        (ref.opt_state.m[k] for k in ref.params)))
+    print(f"[train] fault at step {TRAIN_FAULT_AT}: {ft.recoveries} "
+          f"recovery, resumed from step 2, {ft.step} steps; params and "
+          f"moments equal to the unfaulted run's bit for bit: {same}")
+    bad.check(ft.recoveries == 1 and ft.step == ref.step and same,
+              "the faulted run did not resume to the unfaulted params")
+
+
+def train_bundle_serves(torch, res, bad):
+    """The promoted bundle of the launch.train run: saved, loaded back
+    code for code, and served by ``serve --bundle`` (kws-audio, SLOTS
+    slots, REQUESTS requests) through the integer kernels, each once per
+    step (+ the warm-up), nothing else."""
+    from repro_torch.launch import serve
+    from repro_torch.train.promote import load_bundle
+    run = res["run"]
+    back = load_bundle(run["bundle_path"])
+    b = run["bundle"]
+    same = all(torch.equal(x.cpu(), y) for x, y in (
+        (b.gru.w_x, back.gru.w_x), (b.gru.w_h, back.gru.w_h),
+        (b.gru.b, back.gru.b), (b.w_fc, back.w_fc), (b.b_fc, back.b_fc),
+        (b.coef, back.coef))) and (b.gfmt, b.ffmt) == (back.gfmt, back.ffmt)
+    wrappers = kernel_wrappers()
+    args = serve.build_parser().parse_args(
+        ["--mode", "kws-audio", "--slots", str(SLOTS), "--requests",
+         str(REQUESTS), "--chunk-samples", str(CHUNK), "--seed", "0",
+         "--bundle", str(run["bundle_path"])])
+    serve.validate_args(args)
+    zero_launches(wrappers)
+    sess, done, labels, stats, dt = serve.serve_kws_audio(args)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    path = ("batched_iir_fex_int", "delta_gru_seq_int")
+    want = stats["steps"] + 1
+    correct = sum(1 for r, p in done if p == int(labels[r]))
+    print(f"[train] bundle {run['bundle_path'].name}: codes and formats "
+          f"round-trip {same}; served int8 {len(done)} requests, "
+          f"{correct} correct (chance 1/12), {stats['steps']} "
+          f"steps, launches {launches}")
+    bad.check(same, "the saved bundle does not load back code for code")
+    bad.check(len(done) == REQUESTS and sess.numerics == "int8",
+              f"the bundle served {len(done)} requests as {sess.numerics}")
+    bad.check(all(launches[k] == want for k in path) and not any(
+        v for k, v in launches.items() if k not in path),
+        f"the bundle's serve run launched {launches}, want {path} x {want}")
+    return correct
+
+
+def serve_trained(torch, bad):
+    """``serve --train-steps TRAIN_SERVE_STEPS`` for kws-detect and
+    kws-cascade in both numerics (SLOTS slots × DETECT_SECONDS streams at
+    the default operating point), counts set to 0 just before and read
+    just after: the float FEx kernel once per training batch (stage 1's,
+    and stage 0's in the cascade), the serving path's kernels once per
+    step (+ the warm-up) as in phases 5–6, nothing else.  Prints the
+    trained model's fires and stage-1 duty (not gated)."""
+    from repro_torch.launch import serve
+    wrappers = kernel_wrappers()
+    out = {}
+    for mode in ("kws-detect", "kws-cascade"):
+        for numerics in ("float32", "int8"):
+            args = serve.build_parser().parse_args(
+                ["--mode", mode, "--numerics", numerics, "--slots",
+                 str(SLOTS), "--stream-seconds", str(DETECT_SECONDS),
+                 "--chunk-samples", str(CHUNK), "--seed", "0",
+                 "--train-steps", str(TRAIN_SERVE_STEPS)])
+            serve.validate_args(args)
+            zero_launches(wrappers)
+            t0 = time.perf_counter()
+            sess, point, stats, dt, _ = serve.serve_kws_detect(args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches(wrappers)
+            summ = sess.summary()
+            batches = TRAIN_SERVE_STEPS * (2 if mode == "kws-cascade" else 1)
+            want = dict.fromkeys(fault_path(mode, numerics),
+                                 stats["steps"] + 1)
+            want["batched_iir_fex"] = want.get("batched_iir_fex", 0) + batches
+            duty = (f", stage-1 duty {summ.stage1_duty:.3f}"
+                    if mode == "kws-cascade" else "")
+            print(f"[train] serve {mode} {numerics} --train-steps "
+                  f"{TRAIN_SERVE_STEPS}: {secs:.1f} s ({secs - dt:.1f} s "
+                  f"training); {point.n_events} events, {point.hits} hits, "
+                  f"{point.false_alarms} false alarms "
+                  f"({point.fa_per_hour:.1f} FA/hr){duty}, vad duty "
+                  f"{summ.vad_duty:.3f}; launches {launches}")
+            bad.check(launches == {**dict.fromkeys(launches, 0), **want},
+                      f"serve {mode} {numerics} --train-steps launched "
+                      f"{launches}, want {want}")
+            out[(mode, numerics)] = {
+                "fires": point.hits + point.false_alarms,
+                "hits": point.hits, "events": point.n_events,
+                "duty": summ.stage1_duty if mode == "kws-cascade" else None}
+    return out
+
+
+def training_phase(torch, np):
+    """Phase 9: training on the card (~2 min)."""
+    import tempfile
+    bad = Failures("training phase")
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append(f"{what} {time.perf_counter() - t0:.1f}")
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        worst = train_grads_against_cpu(torch, np, bad)
+        mark("gradients")
+        res = train_run(torch, np, tmp, bad)
+        mark("launch.train")
+        steps = train_step_times(torch, np, res)
+        mark("step times")
+        train_fault_resume(torch, np, tmp, bad)
+        mark("fault resume")
+        correct = train_bundle_serves(torch, res, bad)
+        mark("bundle")
+        served = serve_trained(torch, bad)
+        mark("serve --train-steps")
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s (elapsed at the "
+          f"end of each part: {', '.join(marks)} s)")
+    bad.raise_any()
+    return {"grad_rel_err": worst, "launches": res["launches"],
+            "steps": steps, "served": served, "bundle_correct": correct}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -3494,6 +3888,7 @@ def main() -> int:
         event_driven_on_card(torch, np, params, numerics)
     fault_res = faults_phase(torch, np, params, card, args.profile)
     fault_launches = fault_res["serve_launches"]
+    train_res = training_phase(torch, np)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -3524,6 +3919,7 @@ def main() -> int:
             "bound_ms_b256": times[(kind, ALWAYS_ON_SLOTS)][1],
             "launches_faults_run": fault_launches.get(
                 ("kws-audio", numerics), {}).get(name),
+            "launches_train_run": train_res["launches"][name],
             "shape": (f"B={SLOTS} S={CHUNK} C={C}" if kind.startswith("fex")
                       else f"T=32 B={SLOTS} I={C} H={H}")})
         if kind + "_chain" in times:

@@ -17,19 +17,28 @@ are the type-2 GRU (reset gate on the candidate's hidden pre-activation):
 cascade: a slot runs only its awake frames.  ``delta_gru_scan(...,
 event_driven=True)`` skips the slots that provably do nothing in a chunk
 (``kernels.compaction``).
+
+Training runs ``delta_gru_scan(backend="xla")``, the eager loop over
+``DeltaGRUCell``: differentiable (σ, tanh and the fused products carry
+JAX's derivative rules, ``kernels.xla_math``; the threshold acts as a
+piecewise-constant gate and the gradient flows through the transmitted
+path), and with ``h_qformat`` the QAT image of the IC's quantized ĥ.
+The kernels have no backward and refuse inputs that need a gradient.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import ste_quantize
 from repro_torch.kernels.delta_gru_seq import (MAX_SMEM_BYTES, delta_gru_seq,
                                                seq_kernel_fits)
 from repro_torch.kernels.delta_matvec import delta_matvec, make_block_mask
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
+from repro_torch.kernels.platform import refuse_grad
 
 
 class DeltaGRUParams(NamedTuple):
@@ -97,10 +106,18 @@ def _stats_from_counts(nz_dx, nz_dh, in_dim: int,
 
 @dataclasses.dataclass(frozen=True)
 class DeltaGRUCell:
-    """One ΔGRU timestep.  threshold=0 reproduces the dense GRU."""
+    """One ΔGRU timestep.  threshold=0 reproduces the dense GRU.
+
+    ``h_qformat`` (a ``core.quantize.QFormat``) snaps the hidden state to
+    a fixed-point grid after the gates with a straight-through gradient —
+    the QAT image of the IC's quantized ĥ memory (Q0.15 in the integer
+    serving path): training then sees the same delta-threshold compares
+    the deployed integer datapath performs.
+    """
 
     hidden_dim: int
     threshold: float = 0.0
+    h_qformat: Any = None
 
     def __call__(self, params: DeltaGRUParams, state: DeltaState, x
                  ) -> tuple[DeltaState, torch.Tensor, DeltaStats]:
@@ -110,6 +127,8 @@ class DeltaGRUCell:
         m_x = state.m_x + dx @ params.w_x          # (B, 3H)
         m_h = state.m_h + dh @ params.w_h          # (B, 3H)
         h = gru_gates(m_x, m_h, state.h, H)
+        if self.h_qformat is not None:
+            h = ste_quantize(h, self.h_qformat)
         stats = _stats_from_counts(mx.sum(-1, dtype=torch.int32),
                                    mh.sum(-1, dtype=torch.int32),
                                    x.shape[-1], H)
@@ -177,7 +196,7 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
                    backend: str = "xla", block_i: int | None = None,
                    block_o: int | None = None,
                    smem_budget_bytes: int = MAX_SMEM_BYTES,
-                   event_driven: bool = False
+                   event_driven: bool = False, h_qformat=None
                    ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
     """Run a ΔGRU over ``xs`` of shape (T, B, I).
 
@@ -187,7 +206,8 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
       threshold: Δ_TH — the transmit deadband (0.0 = dense GRU).
       state: carried ``DeltaState`` (None = fresh stream).
       backend: "xla" — a Python loop over ``DeltaGRUCell`` (the name of
-        the reference's per-step path) — or "pallas" — ``delta_gru_seq``,
+        the reference's per-step path; differentiable, the training path)
+        — or "pallas" — ``delta_gru_seq``,
         ONE launch of the hand-written kernel per chunk on a CUDA tensor
         (its plain version on a CPU tensor).  Where that kernel cannot
         hold the weights in ``smem_budget_bytes`` of shared memory (or
@@ -205,7 +225,10 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         fixed point are skipped; the rest run gathered through
         ``backend``.  Bit for bit the dense scan.  Host-level: it reads
         the candidate set and the probe's verdict back (two host syncs
-        per call); the outputs stay on the device.
+        per call); the outputs stay on the device.  Incompatible with
+        ``h_qformat`` and with inputs that need a gradient.
+      h_qformat: QAT hidden-state quantization grid ("xla" backend only —
+        see ``DeltaGRUCell``).
 
     Returns:
       (hs (T, B, H), final ``DeltaState``, ``DeltaStats`` stacked over T).
@@ -218,7 +241,14 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         state = init_delta_state(B, I, H, params)
     if backend not in ("pallas", "xla"):
         raise ValueError(f"unknown ΔGRU backend: {backend!r}")
+    if h_qformat is not None and backend != "xla":
+        raise ValueError("h_qformat (QAT) requires the differentiable "
+                         f"'xla' backend, got {backend!r}")
     if event_driven:
+        if h_qformat is not None:
+            raise ValueError("event_driven compaction is an inference "
+                             "mode — incompatible with QAT (h_qformat)")
+        refuse_grad("event_driven compaction", xs, *state, *params)
         from repro_torch.kernels import compaction
 
         def run(xs_c, st):
@@ -239,7 +269,8 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         hs, final, nz_dx, nz_dh = delta_gru_seq(
             xs.contiguous(), *state, params.w_x, params.w_h, threshold)
         return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)
-    cell = DeltaGRUCell(hidden_dim=H, threshold=threshold)
+    cell = DeltaGRUCell(hidden_dim=H, threshold=threshold,
+                        h_qformat=h_qformat)
     hs, per_step = [], []
     for t in range(T):
         state, h, stats = cell(params, state, xs[t])
@@ -296,3 +327,8 @@ def dense_gru_scan(params: DeltaGRUParams, xs, h0=None) -> torch.Tensor:
         h = gru_gates(zx, zh, h, H)
         hs.append(h)
     return torch.stack(hs) if hs else xs.new_zeros((0, B, H))
+
+
+def temporal_sparsity(stats: DeltaStats) -> torch.Tensor:
+    """Fraction of dense MACs skipped, averaged over time and batch."""
+    return 1.0 - stats.macs.sum() / stats.macs_dense.sum()

@@ -55,6 +55,7 @@ from repro_torch.core.delta_gru import DeltaGRUParams, DeltaState
 from repro_torch.core.quantize import WEIGHT_Q
 from repro_torch.kernels import delta_gru_seq as dgs
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
+from repro_torch.kernels.platform import refuse_grad
 from repro_torch.kernels.xla_math import (INV_LN2, fma, xla_log, xla_sigmoid,
                                           xla_tanh)
 
@@ -592,7 +593,9 @@ def int_forward(bundle: IntKwsBundle, feats, *, backend: str = "xla"):
     """Integer mirror of ``models.kws.forward``: features (B, F, C) —
     float values on the 12-bit grid or int16 codes, on the bundle's
     device — to ``(logit_codes (B, K) int32, nz_dx, nz_dh)``.  The mean
-    pool is an integer rounded division (the deploy-time head)."""
+    pool is an integer rounded division (the deploy-time head).  Integer
+    codes carry no gradient: features that need one are refused."""
+    refuse_grad("the integer datapath (int_forward)", feats)
     bundle = bundle_to(bundle, feats.device)
     fmt = bundle.gfmt
     if feats.is_floating_point():

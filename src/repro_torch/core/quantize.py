@@ -1,10 +1,10 @@
-"""Fixed-point quantization utilities (Qm.n) for the serving path.
+"""Fixed-point quantization utilities (Qm.n) with straight-through estimators.
 
 Mirrors ``repro/core/quantize.py``: symmetric two's-complement fixed
 point, value ∈ [-2^(int_bits), 2^(int_bits) - 2^-frac_bits], step
 2^-frac_bits, total width = 1 (sign) + int_bits + frac_bits; ``WEIGHT_Q``
-is the ΔRNN's 8-bit weight code.  The training helpers (straight-through estimators) come with the training
-slice of the port.
+is the ΔRNN's 8-bit weight code.  ``ste_quantize`` is the QAT quantizer:
+quantized forward, identity backward.
 """
 from __future__ import annotations
 
@@ -64,10 +64,29 @@ def qformat_for(max_abs: float, total_bits: int) -> QFormat:
     return QFormat(int_bits=int_bits, frac_bits=frac_bits)
 
 
-# 8-bit weight format of the ΔRNN accelerator (two weights per 16-bit word).
-WEIGHT_Q = QFormat(int_bits=0, frac_bits=7)           # Q0.7 ∈ [-1, 1)
+def ste_quantize(x: torch.Tensor, fmt: QFormat) -> torch.Tensor:
+    """Quantize with a straight-through gradient (identity backward): the
+    reference's ``x + stop_gradient(q(x) - x)``, the same float ops."""
+    return x + (fmt.quantize(x) - x).detach()
 
 
 def quantize_audio_12b(x: torch.Tensor) -> torch.Tensor:
     """12-bit ADC model: x in [-1, 1) → Q0.11."""
     return QFormat(0, 11).quantize(torch.clip(x, -1.0, 1.0 - 2.0 ** -11))
+
+
+# 8-bit weight format of the ΔRNN accelerator (two weights per 16-bit word).
+WEIGHT_Q = QFormat(int_bits=0, frac_bits=7)           # Q0.7 ∈ [-1, 1)
+
+
+def quantize_weights_8b(w: torch.Tensor, scale: float | None = None):
+    """Per-tensor scaled 8-bit weights.  Returns (w_q, scale).
+
+    The IC stores 8-bit weights; training uses a per-tensor power-of-two
+    scale so the stored code is Q0.7.  The scale is found on the host in
+    float64, as the reference finds it.
+    """
+    if scale is None:
+        max_abs = float(w.detach().abs().max())
+        scale = float(2.0 ** np.ceil(np.log2(max(max_abs, 1e-12))))
+    return WEIGHT_Q.quantize(w / scale) * scale, scale

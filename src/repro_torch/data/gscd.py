@@ -1,16 +1,19 @@
-"""SynthCommands: the formant-synthesized keyword set, and its vocabularies.
+"""Google Speech Commands loaders + the SynthCommands fallback.
 
-A numpy copy of the synthesis part of ``repro/data/gscd.py``: 1 s
-utterances at 8 kHz, each class a two-formant trajectory + band noise,
-over the paper's 12-class set or an 11- or 13..37-class ``Vocab``.  The
-same ``np.random.Generator`` state gives the same audio in both packages,
-which is how the port's serving requests and continuous streams are made.
-Reading real GSCD wavs (``load_dataset``, ``load_utterance_bank``) waits
-for a dataset on disk.
+A numpy copy of ``repro/data/gscd.py``: 1 s synthetic utterances at
+8 kHz, each class a two-formant trajectory + band noise, over the paper's
+12-class set or an 11- or 13..37-class ``Vocab`` — the same
+``np.random.Generator`` state gives the same audio in both packages,
+which is how the port's training batches, serving requests and continuous
+streams are made — and the readers of real GSCD wavs
+(``<path>/<label>/<uid>.wav``, 16-bit PCM at a multiple of 8 kHz):
+``load_wav_8k``, ``load_dataset`` and ``load_utterance_bank``.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import wave
 
 import numpy as np
 
@@ -174,3 +177,120 @@ def synth_batch(rng: np.random.Generator, batch: int,
         else:
             audio[i] = _synth_keyword(rng, specs[name])
     return audio, labels.astype(np.int32)
+
+
+def synth_epoch(seed: int, n: int):
+    rng = np.random.default_rng(seed)
+    return synth_batch(rng, n)
+
+
+# ------------------------------------------------------------- real GSCD
+def load_wav_8k(path: pathlib.Path) -> np.ndarray:
+    """Read one GSCD wav → (8000,) float32 at 8 kHz.
+
+    A corrupt file in a 100k-file dataset should name ITSELF, not
+    surface as a bare ``struct.error`` three frames deep — every failure
+    mode here (truncated/garbage container, wrong sample format, empty
+    payload, unusable rate) raises ``ValueError`` carrying the path.
+    """
+    try:
+        with wave.open(str(path), "rb") as w:
+            fs = w.getframerate()
+            width = w.getsampwidth()
+            n = w.getnframes()
+            raw = w.readframes(n)
+    except (wave.Error, EOFError, OSError) as e:
+        raise ValueError(f"corrupt or unreadable wav {path}: {e}") from e
+    if width != 2:
+        raise ValueError(f"{path}: expected 16-bit PCM, got "
+                         f"{8 * width}-bit")
+    if n == 0 or len(raw) == 0:
+        raise ValueError(f"{path}: wav holds no samples")
+    if len(raw) < 2 * n:
+        raise ValueError(f"{path}: truncated payload ({len(raw)} bytes "
+                         f"for {n} declared frames)")
+    if fs < FS or fs % FS != 0:
+        raise ValueError(f"{path}: sample rate {fs} is not a multiple "
+                         f"of {FS} (cannot decimate)")
+    x = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+    if fs != FS:                                   # naive decimation
+        x = x[::fs // FS]
+    if len(x) < T:
+        x = np.pad(x, (0, T - len(x)))
+    return x[:T]
+
+
+def load_dataset(path: str | None, n_per_class: int = 100, seed: int = 0):
+    """Real GSCD if ``path`` given, else SynthCommands."""
+    if n_per_class < 1:
+        raise ValueError(f"n_per_class must be >= 1, got {n_per_class}")
+    if path is None:
+        rng = np.random.default_rng(seed)
+        return synth_batch(rng, n_per_class * len(CLASSES))
+    root = pathlib.Path(path)
+    if not root.is_dir():
+        raise ValueError(f"GSCD path {root} is not a directory")
+    audio, labels = [], []
+    for li, name in enumerate(CLASSES):
+        d = root / name
+        if not d.exists():
+            continue
+        for f in sorted(d.glob("*.wav"))[:n_per_class]:
+            audio.append(load_wav_8k(f))
+            labels.append(li)
+    if not audio:
+        raise ValueError(
+            f"GSCD path {root} holds no <label>/<uid>.wav files for any "
+            f"of the {len(CLASSES)} classes ({', '.join(CLASSES[:4])}, …)")
+    return np.stack(audio), np.asarray(labels, np.int32)
+
+
+def _trim_utterance(x: np.ndarray, rel_threshold: float = 0.05,
+                    pad: int = 160) -> np.ndarray:
+    """Cut a fixed-window clip down to its voiced span: the samples
+    whose |x| exceeds ``rel_threshold`` × peak, ±``pad`` samples of
+    context.  A continuous-stream placement needs a TIGHT span — the 1 s
+    GSCD window hides the word somewhere inside it, which would poison
+    the ground-truth event bounds."""
+    peak = float(np.max(np.abs(x)))
+    if peak <= 0.0:
+        return x
+    voiced = np.flatnonzero(np.abs(x) >= rel_threshold * peak)
+    lo = max(int(voiced[0]) - pad, 0)
+    hi = min(int(voiced[-1]) + pad + 1, len(x))
+    return x[lo:hi]
+
+
+def load_utterance_bank(path: str | pathlib.Path,
+                        vocab: Vocab | None = None
+                        ) -> dict[int, list[np.ndarray]]:
+    """Real GSCD keywords as a continuous-stream placement bank.
+
+    Reads ``<path>/<label>/<uid>.wav`` (the committed
+    ``tests/fixtures/gscd_mini`` layout, or a real GSCD root), trims
+    each clip to its voiced span and returns {class_id: [utterance
+    arrays]} keyed by ``vocab`` class ids (default: the 12-class set).
+    Only labels that are keyword classes of the vocab are loaded.
+    ``data.continuous.make_stream(utterances=...)`` composes these real
+    keywords into labeled noisy streams — the scenario matrix's
+    real-keyword mode.
+    """
+    vocab = make_vocab(12) if vocab is None else vocab
+    root = pathlib.Path(path)
+    if not root.is_dir():
+        raise ValueError(f"utterance bank path {root} is not a directory")
+    bank: dict[int, list[np.ndarray]] = {}
+    for cid in vocab.keyword_ids:
+        d = root / vocab.names[cid]
+        if not d.is_dir():
+            continue
+        utts = [_trim_utterance(load_wav_8k(f))
+                for f in sorted(d.glob("*.wav"))]
+        utts = [u for u in utts if len(u) > 0]
+        if utts:
+            bank[cid] = utts
+    if not bank:
+        raise ValueError(
+            f"utterance bank path {root} holds no keyword wavs for any "
+            f"of {[vocab.names[c] for c in vocab.keyword_ids]}")
+    return bank

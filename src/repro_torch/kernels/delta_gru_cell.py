@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.delta_gru_seq import MAX_THREADS
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
+from repro_torch.kernels.platform import refuse_grad
 
 _NAMES = ("x", "h", "x_hat", "h_hat", "m_x", "m_h", "w_x", "w_h")
 
@@ -97,6 +98,7 @@ def delta_gru_cell(x, h, x_hat, h_hat, m_x, m_h, w_x, w_h, threshold):
     """
     args = (x, h, x_hat, h_hat, m_x, m_h, w_x, w_h)
     _check_shapes(args)
+    refuse_grad("delta_gru_cell", *args)
     if x.device.type == "cpu":
         return delta_gru_cell_ref(*args, threshold)
     if x.device.type != "cuda":

@@ -21,7 +21,9 @@ masked instantiations count in ``masked_launches``, those of the plain
 ones in ``launches``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
-CUDA tensor it launches its kernel or raises.
+CUDA tensor it launches its kernel or raises.  Neither kernel has a
+backward: an input that requires a gradient is refused
+(``platform.refuse_grad``), on the CPU too.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
+from repro_torch.kernels.platform import refuse_grad
 
 # Shared memory one Hopper thread block may use (227 KB).
 MAX_SMEM_BYTES = 232_448
@@ -242,6 +245,8 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
     """
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
     _check_awake(awake, xs)
+    refuse_grad("delta_gru_seq", xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
+                w_h)
     if xs.device.type == "cpu":
         return delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
                                  w_h, threshold, awake)

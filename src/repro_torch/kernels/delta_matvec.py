@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.platform import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -138,6 +139,7 @@ def delta_matvec(dx, w, m, block_mask, *, block_i: int = 128,
     CUDA tensors launch ``csrc/delta_matvec.cu`` (contiguous only).
     """
     _check(dx, w, m, block_mask, block_i, block_o)
+    refuse_grad("delta_matvec", dx, w, m)
     if dx.device.type == "cpu":
         return delta_matvec_ref(dx, w, m, block_mask, block_i)
     if dx.device.type != "cuda":

@@ -9,6 +9,11 @@ tensor lies on the CPU).
 
 The resolved device is logged once per distinct device, with the card's
 name.
+
+``refuse_grad`` is the kernels' autograd contract: no kernel of the port
+has a backward (no Pallas kernel of the reference has one either), so a
+wrapper handed a tensor that needs a gradient raises instead of
+returning a result that would silently drop it.
 """
 from __future__ import annotations
 
@@ -51,3 +56,15 @@ def resolve_device(device=None) -> torch.device:
         _logged.add(key)
         _log.info("repro_torch device: %s [%s]", key, name)
     return dev
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``ValueError`` if grad mode is on and any of ``tensors``
+    requires a gradient: ``kernel`` has no backward.  Training runs the
+    differentiable eager path (``delta_gru_scan(backend="xla")``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{kernel} has no backward, and an input requires a gradient: "
+            f"train through the differentiable backend='xla' (the eager "
+            f"DeltaGRUCell loop), or run under torch.no_grad()")

@@ -33,6 +33,18 @@ use the same sequences from ``csrc/xla_math.cuh``.
 of two float32 values is exact in float64, the float64 sum is rounded to
 odd (its TwoSum error decides the last bit), and rounding that to float32
 is then correctly rounded — a plain float64 sum would round twice.
+
+Gradients.  The expansions read bits through integer views, which cut
+an autograd graph, and the gradient of a rational approximation is not
+the derivative of the function it approximates.  So ``xla_sigmoid``,
+``xla_tanh`` and ``fma`` (where an operand needs a gradient) are
+``torch.autograd.Function``s: the forward is the exact expansion, bit for
+bit, and the backward is JAX's own derivative rule — ``g·(s·(1−s))`` for
+``lax.logistic``, ``(g + g·t)·(1−t)`` for ``tanh`` (transposed, as
+``jax.grad`` evaluates it: u = g·(1−t), then u + u·t with the product
+fused), ``(g·b, g·a, g)`` for ``a·b + c`` — so a gradient through the
+ΔGRU's gates is what ``jax.grad`` computes.  ``xla_exp`` and ``xla_log``
+have no gradient (nothing trained differentiates them).
 """
 from __future__ import annotations
 
@@ -82,8 +94,18 @@ def fma(a, b, c) -> torch.Tensor:
 
     Operands are float32 tensors or Python floats (rounded to float32
     first); at least one is a tensor.  Evaluated in float64 with
-    round-to-odd.
+    round-to-odd.  Differentiable (``(g·b, g·a, g)``) where a tensor
+    operand needs a gradient.
     """
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (a, b, c)):
+        return _FusedMulAdd.apply(a, b, c)
+    return _fma(a, b, c)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """``fma``'s exact evaluation (no gradient)."""
     a, b, c = (t.double() if isinstance(t, torch.Tensor) else
                float(np.float32(t)) for t in (a, b, c))
     p = a * b                      # exact: 24 + 24 significant bits
@@ -124,13 +146,24 @@ def xla_exp(x: torch.Tensor) -> torch.Tensor:
 def xla_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` on XLA:CPU: ``1 / (1 + exp(-x))``.  A true
     division by a tensor (PyTorch on CUDA would turn a division by a
-    host scalar into a reciprocal multiply)."""
+    host scalar into a reciprocal multiply).  Differentiable:
+    ``lax.logistic``'s rule, ``g·(s·(1−s))``."""
+    return _Sigmoid.apply(x)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     d = xla_exp(-x) + 1.0
     return ftz(torch.ones_like(d) / d)
 
 
 def xla_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.tanh`` on XLA:CPU, float32."""
+    """``jnp.tanh`` on XLA:CPU, float32.  Differentiable: JAX's rule,
+    ``(g + g·t)·(1−t)`` (1 − tanh² on the rounded t), as ``jax.grad``
+    evaluates it under jit."""
+    return _Tanh.apply(x)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
     a = x.abs()
     c = _clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
     x2 = c * c
@@ -143,6 +176,59 @@ def xla_tanh(x: torch.Tensor) -> torch.Tensor:
         den = fma(x2, den, k)
     r = torch.where(a < _TANH_SMALL, x, num / den)
     return torch.where(a >= _TANH_SAT, torch.ones_like(x).copysign(x), r)
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = _sigmoid(x)
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+class _Tanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        t = _tanh(x)
+        ctx.save_for_backward(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        # The transpose of the rule's linear map: u = g·(1−t), then
+        # u + u·t, its product fused as XLA:CPU fuses it under jit.
+        t, = ctx.saved_tensors
+        u = g * (1.0 - t)
+        return _fma(u, t, u)
+
+
+class _FusedMulAdd(torch.autograd.Function):
+    """``fma`` with the derivative of ``a * b + c``; a Python float
+    operand gets no gradient, a broadcast one its summed gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(*(t if isinstance(t, torch.Tensor) else None
+                                for t in (a, b)))
+        ctx.scalars = tuple(None if isinstance(t, torch.Tensor) else t
+                            for t in (a, b))
+        ctx.shapes = tuple(t.shape if isinstance(t, torch.Tensor) else None
+                           for t in (a, b, c))
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = (t if t is not None else s
+                for t, s in zip(ctx.saved_tensors, ctx.scalars))
+        grads = (lambda: g * b, lambda: g * a, lambda: g)
+        return tuple(d().sum_to_size(shape) if need else None
+                     for d, need, shape in zip(grads, ctx.needs_input_grad,
+                                               ctx.shapes))
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:

@@ -20,20 +20,25 @@ the leading ``--s0-channels`` FEx channels, a binary head, Δ_TH
 (``--wake-threshold`` / ``--sleep-threshold`` / ``--hangover-frames``)
 keeps stage 1 awake around candidate events, and stage 1 runs only on
 awake frames.  The report adds the stage-1 duty and the per-stage energy
-split.  Stage 0 is the seeded random init (seed 7, as the reference
-seeds it); the reference quick-trains it, which waits for training.
+split.  Stage 0 starts from the seeded init (seed 7, as the reference
+seeds it).
 
-Weights come from ``--params`` (a checkpoint's ``arrays.npz``, as the
-JAX package writes it) or, without it, from the seeded
-``models.kws.init_kws``.  Runs on ``--device`` (default ``cuda``; raises
-without a GPU).
+Weights come from ``--params`` (a checkpoint's ``arrays.npz``, as
+either package writes it) or, without it, from the seeded
+``models.kws.init_kws``; ``--train-steps N`` then quick-trains them on the
+device before serving, as the reference's serve does: utterance-level
+(``kws.loss_fn`` on ``synth_batch``) for kws-audio, frame-level
+(``kws.frame_loss_fn`` on ``synth_frame_batch`` streams) for kws-detect
+and kws-cascade, whose stage 0 is trained too (binary head, labels
+keyword vs background, its own seed 7), QAT when serving int8.  Runs on
+``--device`` (default ``cuda``; raises without a GPU).
 
 ``--numerics int8`` serves the deployed integer datapath (integer FEx →
 int8-weight ΔGRU → integer FC, one launch of each integer kernel per
 step): the float weights are promoted into the integer bundle at session
 creation, or ``--bundle X.npz`` serves a promoted bundle as
 ``train.promote.save_bundle`` writes it (one the JAX package wrote loads
-unchanged) and implies ``--numerics int8``.
+unchanged), implies ``--numerics int8`` and skips stage 1's training.
 
 Every mode serves through the pipelined engine (``launch.engine``):
 while one step computes on the card the host assembles the next block
@@ -52,8 +57,7 @@ ladder (``--degrade-thresholds``) stepped up under sustained queue
 pressure and back down with hysteresis, and a step-latency watchdog
 (``--watchdog-ms``) whose breaches count as pressure.
 
-Training (the reference's ``--train-steps``, for either stage) and
-``--devices`` (the slot mesh across cards) are later slices of the port.
+``--devices`` (the slot mesh across cards) is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -225,11 +229,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="kws-audio: utterances by majority vote; "
                          "kws-detect: always-on detection on continuous "
                          "streams; kws-cascade: the same through the "
-                         "two-stage wake cascade.  Weights are never "
-                         "trained here, stage 0's neither "
-                         "(--train-steps is not offered: training is "
-                         "ROADMAP.md queue 1 item 10); they come from "
-                         "--params, --bundle or the seeded random init")
+                         "two-stage wake cascade.  Weights come from "
+                         "--params, --bundle or the seeded random init, "
+                         "then --train-steps of training")
     ap.add_argument("--slots", type=int, default=4,
                     help="stream slots served together")
     ap.add_argument("--requests", type=int, default=8,
@@ -331,10 +333,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="leading FEx channels fed to the stage-0 micro "
                          "model (its whole input width)")
     ap.add_argument("--s0-threshold", type=float, default=0.05,
-                    help="stage-0 delta threshold.  Stage 0 serves its "
-                         "seeded random init: the reference's quick "
-                         "training (--train-steps) waits for ROADMAP.md "
-                         "queue 1 item 10")
+                    help="stage-0 delta threshold")
+    # quick training before serving
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="AdamW steps of quick training before serving "
+                         "(0 = serve the loaded or seeded weights; the "
+                         "reference trains 120 by default): utterance-"
+                         "level for kws-audio, frame-level for kws-detect "
+                         "and kws-cascade (stage 0 too, even with "
+                         "--bundle), QAT with --numerics int8")
     return ap
 
 
@@ -345,8 +352,10 @@ def validate_args(args):
         if getattr(args, name) < 1:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 1, "
                              f"got {getattr(args, name)}")
-    if args.requests < 0:
-        raise ValueError(f"--requests must be >= 0, got {args.requests}")
+    for name in ("requests", "train_steps"):
+        if getattr(args, name) < 0:
+            raise ValueError(f"--{name.replace('_', '-')} must be >= 0, "
+                             f"got {getattr(args, name)}")
     if not math.isfinite(args.threshold) or args.threshold < 0:
         raise ValueError(f"--threshold must be finite and >= 0, "
                          f"got {args.threshold}")
@@ -391,10 +400,64 @@ def validate_args(args):
         OverloadPolicy(thresholds=ladder)   # raises on a bad ladder
 
 
+# The reference's quick-training batches: 64 one-second utterances, or 32
+# continuous streams of TRAIN_SECONDS with frame labels.
+TRAIN_BATCH = {False: 64, True: 32}
+TRAIN_SECONDS = 2.0
+
+
+def quick_train(args, fex, params: dict, cfg, *, frame_level: bool,
+                seed: int, what: str, channels: int | None = None,
+                binary: bool = False) -> dict:
+    """The reference's quick training before serving: ``--train-steps``
+    AdamW steps (lr 3e-3, weight decay 0.01, 20 warm-up steps) at Δ_TH 0.1
+    on batches drawn from ``default_rng(seed)``, on the params' device (the
+    features from the FEx kernel on a CUDA device), QAT when serving int8.
+    ``channels`` keeps the leading FEx channels, ``binary`` collapses the
+    frame labels to keyword vs background (stage 0).  Returns the trained
+    params."""
+    from repro_torch.data.continuous import synth_frame_batch
+    from repro_torch.data.gscd import synth_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.promote import make_kws_step_fn
+
+    int8 = args.numerics == "int8"
+    ocfg = opt.AdamWConfig(lr=3e-3, weight_decay=0.01, warmup_steps=20,
+                           total_steps=args.train_steps)
+    state = opt.init(params)
+    step = make_kws_step_fn(cfg, ocfg, 0.1, qat=int8,
+                            frame_level=frame_level)
+    key = "frame_labels" if frame_level else "labels"
+    dev = params["w_x"].device
+    rng = np.random.default_rng(seed)
+    print(f"training {what} for {args.train_steps} steps "
+          f"({'QAT, ' if int8 else ''}"
+          f"{'frame-level, ' if frame_level else ''}"
+          f"{args.numerics} serving) ...")
+    losses = []
+    for _ in range(args.train_steps):
+        if frame_level:
+            audio, labels = synth_frame_batch(
+                rng, TRAIN_BATCH[True], duration_s=TRAIN_SECONDS)
+        else:
+            audio, labels = synth_batch(rng, TRAIN_BATCH[False])
+        feats = fex(torch.from_numpy(audio).to(dev))
+        if channels is not None:
+            feats = feats[..., :channels]
+        if binary:
+            labels = (labels != 0).astype(np.int32)
+        params, state, m = step(params, state, {
+            "feats": feats, key: torch.from_numpy(labels).to(dev)})
+        losses.append(m["loss"])               # read once, after the loop
+    print(f"  loss {losses[0].item():.3f} → {losses[-1].item():.3f}")
+    return params
+
+
 def _load_model(args):
     """(device, FEx, float params or None, int8 bundle or None) from the
     flags: ``--bundle`` (implies int8), ``--params`` or the seeded random
-    init at the paper model's width."""
+    init at the paper model's width, then ``--train-steps`` of training
+    (not of a bundle)."""
     from repro_torch.configs.deltakws import CONFIG
     from repro_torch.frontend.fex import FeatureExtractor
     from repro_torch.kernels.platform import resolve_device
@@ -412,6 +475,11 @@ def _load_model(args):
     else:
         gen = torch.Generator().manual_seed(args.seed)
         params = kws.init_kws(gen, CONFIG, input_dim=fex.cfg.n_active)
+    if params is not None and args.train_steps:
+        params = quick_train(args, fex,
+                             {k: v.to(device) for k, v in params.items()},
+                             CONFIG, frame_level=args.mode != "kws-audio",
+                             seed=args.seed, what="detector")
     return device, fex, params, bundle
 
 
@@ -455,16 +523,27 @@ def serve_kws_audio(args):
     return sess, done, label_q, stats, time.perf_counter() - t0
 
 
-def stage0_params(args):
+def stage0_params(args, fex=None, device="cpu"):
     """The stage-0 micro model of kws-cascade: ``init_kws`` at 16 units
     with a binary head over ``--s0-channels`` inputs, from a generator
-    seeded 7 (the reference's stage-0 seed), on the CPU (the session moves
+    seeded 7 (the reference's stage-0 seed).  With ``fex`` and
+    ``--train-steps``, trained frame-level on ``device`` against keyword
+    vs background labels (batches from ``default_rng(7)``, as the
+    reference draws them); else the init, on the CPU (the session moves
     it)."""
     from repro_torch.configs.deltakws import CONFIG
     from repro_torch.models import kws
     cfg0 = dataclasses.replace(CONFIG, vocab_size=2, d_model=16)
-    return kws.init_kws(torch.Generator().manual_seed(7), cfg0,
-                        input_dim=args.s0_channels)
+    params0 = kws.init_kws(torch.Generator().manual_seed(7), cfg0,
+                           input_dim=args.s0_channels)
+    if fex is None or not args.train_steps:
+        return params0
+    return quick_train(args, fex,
+                       {k: v.to(device) for k, v in params0.items()},
+                       cfg0, frame_level=True, seed=7,
+                       what=f"stage-0 wake model (16 units, "
+                            f"{args.s0_channels} channels, binary head)",
+                       channels=args.s0_channels, binary=True)
 
 
 def serve_kws_detect(args):
@@ -500,7 +579,7 @@ def serve_kws_detect(args):
                                 hangover_frames=args.hangover_frames,
                                 s0_threshold=args.s0_threshold,
                                 s0_channels=args.s0_channels)
-        params0 = stage0_params(args)
+        params0 = stage0_params(args, fex, device)
     shift = fex.cfg.frame_shift
     streams = make_streams(args.stream_seed, args.slots,
                            duration_s=args.stream_seconds,

@@ -1,0 +1,93 @@
+"""AdamW with linear warmup and cosine decay, on dicts of tensors.
+
+Port of ``repro/train/optimizer.py``: the optimizer state keeps a float32
+master copy of the parameters and float32 moments (m, v); gradients are
+clipped by their global norm and applied to the master, and the returned
+parameters are cast from it.  ``AdamWState`` has the reference's fields,
+so a checkpoint's keys (``opt/step``, ``opt/master/w_x``, …) are the same
+in both packages.  The step counter, the learning rate and the clip factor
+stay tensors on the parameters' device: an update reads nothing back to
+the host.  (``opt_axes``, the sharding of the state, comes with the slot
+mesh across cards.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor   # () int32
+    master: Any          # f32 param copy (a dict like the params)
+    m: Any
+    v: Any
+
+
+def init(params: dict) -> AdamWState:
+    """Zero moments and a float32 master copy that never aliases a
+    parameter tensor."""
+    master = {k: p.detach().to(torch.float32, copy=True)
+              for k, p in params.items()}
+    dev = next(iter(master.values())).device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      master=master,
+                      m={k: torch.zeros_like(v) for k, v in master.items()},
+                      v={k: torch.zeros_like(v) for k, v in master.items()})
+
+
+def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup → cosine decay to ``min_lr_ratio``."""
+    step = step.to(torch.float32)
+    warm = torch.clamp_max(step / max(cfg.warmup_steps, 1), 1.0)
+    prog = torch.clamp((step - cfg.warmup_steps) /
+                       max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree.values()))
+
+
+def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict
+           ) -> tuple[dict, AdamWState, dict]:
+    """Returns (new_params (each in its param's dtype), new_state,
+    metrics {"grad_norm", "lr"}).  Functional: nothing is updated in
+    place."""
+    gnorm = global_norm(grads)
+    clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
+    step = state.step + 1
+    lr = lr_at(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    master, m, v = {}, {}, {}
+    for k, g in grads.items():
+        g = g.to(torch.float32) * clip
+        m[k] = cfg.b1 * state.m[k] + (1 - cfg.b1) * g
+        v[k] = cfg.b2 * state.v[k] + (1 - cfg.b2) * torch.square(g)
+        mhat = m[k] / b1c
+        vhat = v[k] / b2c
+        mst = state.master[k]
+        master[k] = mst - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                                + cfg.weight_decay * mst)
+    new_params = {k: master[k].to(params[k].dtype, copy=True)
+                  for k in params}
+    return (new_params, AdamWState(step=step, master=master, m=m, v=v),
+            {"grad_norm": gnorm, "lr": lr})

@@ -95,6 +95,47 @@ def test_fault_and_engine_modules_import_with_jax_blocked():
     assert out.stdout.split()[-1] == "ok"
 
 
+_IMPORT_TRAIN = """
+import sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+from repro_torch.core import delta_gru, quantize
+from repro_torch.data import gscd
+from repro_torch.kernels import platform, xla_math
+from repro_torch.launch import serve, train
+from repro_torch.models import kws
+from repro_torch.train import checkpoint, mining, optimizer, promote, trainer
+for mod, names in ((optimizer, ("AdamWConfig", "AdamWState", "init",
+                                "lr_at", "global_norm", "update")),
+                   (checkpoint, ("save", "latest_step", "restore", "meta")),
+                   (trainer, ("Trainer", "TrainerConfig", "StepStats")),
+                   (promote, ("make_kws_step_fn", "eval_promotion",
+                              "promote_checkpoint")),
+                   (mining, ("MiningConfig", "mine_hard_negatives")),
+                   (kws, ("loss_fn", "frame_loss_fn", "forward_frames",
+                          "accuracy_11class", "params_to_numpy")),
+                   (quantize, ("ste_quantize", "quantize_weights_8b")),
+                   (delta_gru, ("temporal_sparsity",)),
+                   (gscd, ("load_wav_8k", "load_dataset",
+                           "load_utterance_bank", "synth_epoch")),
+                   (platform, ("refuse_grad",)), (train, ("train_kws",)),
+                   (serve, ("quick_train",))):
+    for name in names:
+        assert hasattr(mod, name), (mod.__name__, name)
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_training_modules_import_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -132,6 +173,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="is_available"):
         serve.serve_kws_detect(args)
+    from repro_torch.launch import train
+    assert train.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--steps", "1", "--ckpt-dir", "unused"])
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():
