@@ -6,10 +6,11 @@
                                      #   always-on serving step
 
 Phases, each exiting non-zero on failure:
-  1. the card's name and power limit; build all eight CUDA kernels and the
+  1. the card's name and power limit; build all eight CUDA kernels, the
      four chain probes (iir_fex, iir_fex_int, delta_gru_seq,
-     delta_gru_seq_int) with nvcc (one process per source, all started
-     together) and print the build seconds and ptxas reports; check the
+     delta_gru_seq_int) and the FEx kernels' unroll instances (1, 2, 4,
+     5, 8, 16, 25, 32, 64) with nvcc (one process per library, all
+     started together) and print the build seconds and ptxas reports; check the
      wrappers' shared-memory formulas against the kernels' own (iir_fex,
      iir_fex_int, both ΔGRU kernels and delta_matvec launch with the
      wrappers' plans and refuse one they cannot run);
@@ -159,9 +160,27 @@ Phases, each exiting non-zero on failure:
      kernel once per training batch of each stage, the serving path's
      kernels once per step as in phases 5–6; fires and stage-1 duty
      printed, not gated);
-  10. the ``kernels`` JSON line (the eight kernels and the two masked
-     instantiations), the card line, and the final ``{"ok": true, ...}``
-     line.
+  10. kernel autotuning (``kernels/autotune.py``) at the always-on shapes
+     (B = 256; S = 4096, C = 10; T = 32, I = 10, H = 64, Δ_TH 0.1) in
+     both numerics: the greedy sweep of each of the four serving kernels
+     (unroll or block_t, then block_b; the median of 20 calls each,
+     CUDA events around the whole wrapper call), default and best µs
+     printed with the card line and the winners recorded in the run's
+     own cache (REPRO_AUTOTUNE_CACHE points at a temporary file from the
+     start, so no cache of the machine changes a phase's launches); every
+     configuration the tuner can reach (each axis's candidates, the float
+     FEx's block_b = 1 and unrolls 32 to 128 included, and the sweep's)
+     bit for bit against the default launch on serving data from a
+     carried state (outputs, state, counts), and both FEx kernels at
+     frame_shift 100 with unrolls 5, 25, 50 and 100; illegal knobs raise the reference's ValueError naming the
+     kernel; 256-slot sessions that pick the winners up, and a forced
+     configuration (every knob off its default), against a session with
+     autotuning off over 4 steps: the report lists what was recorded,
+     each kernel launches B / block_b times a step, and votes, logits and
+     counts are equal bit for bit; the three examples at small flags;
+  11. the ``kernels`` JSON line (the eight kernels and the two masked
+     instantiations; the four tuned ones with their sweep), the card
+     line, and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -508,10 +527,21 @@ def cell_bound(B, I, H, nz_total):
 
 
 # ------------------------------------------------------------- phases --
+# The FEx kernels' unroll instances, one library each, built with the
+# others: the tuner's candidates at frame_shift 128 (the divisors up to
+# 16), the larger legal ones (64 and above share the fully unrolled
+# tile), and 5 and 25, which divide frame_shift 100 but not the 64-sample
+# tile (their loops end in a remainder).
+UNROLLS = (1, 2, 4, 5, 8, 16, 25, 32, 64)
+
+
 def build_kernels():
     from repro_torch.kernels import build
+    from repro_torch.kernels.iir_fex import library
+    instances = [library(name, u) for name in ("iir_fex", "iir_fex_int")
+                 for u in UNROLLS]
     t0 = time.perf_counter()
-    built = build.build((*build.KERNELS, *PROBES))
+    built = build.build((*build.KERNELS, *PROBES, *instances))
     secs = time.perf_counter() - t0
     print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}")
     for name, b in built.items():
@@ -519,8 +549,9 @@ def build_kernels():
                 if "registers" in ln or "smem" in ln]
         print(f"[build] {name}: {b.path.name} ({b.seconds:.1f} s) "
               f"{' | '.join(regs)}")
-    print(f"[build] {len(built)} libraries (eight kernels and four chain "
-          f"probes) built in {secs:.1f} s")
+    print(f"[build] {len(built)} libraries (eight kernels, four chain "
+          f"probes and {len(instances)} FEx unroll instances) built in "
+          f"{secs:.1f} s")
     if not set(build.KERNELS) <= set(built) or len(build.KERNELS) != 8:
         fail(f"expected the eight kernels {build.KERNELS}, built "
              f"{sorted(built)}")
@@ -1545,8 +1576,8 @@ def serve_main_path(torch, numerics: str = "float32"):
             if numerics == "int8" else ("batched_iir_fex", "delta_gru_seq"))
     args = serve.build_parser().parse_args(
         ["--mode", "kws-audio", "--slots", str(SLOTS), "--requests",
-         str(REQUESTS), "--chunk-samples", str(CHUNK), "--seed", "0",
-         "--numerics", numerics])
+         str(REQUESTS), "--chunk-samples", str(CHUNK), "--init-seed", "0",
+         "--train-steps", "0", "--numerics", numerics])
     serve.validate_args(args)
     zero_launches(wrappers)
     sess, done, labels, stats, dt = serve.serve_kws_audio(args)
@@ -1876,7 +1907,8 @@ def detect_args(numerics, slots, seconds, extra=()):
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(
         ["--mode", "kws-detect", "--slots", str(slots), "--stream-seconds",
-         str(seconds), "--chunk-samples", str(CHUNK), "--seed", "0",
+         str(seconds), "--chunk-samples", str(CHUNK), "--init-seed", "0",
+         "--train-steps", "0",
          "--numerics", numerics, "--fire-threshold", str(DETECT_FIRE),
          "--release-threshold", str(DETECT_RELEASE), *extra])
     serve.validate_args(args)
@@ -3153,7 +3185,8 @@ def soak_phase(torch, np, params, card, bad):
 
 def fault_serve_argv(mode, numerics, depth):
     argv = ["--mode", mode, "--numerics", numerics, "--slots", str(SLOTS),
-            "--chunk-samples", str(CHUNK), "--seed", "0", "--faults",
+            "--chunk-samples", str(CHUNK), "--init-seed", "0",
+            "--train-steps", "0", "--faults",
             SERVE_FAULTS, "--fault-seed", str(SERVE_FAULT_SEED)]
     if depth == 1:
         argv.append("--sync-loop")
@@ -3709,7 +3742,7 @@ def train_bundle_serves(torch, res, bad):
     wrappers = kernel_wrappers()
     args = serve.build_parser().parse_args(
         ["--mode", "kws-audio", "--slots", str(SLOTS), "--requests",
-         str(REQUESTS), "--chunk-samples", str(CHUNK), "--seed", "0",
+         str(REQUESTS), "--chunk-samples", str(CHUNK), "--init-seed", "0",
          "--bundle", str(run["bundle_path"])])
     serve.validate_args(args)
     zero_launches(wrappers)
@@ -3748,7 +3781,7 @@ def serve_trained(torch, bad):
             args = serve.build_parser().parse_args(
                 ["--mode", mode, "--numerics", numerics, "--slots",
                  str(SLOTS), "--stream-seconds", str(DETECT_SECONDS),
-                 "--chunk-samples", str(CHUNK), "--seed", "0",
+                 "--chunk-samples", str(CHUNK), "--init-seed", "0",
                  "--train-steps", str(TRAIN_SERVE_STEPS)])
             serve.validate_args(args)
             zero_launches(wrappers)
@@ -3811,6 +3844,365 @@ def training_phase(torch, np):
             "steps": steps, "served": served, "bundle_correct": correct}
 
 
+# --------------------------------------------------- phase 10: tuning --
+TUNE_ITERS = 20                # timed calls per candidate (median)
+TUNE_STEPS = 4                 # session steps: tuned, untuned, forced
+# Recorded on purpose for one session: every knob off its default, so the
+# session's knob path runs whatever the sweep finds.
+FORCED_TUNING = {"batched_iir_fex": {"block_b": 64, "unroll": 4},
+                 "batched_iir_fex_int": {"block_b": 64, "unroll": 4},
+                 "delta_gru_seq": {"block_b": 128, "block_t": 8},
+                 "delta_gru_seq_int": {"block_b": 128, "block_t": 8}}
+TUNED_KERNELS = ("batched_iir_fex", "batched_iir_fex_int", "delta_gru_seq",
+                 "delta_gru_seq_int")
+# The examples at small flags, in this process.
+EXAMPLES = (
+    ("torch_quickstart", ["--steps", "2", "--batch", "8", "--eval-n", "64"]),
+    ("torch_serve_streaming_kws", ["--train-steps", "2", "--batch", "8"]),
+    ("torch_train_kws_e2e", ["--steps", "4", "--batch", "8", "--ckpt-every",
+                             "2", "--eval-n", "64"]))
+
+
+def tuning_runs(torch, np, fex, params, bundle):
+    """The four tuned kernels on serving data, 256 slots, from the state
+    one chunk of keyword audio left: ``{kernel: run(config) → outputs}``
+    (a config maps knob names to values, None = the default launch)."""
+    from repro_torch.core import delta_gru as dg
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import delta_gru_seq as dgs
+    from repro_torch.kernels import iir_fex
+    from repro_torch.models import kws
+    B, th = ALWAYS_ON_SLOTS, 0.1
+    x = keyword_audio(torch, np, B, 5)
+    x1, x2 = x[:, :CHUNK].contiguous(), x[:, CHUNK:].contiguous()
+    coef = fex.coef.cuda()
+    C = coef.shape[1]
+    f1, s1 = iir_fex.batched_iir_fex(x1, coef,
+                                     iir_fex.init_fex_kernel_state(B, C, "cuda"))
+    f2, _ = iir_fex.batched_iir_fex(x2, coef, s1)
+    ffmt, gfmt = bundle.ffmt, bundle.gfmt
+    xc = fp.to_code(x, ffmt.feat_frac, 16, torch.int16)
+    xc1, xc2 = xc[:, :CHUNK].contiguous(), xc[:, CHUNK:].contiguous()
+    fi1, si1 = iir_fex.batched_iir_fex_int(
+        xc1, bundle.coef, fp.init_int_fex_state(B, C, "cuda"), fmt=ffmt)
+    fi2, _ = iir_fex.batched_iir_fex_int(xc2, bundle.coef, si1, fmt=ffmt)
+    gru, _, _ = kws.serving_weights({k: v.cuda() for k, v in params.items()})
+    H = gru.w_h.shape[0]
+    frames = lambda f: f.movedim(1, 0).contiguous()
+    _, g1, _, _ = dgs.delta_gru_seq(frames(f1), *dg.init_delta_state(
+        B, C, H, gru), gru.w_x, gru.w_h, th)
+    w, thc = bundle.gru, gfmt.th_codes(th)
+    _, i1, _, _ = dgs.delta_gru_seq_int(
+        frames(fi1), *fp.init_int_delta_state(B, C, H, w), w.w_x, w.w_h, thc,
+        fmt=gfmt)
+    xs2, xi2 = frames(f2), frames(fi2)
+    return {
+        "batched_iir_fex": lambda cfg: iir_fex.batched_iir_fex(
+            x2, coef, s1, **cfg),
+        "batched_iir_fex_int": lambda cfg: iir_fex.batched_iir_fex_int(
+            xc2, bundle.coef, si1, fmt=ffmt, **cfg),
+        "delta_gru_seq": lambda cfg: dgs.delta_gru_seq(
+            xs2, *g1, gru.w_x, gru.w_h, th, **cfg),
+        "delta_gru_seq_int": lambda cfg: dgs.delta_gru_seq_int(
+            xi2, *i1, w.w_x, w.w_h, thc, fmt=gfmt, **cfg)}
+
+
+def tuning_candidates(kernel, report):
+    """Every configuration the tuner can reach at this shape: each axis's
+    candidates with the other knob at its default (block_b = 1 of the
+    float FEx included, which the sweep skips, and the FEx's legal unrolls
+    above 16), then the sweep's own."""
+    from repro_torch.kernels import autotune
+    B = report["shape"][0]
+    if kernel.startswith("batched_iir_fex"):
+        other = ("unroll", autotune._tile_candidates(report["shape"][2],
+                                                     cap=16) + [32, 64, 128])
+    else:
+        other = ("block_t", autotune._tile_candidates(report["T"]))
+    axes = (other, ("block_b", autotune._block_b_candidates(B)))
+    default = {name: None for name, _ in axes}
+    cfgs = [dict(default, **{name: v}) for name, cands in axes
+            for v in cands]
+    cfgs += [{k: v for k, v in e.items() if k not in ("us", "role")}
+             for e in report["sweep"]]
+    out = []
+    for c in cfgs:
+        if c not in out:
+            out.append(c)
+    return out
+
+
+def flat_outputs(out) -> list:
+    res = []
+    for o in out:
+        res.extend(o if isinstance(o, (tuple, list)) else [o])
+    return res
+
+
+def same_outputs(torch, ref, got) -> bool:
+    """Every output bit for bit (floats by their bit patterns)."""
+    ref, got = flat_outputs(ref), flat_outputs(got)
+    if len(ref) != len(got):
+        return False
+    for a, b in zip(ref, got):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype.is_floating_point:
+            if bits_differ(torch, a, b):
+                return False
+        elif not torch.equal(a, b):
+            return False
+    return True
+
+
+def check_ragged_unrolls(torch, np, fex, bundle, bad):
+    """Both FEx kernels at frame_shift 100 (B = 8, T = 1000 + 37): the
+    unrolls that divide it but not the 64-sample tile (5, 25, 50) and 100,
+    with block_b 8 and 2, bit for bit against the default launch."""
+    from repro_torch.core import fixed_point as fp
+    from repro_torch.kernels import iir_fex
+    B, T, fs = 8, 1037, 100
+    g = torch.Generator().manual_seed(11)
+    x = (torch.rand((B, T), generator=g) * 2 - 1).mul(0.5).cuda()
+    coef = fex.coef.cuda()
+    xc = fp.to_code(x, bundle.ffmt.feat_frac, 16, torch.int16)
+    runs = {
+        "batched_iir_fex": lambda **kw: iir_fex.batched_iir_fex(
+            x, coef, iir_fex.init_fex_kernel_state(B, 10, "cuda"),
+            frame_shift=fs, **kw),
+        "batched_iir_fex_int": lambda **kw: iir_fex.batched_iir_fex_int(
+            xc, bundle.coef, fp.init_int_fex_state(B, 10, "cuda"),
+            fmt=bundle.ffmt, frame_shift=fs, **kw)}
+    n = 0
+    for k, run in runs.items():
+        ref = run()
+        for unroll in (5, 25, 50, 100):
+            for block_b in (None, 2):
+                n += 1
+                if not same_outputs(torch, ref, run(unroll=unroll,
+                                                    block_b=block_b)):
+                    bad.append(f"{k} frame_shift 100 unroll {unroll} "
+                               f"block_b {block_b} differs from the default")
+    print(f"[tune] frame_shift 100: {n} configurations of both FEx kernels "
+          f"(unroll 5, 25, 50, 100 × block_b 8, 2) bit for bit against the "
+          f"default launch")
+
+
+def check_illegal_knobs(torch, runs, bad):
+    """An illegal knob raises the reference's ValueError naming the
+    kernel, on the card as on the CPU, before anything launches."""
+    for kernel, cfg, text in (
+            ("batched_iir_fex", {"block_b": 3}, "block_b=3"),
+            ("batched_iir_fex", {"unroll": 3}, "unroll=3"),
+            ("batched_iir_fex_int", {"block_b": 0}, "block_b=0"),
+            ("batched_iir_fex_int", {"unroll": 48}, "unroll=48"),
+            ("delta_gru_seq", {"block_t": 5}, "block_t=5"),
+            ("delta_gru_seq", {"block_b": 7}, "block_b=7"),
+            ("delta_gru_seq_int", {"block_b": 6}, "block_b=6"),
+            ("delta_gru_seq_int", {"block_t": 0}, "block_t=0")):
+        try:
+            runs[kernel](cfg)
+        except ValueError as e:
+            if not str(e).startswith(f"{kernel}: {text} is not a positive "
+                                     f"divisor"):
+                bad.append(f"{kernel} {cfg}: unexpected message {e}")
+            continue
+        bad.append(f"{kernel} {cfg} did not raise")
+    print("[tune] illegal knobs: 8 cases raise the reference's ValueError")
+
+
+def tuned_session(torch, np, params, numerics, streams, env):
+    """A 256-slot always-on session built under ``env`` (set while it is
+    built, then restored), run TUNE_STEPS steps with the counts zeroed
+    just before and read just after: (report, launches, outputs)."""
+    import os
+
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.frontend.fex import FeatureExtractor
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.streaming import StreamingKwsSession
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        autotune.clear_memo()
+        sess = StreamingKwsSession(params, CONFIG, threshold=0.1,
+                                   batch=ALWAYS_ON_SLOTS, input_dim=10,
+                                   fex=FeatureExtractor(),
+                                   numerics=numerics, device="cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.clear_memo()
+    report = sess.kernel_tuning_report()
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    zero_launches(wrappers)
+    outs = []
+    for c in range(TUNE_STEPS):
+        r = sess.process_audio(streams[:, c * CHUNK:(c + 1) * CHUNK])
+        outs.append((r.votes, r.logits, r.nz))
+    torch.cuda.synchronize()
+    return report, read_launches(wrappers), outs
+
+
+def record_forced(forced):
+    """FORCED_TUNING into the cache file ``forced``, under the keys a
+    256-slot always-on session looks up on this card."""
+    import os
+
+    from repro_torch.kernels import autotune
+    saved = os.environ.get(autotune.ENV_CACHE)
+    os.environ[autotune.ENV_CACHE] = str(forced)
+    try:
+        B = ALWAYS_ON_SLOTS
+        for k, shape, dtype, th in (
+                ("batched_iir_fex", (B, 10, 128), "float32", 0.0),
+                ("batched_iir_fex_int", (B, 10, 128), "int16", 0.0),
+                ("delta_gru_seq", (B, 10, 64), "float32", 0.1),
+                ("delta_gru_seq_int", (B, 10, 64), "int8", 0.1)):
+            autotune.record(k, shape, dtype, th, FORCED_TUNING[k],
+                            tuned_us=0.0, default_us=0.0, device="cuda")
+    finally:
+        os.environ[autotune.ENV_CACHE] = saved
+        autotune.clear_memo()
+
+
+def tuning_sessions(torch, np, params, reports, cache, bad):
+    """Sessions that pick the recorded configurations up, against a
+    session with autotuning off: the report lists the winners (and then a
+    forced configuration), each kernel launches B / block_b times a step,
+    and votes, logits and transmit counts equal the untuned session's
+    bit for bit."""
+    from repro_torch.kernels import autotune
+    streams = always_on_streams(np)[:, :TUNE_STEPS * CHUNK]
+    forced = cache.with_name("forced.json")
+    record_forced(forced)
+    for numerics in ("float32", "int8"):
+        fex_k, gru_k = (("batched_iir_fex_int", "delta_gru_seq_int")
+                        if numerics == "int8"
+                        else ("batched_iir_fex", "delta_gru_seq"))
+        _, plain_launch, plain = tuned_session(
+            torch, np, params, numerics, streams,
+            {autotune.ENV_ENABLE: "0"})
+        winners = {k: {n: v for n, v in reports[k]["best_config"].items()
+                       if v is not None} for k in (fex_k, gru_k)}
+        for label, env, want in (
+                ("tuned", {}, winners),
+                ("forced", {autotune.ENV_CACHE: str(forced)},
+                 {k: FORCED_TUNING[k] for k in (fex_k, gru_k)})):
+            report, launches, outs = tuned_session(
+                torch, np, params, numerics, streams, env)
+            listed = {k: v["config"] for k, v in report["kernels"].items()}
+            if listed != want:
+                bad.append(f"{label} {numerics} session reports {listed}, "
+                           f"recorded {want}")
+            for k in (fex_k, gru_k):
+                per_step = ALWAYS_ON_SLOTS // want[k].get(
+                    "block_b", ALWAYS_ON_SLOTS)
+                if launches[k] != TUNE_STEPS * per_step:
+                    bad.append(f"{label} {numerics} session launched {k} "
+                               f"{launches[k]} times in {TUNE_STEPS} steps, "
+                               f"want {TUNE_STEPS * per_step}")
+            equal = all(same_outputs(torch, a, b)
+                        for a, b in zip(plain, outs))
+            if not equal:
+                bad.append(f"{label} {numerics} session's votes, logits or "
+                           f"counts differ from the untuned session's")
+            print(f"[tune] {label} {numerics} session: report {listed}, "
+                  f"launches {launches[fex_k]} {fex_k} / {launches[gru_k]} "
+                  f"{gru_k} in {TUNE_STEPS} steps (untuned "
+                  f"{plain_launch[fex_k]} / {plain_launch[gru_k]}), "
+                  f"outputs {'equal' if equal else 'DIFFER'}")
+
+
+def run_examples(bad):
+    """The three examples' ``main`` at small flags, on the card, in this
+    process; each must print the registry's commands."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch import commands
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        out = buf.getvalue()
+        shown = [k for k, c in commands.ALL_COMMANDS.items() if c in out]
+        last = [ln for ln in out.splitlines() if ln.strip()][-4:]
+        print(f"[tune] examples/{name}.py {' '.join(argv)}: rc {rc}, "
+              f"{time.perf_counter() - t0:.1f} s, prints {shown}")
+        for ln in last:
+            print(f"[tune]   {ln}")
+        if rc != 0 or not shown or "cuda" not in out:
+            bad.append(f"examples/{name}.py failed on the card (rc {rc}, "
+                       f"commands {shown})")
+
+
+def tuning_phase(torch, np, fex, params, bundle, card, cache):
+    """Sweep the four serving kernels at the always-on shapes, hold every
+    candidate bit for bit against the default launch, check the illegal
+    knobs, serve sessions that pick the winners (and a forced
+    configuration) up against an untuned one, and run the examples."""
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    bad = []
+    reports = {}
+    for variant in ("float", "int"):
+        rep = autotune.tune_batched_iir_fex(
+            B=ALWAYS_ON_SLOTS, seconds=CHUNK / 8000, variant=variant,
+            iters=TUNE_ITERS, device="cuda")
+        reports[rep["kernel"]] = rep
+        rep = autotune.tune_delta_gru_seq(
+            T=CHUNK // 128, B=ALWAYS_ON_SLOTS, I=10, H=64, threshold=0.1,
+            variant=variant, iters=TUNE_ITERS, device="cuda")
+        reports[rep["kernel"]] = rep
+    for k in TUNED_KERNELS:
+        rep = reports[k]
+        print(f"[tune] {k} {rep['shape']}: default {rep['default_us']:.1f} "
+              f"µs {rep['default_config']}, best {rep['best_us']:.1f} µs "
+              f"{rep['best_config']} ({len(rep['sweep'])} timed, median of "
+              f"{TUNE_ITERS}) [{card}]")
+        for e in rep["sweep"]:
+            cfg = {n: v for n, v in e.items() if n not in ("us", "role")}
+            print(f"[tune]   {cfg}: {e['us']:.1f} µs")
+    runs = tuning_runs(torch, np, fex, params, bundle)
+    n_checked = 0
+    for k in TUNED_KERNELS:
+        cands = tuning_candidates(k, reports[k])
+        ref = runs[k]({})
+        for cfg in cands:
+            n_checked += 1
+            if not same_outputs(torch, ref, runs[k](cfg)):
+                bad.append(f"{k} {cfg} differs from the default launch")
+        print(f"[tune] {k}: {len(cands)} configurations bit for bit "
+              f"against the default launch (outputs, state, counts)")
+    check_ragged_unrolls(torch, np, fex, bundle, bad)
+    torch.cuda.synchronize()
+    check_illegal_knobs(torch, runs, bad)
+    tuning_sessions(torch, np, params, reports, cache, bad)
+    run_examples(bad)
+    secs = time.perf_counter() - t0
+    print(f"[tune] phase {secs:.1f} s, {n_checked} configurations checked")
+    if bad:
+        for b in bad:
+            print(f"FAIL: {b}")
+        fail(f"{len(bad)} tuning checks failed")
+    return {k: {"default_us": reports[k]["default_us"],
+                "best_us": reports[k]["best_us"],
+                "default_config": reports[k]["default_config"],
+                "best_config": reports[k]["best_config"],
+                "timed": len(reports[k]["sweep"])} for k in TUNED_KERNELS}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -3820,6 +4212,17 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the always-on serving steps")
     args = ap.parse_args()
+    # No autotune cache of the machine may change a phase's launches: the
+    # run keeps its own, removed at exit.
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    tune_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    atexit.register(shutil.rmtree, tune_dir, ignore_errors=True)
+    tune_cache = tune_dir / "autotune.json"
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(tune_cache)
+    os.environ.pop("REPRO_AUTOTUNE", None)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA GPU: torch.cuda.is_available() "
@@ -3889,6 +4292,7 @@ def main() -> int:
     fault_res = faults_phase(torch, np, params, card, args.profile)
     fault_launches = fault_res["serve_launches"]
     train_res = training_phase(torch, np)
+    tune_res = tuning_phase(torch, np, fex, params, bundle, card, tune_cache)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -3920,6 +4324,7 @@ def main() -> int:
             "launches_faults_run": fault_launches.get(
                 ("kws-audio", numerics), {}).get(name),
             "launches_train_run": train_res["launches"][name],
+            "autotune": tune_res[name],
             "shape": (f"B={SLOTS} S={CHUNK} C={C}" if kind.startswith("fex")
                       else f"T=32 B={SLOTS} I={C} H={H}")})
         if kind + "_chain" in times:

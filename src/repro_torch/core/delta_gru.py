@@ -193,10 +193,12 @@ def _delta_gru_scan_blocked(params: DeltaGRUParams, xs, threshold: float,
 
 def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
                    state: DeltaState | None = None, *,
-                   backend: str = "xla", block_i: int | None = None,
+                   backend: str = "xla", block_b: int | None = None,
+                   block_t: int | None = None, block_i: int | None = None,
                    block_o: int | None = None,
                    smem_budget_bytes: int = MAX_SMEM_BYTES,
-                   event_driven: bool = False, h_qformat=None
+                   event_driven: bool = False, h_qformat=None,
+                   consult_cache: bool = True
                    ) -> tuple[torch.Tensor, DeltaState, DeltaStats]:
     """Run a ΔGRU over ``xs`` of shape (T, B, I).
 
@@ -213,6 +215,12 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         hold the weights in ``smem_budget_bytes`` of shared memory (or
         3H columns on one block's threads), "pallas" takes the
         block-sparse path instead: ``delta_matvec`` twice per frame.
+      block_b / block_t: the sequence kernel's launch knobs (streams per
+        launch, frames of x staged at a time; ``kernels.autotune``).
+        ``None`` consults the autotune cache for this (kernel, shape,
+        dtype, threshold bucket, device) and otherwise keeps the default
+        launch — behaviour is unchanged until a cache is tuned.  Both are
+        numerics-invariant; the block-sparse path ignores them.
       block_i / block_o: the block-sparse path's input block (the mask's
         granularity) and output tile; None picks the largest divisor of
         each axis up to 128, as the reference does.
@@ -229,6 +237,9 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         ``h_qformat`` and with inputs that need a gradient.
       h_qformat: QAT hidden-state quantization grid ("xla" backend only —
         see ``DeltaGRUCell``).
+      consult_cache: False leaves a ``None`` knob at the default launch
+        without reading the cache (a session passes the configuration it
+        looked up once).
 
     Returns:
       (hs (T, B, H), final ``DeltaState``, ``DeltaStats`` stacked over T).
@@ -266,8 +277,15 @@ def delta_gru_scan(params: DeltaGRUParams, xs, threshold: float = 0.0,
         if not seq_kernel_fits(I, H, smem_budget_bytes):
             return _delta_gru_scan_blocked(params, xs, threshold, state,
                                            block_i, block_o)
+        if consult_cache and (block_b is None or block_t is None):
+            from repro_torch.kernels import autotune
+            tuned = autotune.resolve("delta_gru_seq", (B, I, H), "float32",
+                                     threshold, device=xs.device, B=B, T=T)
+            block_b = block_b if block_b is not None else tuned.get("block_b")
+            block_t = block_t if block_t is not None else tuned.get("block_t")
         hs, final, nz_dx, nz_dh = delta_gru_seq(
-            xs.contiguous(), *state, params.w_x, params.w_h, threshold)
+            xs.contiguous(), *state, params.w_x, params.w_h, threshold,
+            block_b=block_b, block_t=block_t)
         return hs, DeltaState(*final), _stats_from_counts(nz_dx, nz_dh, I, H)
     cell = DeltaGRUCell(hidden_dim=H, threshold=threshold,
                         h_qformat=h_qformat)

@@ -306,8 +306,9 @@ def gru_frame_step(fmt: GruFormats | None, x, h, x_hat, h_hat, m,
 
 def int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
                  threshold: float, state: DeltaState | None = None, *,
-                 backend: str = "xla", packed: bool | None = None,
-                 event_driven: bool = False):
+                 backend: str = "xla", block_b: int | None = None,
+                 block_t: int | None = None, packed: bool | None = None,
+                 event_driven: bool = False, consult_cache: bool = True):
     """Run the integer ΔGRU over codes ``xs_codes`` (T, B, I) int16.
 
     ``backend="xla"`` is the plain loop (``delta_gru_seq_int_ref``, the
@@ -317,6 +318,12 @@ def int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
     exact against each other on the card.  ``packed`` is the reference's
     numerics-invariant dot choice; it is checked, never used.
     Returns ``(hs_codes (T,B,H) int16, final DeltaState, nz_dx, nz_dh)``.
+
+    ``block_b`` / ``block_t`` are the kernel's numerics-invariant launch
+    knobs (``kernels.autotune``); left ``None``, "pallas" consults the
+    autotune cache for this (shape, dtype, threshold bucket, device) and
+    falls back to the default launch on a cold cache (``consult_cache``
+    False: the default launch, no cache read).
 
     The kernel keeps its int8 weights in one thread block's shared
     memory; weights above that are REFUSED (``NotImplementedError``), as
@@ -349,7 +356,15 @@ def int_gru_scan(w: IntGruWeights, fmt: GruFormats, xs_codes,
         return hs, DeltaState(*st), nz_dx, nz_dh
     if backend == "pallas":
         _check_int_kernel_budget(I, H)
-        fn = functools.partial(dgs.delta_gru_seq_int, packed=packed)
+        if consult_cache and (block_b is None or block_t is None):
+            from repro_torch.kernels import autotune
+            tuned = autotune.resolve("delta_gru_seq_int", (B, I, H), "int8",
+                                     threshold, device=xs_codes.device, B=B,
+                                     T=T)
+            block_b = block_b if block_b is not None else tuned.get("block_b")
+            block_t = block_t if block_t is not None else tuned.get("block_t")
+        fn = functools.partial(dgs.delta_gru_seq_int, packed=packed,
+                               block_b=block_b, block_t=block_t)
     elif backend == "xla":
         fn = dgs.delta_gru_seq_int_ref
     else:
@@ -516,23 +531,40 @@ def fex_state_from_codes(codes, fmt: FexFormats):
 
 
 def int_fex_scan(audio_codes, coef_codes, state_codes, fmt: FexFormats, *,
-                 frame_shift: int = 128, backend: str = "xla"):
+                 frame_shift: int = 128, backend: str = "xla",
+                 block_b: int | None = None, unroll: int | None = None,
+                 consult_cache: bool = True):
     """Integer FEx over a chunk of audio codes (B, T) int16 Q0.11.
 
     ``backend="xla"`` is the plain loop (``batched_iir_fex_int_ref``);
     ``"pallas"`` the kernel wrapper ``batched_iir_fex_int`` (one launch
     of ``csrc/iir_fex_int.cu`` on a CUDA tensor).  Returns (feature
     codes (B, F, C) int16, new state codes (B, 5, C) int16).
+    ``block_b`` / ``unroll`` are the kernel's numerics-invariant launch
+    knobs; left ``None``, "pallas" consults the ``kernels.autotune``
+    cache (the default launch on a cold cache; ``consult_cache`` False:
+    the default launch, no cache read).
     """
     from repro_torch.kernels import iir_fex
     if backend == "pallas":
-        fn = iir_fex.batched_iir_fex_int
-    elif backend == "xla":
-        fn = iir_fex.batched_iir_fex_int_ref
-    else:
+        if consult_cache and (block_b is None or unroll is None):
+            from repro_torch.kernels import autotune
+            B = audio_codes.shape[0]
+            C = coef_codes.shape[1]
+            tuned = autotune.resolve("batched_iir_fex_int",
+                                     (B, C, frame_shift), "int16", 0.0,
+                                     device=audio_codes.device, B=B,
+                                     frame_shift=frame_shift)
+            block_b = block_b if block_b is not None else tuned.get("block_b")
+            unroll = unroll if unroll is not None else tuned.get("unroll")
+        return iir_fex.batched_iir_fex_int(
+            audio_codes, coef_codes, state_codes, fmt=fmt,
+            frame_shift=frame_shift, block_b=block_b, unroll=unroll)
+    if backend != "xla":
         raise ValueError(f"unknown int FEx backend: {backend!r}")
-    return fn(audio_codes, coef_codes, state_codes, fmt=fmt,
-              frame_shift=frame_shift)
+    return iir_fex.batched_iir_fex_int_ref(audio_codes, coef_codes,
+                                           state_codes, fmt=fmt,
+                                           frame_shift=frame_shift)
 
 
 # ----------------------------------------------------- promotion + forward

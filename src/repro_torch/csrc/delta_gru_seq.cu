@@ -69,6 +69,18 @@
 // the encoders, the row sums, the gates and both barriers: its cost is
 // the h row's store.  Awake everywhere, it does the unmasked arithmetic.
 //
+// Launch knobs (the autotuner's, kernels/autotune.py).  block_b: the
+// wrapper launches B / block_b times on one stream, each launch's CTAs
+// serving consecutive streams from b0 (Args::b0; xs stays (T, B, I) with
+// its full-B strides, nothing is copied).  block_t: with x_frames >= 2
+// (the staged instance, kStaged) each x encoder copies its component for
+// the next x_frames frames into shared memory at once, all loads issued
+// before the first store, and reads it back frame by frame: the variant
+// measured and set aside above, kept as a knob.  x_frames 0 (block_t 1,
+// the default) is the one-frame-ahead register load.  The masked
+// instantiation keeps the default launch.  No knob changes an operation
+// or its order: every value is bit for bit the default's.
+//
 // Numerics.  Compiled with --fmad=false (multiply then add, as PyTorch's
 // eager ops) and --ftz=true (XLA:CPU flushes denormals).  σ and tanh are
 // XLA's own float32 expansions (xla_math.cuh), and the gates fuse the two
@@ -90,13 +102,14 @@ __host__ __device__ inline size_t round16(size_t v) { return (v + 15) / 16 * 16;
 // columns): W_x (I rows) then W_h (H rows) at a row pitch of N rounded up
 // to 4 floats; the compacted (Δ, row offset) lists, warp w's segment from
 // entry 32w (SX segments for x, SH for h); the rows the gates read (σ(u)
-// and the candidate's M_x; its M_h); the segment counts.
+// and the candidate's M_x; its M_h); the segment counts; with x_frames >
+// 0 (the staged instance) x for x_frames frames ([frame][component]).
 struct Layout {
   int pitch, sx, sh;
-  size_t lx, lh, mxs, mhs, cnt, total;
+  size_t lx, lh, mxs, mhs, cnt, xst, total;
 };
 
-__host__ __device__ inline Layout layout(int I, int H) {
+__host__ __device__ inline Layout layout(int I, int H, int x_frames = 0) {
   Layout L;
   const int N = 3 * H;
   L.pitch = (N + 3) / 4 * 4;
@@ -107,7 +120,8 @@ __host__ __device__ inline Layout layout(int I, int H) {
   L.mxs = L.lh + sizeof(Row) * 32 * L.sh;
   L.mhs = L.mxs + 4 * static_cast<size_t>(L.pitch);
   L.cnt = L.mhs + 4 * static_cast<size_t>(L.pitch);
-  L.total = L.cnt + round16(4 * static_cast<size_t>(L.sx + L.sh));
+  L.xst = L.cnt + round16(4 * static_cast<size_t>(L.sx + L.sh));
+  L.total = L.xst + round16(4 * static_cast<size_t>(x_frames) * I);
   return L;
 }
 
@@ -132,6 +146,8 @@ struct Args {
   int T, B, I, H;
   int w_vec;   // 3H % 4 == 0 and both weight arrays 16-byte aligned
   const uint8_t* awake;   // (T, B) wake trace; the masked instantiation's
+  int b0;        // first stream of this launch (gridDim.x streams from b0)
+  int x_frames;  // frames of x staged at a time (the staged instance's)
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -168,25 +184,37 @@ __device__ __forceinline__ void stage_weights(float* dst, const float* src,
   }
 }
 
-template <bool kMasked>
+template <bool kMasked, bool kStaged>
 __global__ void delta_gru_seq_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int I = a.I, H = a.H, N = 3 * H, B = a.B, T = a.T;
-  const Layout L = layout(I, H);
+  const Layout L = layout(I, H, kStaged ? a.x_frames : 0);
   float* w = reinterpret_cast<float*>(smem);       // W_x rows, then W_h
   Row* lx = reinterpret_cast<Row*>(smem + L.lx);
   Row* lh = reinterpret_cast<Row*>(smem + L.lh);
   float* mxs = reinterpret_cast<float*>(smem + L.mxs);
   float* mhs = reinterpret_cast<float*>(smem + L.mhs);
   int* cnt = reinterpret_cast<int*>(smem + L.cnt);  // x, then h segments
+  float* xst = reinterpret_cast<float*>(smem + L.xst);  // staged x
 
-  const int b = blockIdx.x;
+  const int b = a.b0 + blockIdx.x;
   const int j = threadIdx.x;
   const int lane = j & 31;
   const int warp = j >> 5;
   const int xwarp = warp - (static_cast<int>(blockDim.x >> 5) - L.sx);
   const int xj = xwarp * 32 + lane;   // this thread's x component
   const bool x_enc = xwarp >= 0 && xj < I;
+  // The staged instance: the encoder of x component xj copies it for the
+  // block's frames from t0 (all loads issued before the first store) and
+  // is the only thread to read it back.
+  const auto stage_x = [&](int t0) {
+    const int nf = min(a.x_frames, T - t0);
+    const float* src = a.xs + (static_cast<size_t>(t0) * B + b) * I + xj;
+#pragma unroll 32
+    for (int f = 0; f < nf; ++f) {
+      xst[f * I + xj] = src[static_cast<size_t>(f) * B * I];
+    }
+  };
 
   stage_weights(w, a.wx, I, N, L.pitch, a.w_vec);
   stage_weights(w + I * L.pitch, a.wh, H, N, L.pitch, a.w_vec);
@@ -198,7 +226,13 @@ __global__ void delta_gru_seq_kernel(Args a) {
   float xnext = 0.0f;              // x of the coming frame
   if (x_enc) {
     xhat = a.xh0[b * I + xj];
-    if (T > 0) xnext = a.xs[static_cast<size_t>(b) * I + xj];
+    if (T > 0) {
+      if (kStaged) {
+        stage_x(0);
+      } else {
+        xnext = a.xs[static_cast<size_t>(b) * I + xj];
+      }
+    }
   }
   if (j < H) {
     hhat = a.hh0[b * H + j];
@@ -213,10 +247,20 @@ __global__ void delta_gru_seq_kernel(Args a) {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
+  int tf = 0;                      // frame within the staged block
   for (int t = 0; t < T; ++t) {
     const size_t row = static_cast<size_t>(t) * B + b;
-    const float xv = xnext;
-    if (x_enc && t + 1 < T) xnext = a.xs[(row + B) * I + xj];
+    float xv = xnext;
+    if (kStaged) {
+      if (tf == a.x_frames) {
+        tf = 0;
+        if (x_enc) stage_x(t);
+      }
+      if (x_enc) xv = xst[tf * I + xj];
+      ++tf;
+    } else if (x_enc && t + 1 < T) {
+      xnext = a.xs[(row + B) * I + xj];
+    }
     if (kMasked && !wake::is_awake(wb, a.awake, t, T, B, b, lane)) {
       if (j < H) a.hs[row * H + j] = hcur;        // asleep: h frozen
       continue;
@@ -292,30 +336,43 @@ extern "C" long long delta_gru_seq_smem_bytes(int I, int H) {
   return static_cast<long long>(layout(I, H).total);
 }
 
+// The same for the staged instance with x_frames >= 2 staged frames.
+extern "C" long long delta_gru_seq_staged_smem_bytes(int I, int H,
+                                                     int x_frames) {
+  return static_cast<long long>(layout(I, H, x_frames).total);
+}
+
 // xs (T, B, I); h0, hh0, h_out, hh_out (B, H); xh0, xh_out (B, I);
 // mx0, mh0, mx_out, mh_out (B, 3H); wx (I, 3H); wh (H, 3H); hs (T, B, H);
 // nz_dx, nz_dh (T, B) int32; awake null, or the (T, B) uint8 wake trace of
 // the masked instantiation.  All contiguous float32 (counts int32) on the
 // current device.  The launch follows the wrapper's plan
-// (kernels/delta_gru_seq.py::gru_launch_plan): one CTA per stream
-// (ctas == B) of `threads` threads, a warp multiple that covers 3H and I,
-// with smem_bytes of dynamic shared memory.  Launches on `stream` and
-// returns the launch's (or the shared-memory attribute's) error, or
-// cudaErrorInvalidValue for a plan this kernel cannot run.
+// (kernels/delta_gru_seq.py::gru_launch_plan): one CTA per stream of the
+// `ctas` streams from b0 (b0 + ctas <= B) of `threads` threads, a warp
+// multiple that covers 3H and I, with smem_bytes of dynamic shared memory
+// for x_frames staged frames (0 or 1: the unstaged default; >= 2: the
+// staged instance, which the masked one never takes).  Launches on
+// `stream` and returns the launch's (or the shared-memory attribute's)
+// error, or cudaErrorInvalidValue for a plan this kernel cannot run.
 extern "C" int delta_gru_seq_launch(
     const float* xs, const float* h0, const float* xh0, const float* hh0,
     const float* mx0, const float* mh0, const float* wx, const float* wh,
     float threshold, float* hs, int* nz_dx, int* nz_dh, float* h_out,
     float* xh_out, float* hh_out, float* mx_out, float* mh_out, int T, int B,
-    int I, int H, int ctas, int threads, int smem_bytes,
-    const uint8_t* awake, void* stream) {
-  if (ctas != B || threads % 32 != 0 || threads > 1024 ||
-      threads < 3 * H || threads < I ||
-      static_cast<size_t>(smem_bytes) < layout(I, H).total) {
+    int I, int H, int ctas, int threads, int smem_bytes, int x_frames,
+    int b0, const uint8_t* awake, void* stream) {
+  const bool staged = x_frames >= 2;
+  if (ctas < 1 || b0 < 0 || b0 + ctas > B || threads % 32 != 0 ||
+      threads > 1024 || threads < 3 * H || threads < I || x_frames < 0 ||
+      (staged && awake != nullptr) ||
+      static_cast<size_t>(smem_bytes) <
+          layout(I, H, staged ? x_frames : 0).total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  void (*kernel)(Args) = awake != nullptr ? delta_gru_seq_kernel<true>
-                                          : delta_gru_seq_kernel<false>;
+  void (*kernel)(Args) = awake != nullptr
+                             ? delta_gru_seq_kernel<true, false>
+                             : staged ? delta_gru_seq_kernel<false, true>
+                                      : delta_gru_seq_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -326,7 +383,8 @@ extern "C" int delta_gru_seq_launch(
                         : 0;
   const Args args{xs, h0, xh0, hh0, mx0, mh0, wx, wh, hs, nz_dx, nz_dh,
                   h_out, xh_out, hh_out, mx_out, mh_out, threshold, T, B, I,
-                  H, w_vec, awake};
-  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
+                  H, w_vec, awake, b0, staged ? x_frames : 0};
+  kernel<<<ctas, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      args);
   return static_cast<int>(cudaGetLastError());
 }

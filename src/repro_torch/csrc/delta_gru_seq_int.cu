@@ -71,6 +71,15 @@
 // the row sums, the gates and both barriers.  Awake everywhere, it does
 // the unmasked arithmetic.
 //
+// Launch knobs (the autotuner's, kernels/autotune.py).  block_b: the
+// wrapper launches B / block_b times on one stream, each launch's CTAs
+// serving consecutive streams from b0 (Args::b0; xs stays (T, B, I) with
+// its full-B strides, nothing is copied).  block_t: the frames of x codes
+// staged at a time (x_frames; the default min(32, T)), clipped to what
+// shared memory holds.  The masked instantiation keeps the default
+// launch.  No knob changes an operation or its order: every value is bit
+// for bit the default's.
+//
 // Numerics.  Products |Δ|·|w| <= 2^16·2^7 = 2^23 are exact int32; the
 // column sums (up to K·2^23 for K terms), their combination across lanes,
 // the alignment left shift and the accumulator add are done in unsigned
@@ -145,6 +154,7 @@ struct Args {
   int T, B, I, H, x_frames;
   int w_vec;   // 3H % 16 == 0 and both weight arrays 16-byte aligned
   const uint8_t* awake;   // (T, B) wake trace; the masked instantiation's
+  int b0;      // first stream of this launch (gridDim.x streams from b0)
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -188,7 +198,7 @@ __global__ void delta_gru_seq_int_kernel(Args a) {
   int32_t* cnt = reinterpret_cast<int32_t*>(smem + L.cnt);  // x, then h
   int16_t* xst = reinterpret_cast<int16_t*>(smem + L.xst);
 
-  const int b = blockIdx.x;
+  const int b = a.b0 + blockIdx.x;
   const int j = threadIdx.x;
   const int lane = j & 31;
   const int warp = j >> 5;
@@ -329,9 +339,10 @@ extern "C" long long delta_gru_seq_int_smem_bytes(int I, int H) {
 // contiguous on the current device.  Needs 2 <= acc_bits <= 31,
 // 1 <= hid_frac <= 15 and |shift_x|, |shift_h| <= 30.  The launch follows
 // the wrapper's plan (kernels/delta_gru_seq.py::gru_int_launch_plan): one
-// CTA per stream (ctas == B) of `threads` threads, a warp multiple that
-// covers 3H rounded up to 4 columns and I, with smem_bytes of dynamic
-// shared memory for x_frames >= 1 staged frames.  Launches on `stream`
+// CTA per stream of the `ctas` streams from b0 (b0 + ctas <= B) of
+// `threads` threads, a warp multiple that covers 3H rounded up to 4
+// columns and I, with smem_bytes of dynamic shared memory for x_frames >=
+// 1 staged frames.  Launches on `stream`
 // and returns the launch's (or the shared-memory attribute's) error, or
 // cudaErrorInvalidValue for a plan this kernel cannot run.
 extern "C" int delta_gru_seq_int_launch(
@@ -341,10 +352,11 @@ extern "C" int delta_gru_seq_int_launch(
     int shift_h, int acc_bits, int acc_frac, int hid_frac, int16_t* hs,
     int32_t* nz_dx, int32_t* nz_dh, int16_t* h_out, int16_t* xh_out,
     int16_t* hh_out, int32_t* mx_out, int32_t* mh_out, int T, int B, int I,
-    int H, int ctas, int threads, int smem_bytes, int x_frames,
+    int H, int ctas, int threads, int smem_bytes, int x_frames, int b0,
     const uint8_t* awake, void* stream) {
   const Layout L = layout(I, H, x_frames > 0 ? x_frames : 1);
-  if (ctas != B || threads % 32 != 0 || threads > 1024 ||
+  if (ctas < 1 || b0 < 0 || b0 + ctas > B || threads % 32 != 0 ||
+      threads > 1024 ||
       threads < L.pitch || threads < I || x_frames < 1 ||
       static_cast<size_t>(smem_bytes) < L.total) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -363,7 +375,8 @@ extern "C" int delta_gru_seq_int_launch(
   const Args args{xs, h0, xh0, hh0, mx0, mh0, wx, wh, hs, nz_dx, nz_dh,
                   h_out, xh_out, hh_out, mx_out, mh_out, th_x, th_h,
                   shift_x, shift_h, acc_bits, acc_frac, hid_frac, T, B, I,
-                  H, x_frames, w_vec, awake};
-  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
+                  H, x_frames, w_vec, awake, b0};
+  kernel<<<ctas, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,18 @@
 // kernels/iir_fex.py::fex_launch_plan): 10 CTAs at B = 32 and 80 at
 // B = 256, C = 10.
 //
+// Launch knobs (the autotuner's, kernels/autotune.py).  block_b: the
+// wrapper launches B / block_b times on one stream, each launch over a
+// slice of consecutive streams from stream b0 (Args::b0; the arrays keep
+// their full-B layout, nothing is copied).  unroll: the library built with
+// -DFEX_UNROLL=U (kernels/build.py::variant) runs the three consumer
+// warps' per-sample loop over a tile in a rolled loop of groups of U
+// samples, each group unrolled (16-byte ring accesses where U % 4 == 0),
+// the tile's last 64 % U samples after it; U >= 64 unrolls the whole
+// tile.  FEX_UNROLL 0 (the default build) is the fully unrolled tile
+// with loads 8 samples ahead described above.  Neither knob changes an
+// operation or its order: every value is bit for bit the default's.
+//
 // Numerics: those of the JAX reference as XLA compiles it on the CPU.
 // Its scan body fuses seven products into the following add or subtract
 // (of a difference of two products, the first); those are fmaf() in
@@ -65,6 +77,10 @@
 
 #include "iir_fex_section.cuh"
 #include "xla_math.cuh"
+
+#ifndef FEX_UNROLL
+#define FEX_UNROLL 0   // the fully unrolled tile (the default instance)
+#endif
 
 namespace {
 
@@ -166,6 +182,47 @@ __device__ __forceinline__ void run_tile(const float* row, Fn fn) {
   }
 }
 
+// The -DFEX_UNROLL=kU instance of run_tile: fn4(4 samples, index of the
+// first) or fn1(sample, index) over a full tile, in a rolled loop of
+// groups of kU samples (at most the tile), each group unrolled; 16-byte
+// accesses where kU % 4 == 0, single ones otherwise; the last
+// kTile % kU samples unrolled after the loop.
+template <int kU, typename Fn4, typename Fn1>
+__device__ __forceinline__ void run_tile_u(const float* row, Fn4 fn4,
+                                           Fn1 fn1) {
+  constexpr int kG = kU < kTile ? kU : kTile;
+  constexpr int kMain = kTile / kG * kG;
+  if constexpr (kG % 4 == 0) {
+    const float4* v = reinterpret_cast<const float4*>(row);
+#pragma unroll 1
+    for (int g = 0; g < kMain; g += kG) {
+#pragma unroll
+      for (int i = 0; i < kG / 4; ++i) fn4(v[g / 4 + i], g + 4 * i);
+    }
+#pragma unroll
+    for (int k = kMain; k < kTile; k += 4) fn4(v[k / 4], k);
+  } else {
+#pragma unroll 1
+    for (int g = 0; g < kMain; g += kG) {
+#pragma unroll
+      for (int j = 0; j < kG; ++j) fn1(row[g + j], g + j);
+    }
+#pragma unroll
+    for (int k = kMain; k < kTile; ++k) fn1(row[k], k);
+  }
+}
+
+// The tile loop of the kernel's instance: run_tile, or run_tile_u<kU>.
+template <int kU, typename Fn4, typename Fn1>
+__device__ __forceinline__ void tile_loop(const float* row, Fn4 fn4,
+                                          Fn1 fn1) {
+  if constexpr (kU == 0) {
+    run_tile(row, fn4);
+  } else {
+    run_tile_u<kU>(row, fn4, fn1);
+  }
+}
+
 // A section's step on 4 samples of its input, written to its output row.
 __device__ __forceinline__ void section4(fex::Section& sec, float4 v,
                                          float* out) {
@@ -184,9 +241,11 @@ struct Args {
   float* state_out;
   int B, T, n_frames, C, frame_shift, compress;
   int x_vec;   // audio rows 16-byte aligned: T % 4 == 0, x aligned
+  int b0;      // first stream of this launch (B streams from b0)
   float env_alpha, one_minus_alpha, log_eps;
 };
 
+template <int kU>
 __global__ void __launch_bounds__(kThreads) iir_fex_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -195,7 +254,8 @@ __global__ void __launch_bounds__(kThreads) iir_fex_kernel(Args a) {
   const int p = blockIdx.x * kLanes + lane;
   const bool active = p < n_pairs;
   const int pc = active ? p : n_pairs - 1;   // idle lanes shadow the last
-  const int b = pc / a.C, c = pc - b * a.C;
+  const int bl = pc / a.C, c = pc - bl * a.C;
+  const int b = a.b0 + bl;                   // the stream, of the full B
   const int C = a.C;
   const int S = a.n_frames * a.frame_shift;
   const int n_tiles = (S + kTile - 1) / kTile;
@@ -244,7 +304,9 @@ __global__ void __launch_bounds__(kThreads) iir_fex_kernel(Args a) {
       bar_sync(x_full(xslot));
       if (t >= kStages) bar_sync(y_empty(0, slot));
       if (n == kTile) {
-        run_tile(in, [&](float4 v, int k) { section4(sec, v, out + k); });
+        tile_loop<kU>(
+            in, [&](float4 v, int k) { section4(sec, v, out + k); },
+            [&](float v, int k) { out[k] = sec(v); });
       } else {
 #pragma unroll 1
         for (int k = 0; k < n; ++k) out[k] = sec(in[k]);
@@ -272,7 +334,9 @@ __global__ void __launch_bounds__(kThreads) iir_fex_kernel(Args a) {
       bar_sync(y_full(0, slot));
       if (t >= kStages) bar_sync(y_empty(1, slot));
       if (n == kTile) {
-        run_tile(in, [&](float4 v, int k) { section4(sec, v, out + k); });
+        tile_loop<kU>(
+            in, [&](float4 v, int k) { section4(sec, v, out + k); },
+            [&](float v, int k) { out[k] = sec(v); });
       } else {
 #pragma unroll 1
         for (int k = 0; k < n; ++k) out[k] = sec(in[k]);
@@ -305,12 +369,15 @@ __global__ void __launch_bounds__(kThreads) iir_fex_kernel(Args a) {
       const float* in = &sm.y1[slot][lane][0];
       bar_sync(y_full(1, slot));
       if (n == kTile && to_boundary >= kTile) {   // no frame ends inside
-        run_tile(in, [&](float4 v, int) {
-          step(v.x);
-          step(v.y);
-          step(v.z);
-          step(v.w);
-        });
+        tile_loop<kU>(
+            in,
+            [&](float4 v, int) {
+              step(v.x);
+              step(v.y);
+              step(v.z);
+              step(v.w);
+            },
+            [&](float v, int) { step(v); });
         to_boundary -= kTile;
         if (to_boundary == 0) emit();
       } else {
@@ -331,35 +398,42 @@ extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (B, T) f32, T >= n_frames * frame_shift, n_frames >= 1; coef (6, C);
-// state_in and state_out (B, 5, C); feats (B, n_frames, C).  All
-// contiguous, on the current device.  The launch follows the wrapper's
-// plan (kernels/iir_fex.py::fex_launch_plan): `ctas` CTAs of `threads`
-// threads with smem_bytes of dynamic shared memory.  Launches on
-// `stream` and returns the launch's (or the shared-memory attribute's)
-// error, or cudaErrorInvalidValue for a plan this kernel cannot run
-// (CTAs that miss pairs, another thread count, too little shared memory).
+// The unroll factor this library was built with (0: the default tile).
+extern "C" int iir_fex_unroll() { return FEX_UNROLL; }
+
+// x (B_all, T) f32, T >= n_frames * frame_shift, n_frames >= 1; coef
+// (6, C); state_in and state_out (B_all, 5, C); feats (B_all, n_frames,
+// C).  All contiguous, on the current device.  This launch serves the B
+// streams from b0 (b0 + B <= B_all; the others are left alone).  The
+// launch follows the wrapper's plan (kernels/iir_fex.py::fex_launch_plan
+// for B streams): `ctas` CTAs of `threads` threads with smem_bytes of
+// dynamic shared memory.  Launches on `stream` and returns the launch's
+// (or the shared-memory attribute's) error, or cudaErrorInvalidValue for
+// a plan this kernel cannot run (CTAs that miss pairs, another thread
+// count, too little shared memory, a negative b0).
 extern "C" int iir_fex_launch(const float* x, const float* coef,
                               const float* state_in, float* feats,
                               float* state_out, int B, int T, int n_frames,
                               int C, int frame_shift, float env_alpha,
                               float one_minus_alpha, float log_eps,
                               int compress, int ctas, int threads,
-                              int smem_bytes, void* stream) {
+                              int smem_bytes, int b0, void* stream) {
   if (static_cast<long long>(ctas) * kLanes < static_cast<long long>(B) * C ||
-      threads != kThreads || smem_bytes < static_cast<int>(sizeof(Smem))) {
+      threads != kThreads || smem_bytes < static_cast<int>(sizeof(Smem)) ||
+      b0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      iir_fex_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      iir_fex_kernel<FEX_UNROLL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int x_vec =
       T % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? 1 : 0;
   const Args args{x, coef, state_in, feats, state_out, B, T, n_frames, C,
-                  frame_shift, compress, x_vec, env_alpha, one_minus_alpha,
-                  log_eps};
-  iir_fex_kernel<<<static_cast<unsigned>(ctas), kThreads, smem_bytes,
-                   static_cast<cudaStream_t>(stream)>>>(args);
+                  frame_shift, compress, x_vec, b0, env_alpha,
+                  one_minus_alpha, log_eps};
+  iir_fex_kernel<FEX_UNROLL><<<static_cast<unsigned>(ctas), kThreads,
+                               smem_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,18 @@
 //     wrapper's launch plan): 10 CTAs at B = 32 and 80 at B = 256, C = 10,
 //     each on its own SM.
 //
+// Launch knobs (the autotuner's, kernels/autotune.py).  block_b: the
+// wrapper launches B / block_b times on one stream, each launch over a
+// slice of consecutive streams from stream b0 (Args::b0; the arrays keep
+// their full-B layout, nothing is copied).  unroll: the library built with
+// -DFEX_UNROLL=U (kernels/build.py::variant) runs the mid, section and
+// envelope warps' per-sample loop over a tile in a rolled loop of groups
+// of U samples, each group's loads issued before its steps, the tile's
+// last 64 % U samples after it; U >= 64 unrolls the whole tile.
+// FEX_UNROLL 0 (the default build) is the loop described above (8
+// samples unrolled, loads 8 ahead).  Neither knob changes an operation or
+// its order: every value is bit for bit the default's.
+//
 // Numerics.  All arithmetic is int32 and exact; each value stays inside
 // int32 (|b0·x| ≤ 2^11·2^13, the envelope blend is a convex combination
 // of two 16-bit values times 2^15), and the additions that could wrap in
@@ -82,6 +94,10 @@
 
 #include "iir_fex_int_section.cuh"
 #include "xla_math.cuh"
+
+#ifndef FEX_UNROLL
+#define FEX_UNROLL 0   // the default loop, 8 samples ahead
+#endif
 
 namespace {
 
@@ -174,6 +190,35 @@ __device__ __forceinline__ void consume(const In* tile, int n, Step step) {
   }
 }
 
+// The -DFEX_UNROLL=kU instance of consume: over a full tile, a rolled
+// loop of groups of kU samples (at most the tile), each group's ring
+// loads issued before its steps; the last kTile % kU samples after it.
+// kU == 0 is consume itself.
+template <int kU, typename In, typename Step>
+__device__ __forceinline__ void consume_u(const In* tile, int n, Step step) {
+  if constexpr (kU == 0) {
+    consume(tile, n, step);
+  } else {
+    constexpr int kG = kU < kTile ? kU : kTile;
+    constexpr int kMain = kTile / kG * kG;
+    if (n == kTile) {
+#pragma unroll 1
+      for (int g = 0; g < kMain; g += kG) {
+        In q[kG];
+#pragma unroll
+        for (int j = 0; j < kG; ++j) q[j] = tile[(g + j) * kLanes];
+#pragma unroll
+        for (int j = 0; j < kG; ++j) step(q[j], g + j);
+      }
+#pragma unroll
+      for (int k = kMain; k < kTile; ++k) step(tile[k * kLanes], k);
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < n; ++k) step(tile[k * kLanes], k);
+    }
+  }
+}
+
 // The feed-forward terms of a section from its input v (x, or y0 + 2^15):
 // P = rshift_round(b0·v) and Q + 2^15 = rshift_round(-b0·v) + 2^15.
 struct Terms {
@@ -193,10 +238,11 @@ struct Args {
   int B, T, n_frames, C, frame_shift, x_shift, b_frac, a_frac, env_shift,
       alpha_frac, alpha_code, eps_code;
   int x_vec;   // audio rows 16-byte aligned: T % 8 == 0, x aligned
+  int b0;      // first stream of this launch (B streams from b0)
   float env_step, log_range, feat_scale, feat_max;
 };
 
-template <bool kWide>
+template <bool kWide, int kU>
 __global__ void __launch_bounds__(kThreads) iir_fex_int_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -205,7 +251,8 @@ __global__ void __launch_bounds__(kThreads) iir_fex_int_kernel(Args a) {
   const int p = blockIdx.x * kLanes + lane;
   const bool active = p < n_pairs;
   const int pc = active ? p : n_pairs - 1;   // idle lanes shadow the last
-  const int b = pc / a.C, c = pc - b * a.C;
+  const int bl = pc / a.C, c = pc - bl * a.C;
+  const int b = a.b0 + bl;                   // the stream, of the full B
   const int S = a.n_frames * a.frame_shift;
   const int n_tiles = (S + kTile - 1) / kTile;
   const int16_t* st_in = a.state_in + static_cast<size_t>(b) * 5 * a.C + c;
@@ -276,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) iir_fex_int_kernel(Args a) {
       int2* out = &sm.pq1[slot][0][lane];
       bar_sync(full_bar(1, slot));
       if (t >= kStages) bar_sync(empty_bar(2, slot));
-      consume(&sm.y0[slot][0][lane], n, [&](int32_t y0, int k) {
+      consume_u<kU>(&sm.y0[slot][0][lane], n, [&](int32_t y0, int k) {
         out[k * kLanes] = terms(y0);
       });
       if (t + kStages < n_tiles) bar_arrive(empty_bar(1, slot));
@@ -300,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) iir_fex_int_kernel(Args a) {
       bar_sync(full_bar(h, slot));
       if (t >= kStages) bar_sync(empty_bar(h + 1, slot));
       int32_t* out = &(s0 ? sm.y0 : sm.y1)[slot][0][lane];
-      consume(&(s0 ? sm.pq0 : sm.pq1)[slot][0][lane], n,
+      consume_u<kU>(&(s0 ? sm.pq0 : sm.pq1)[slot][0][lane], n,
               [&](int2 pq, int k) { out[k * kLanes] = sec(pq); });
       if (t + kStages < n_tiles) bar_arrive(empty_bar(h, slot));
       bar_arrive(full_bar(h + 1, slot));
@@ -339,7 +386,7 @@ __global__ void __launch_bounds__(kThreads) iir_fex_int_kernel(Args a) {
       const int32_t* tile = &sm.y1[slot][0][lane];
       bar_sync(full_bar(3, slot));
       if (n == kTile && to_boundary >= kTile) {   // no frame ends inside
-        consume(tile, n, step);
+        consume_u<kU>(tile, n, step);
         to_boundary -= kTile;
         if (to_boundary == 0) emit();
       } else {
@@ -360,9 +407,13 @@ extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (B, T) int16, T >= n_frames * frame_shift, n_frames >= 1; coef (6, C)
-// int32; state_in and state_out (B, 5, C) int16; feats (B, n_frames, C)
-// int16.  All contiguous, on the current device.  x_shift = sig_frac -
+// The unroll factor this library was built with (0: the default loop).
+extern "C" int iir_fex_int_unroll() { return FEX_UNROLL; }
+
+// x (B_all, T) int16, T >= n_frames * frame_shift, n_frames >= 1; coef
+// (6, C) int32; state_in and state_out (B_all, 5, C) int16; feats (B_all,
+// n_frames, C) int16.  All contiguous, on the current device.  This
+// launch serves the B streams from b0 >= 0 (b0 + B <= B_all).  x_shift = sig_frac -
 // feat_frac, env_shift = env_frac - sig_frac (both in [0, 15]); b_frac,
 // a_frac, alpha_frac >= 1.  env_step = 2^-env_frac, feat_scale =
 // 2^feat_frac, feat_max = 1 - 2^-feat_frac.  The launch follows the
@@ -377,13 +428,15 @@ extern "C" int iir_fex_int_launch(
     int frame_shift, int x_shift, int b_frac, int a_frac, int env_shift,
     int alpha_frac, int alpha_code, int eps_code, float env_step,
     float log_range, float feat_scale, float feat_max, int ctas,
-    int threads, int smem_bytes, void* stream) {
+    int threads, int smem_bytes, int b0, void* stream) {
   if (static_cast<long long>(ctas) * kLanes < static_cast<long long>(B) * C ||
-      threads != kThreads || smem_bytes < static_cast<int>(sizeof(Smem))) {
+      threads != kThreads || smem_bytes < static_cast<int>(sizeof(Smem)) ||
+      b0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = b_frac == 1 && a_frac == 1 ? iir_fex_int_kernel<true>
-                                                 : iir_fex_int_kernel<false>;
+  const auto kernel = b_frac == 1 && a_frac == 1
+                          ? iir_fex_int_kernel<true, FEX_UNROLL>
+                          : iir_fex_int_kernel<false, FEX_UNROLL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -391,7 +444,7 @@ extern "C" int iir_fex_int_launch(
       T % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 ? 1 : 0;
   const Args args{x, coef, state_in, feats, state_out, B, T, n_frames, C,
                   frame_shift, x_shift, b_frac, a_frac, env_shift,
-                  alpha_frac, alpha_code, eps_code, x_vec, env_step,
+                  alpha_frac, alpha_code, eps_code, x_vec, b0, env_step,
                   log_range, feat_scale, feat_max};
   kernel<<<static_cast<unsigned>(ctas), kThreads, smem_bytes,
            static_cast<cudaStream_t>(stream)>>>(args);

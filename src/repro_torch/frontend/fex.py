@@ -101,8 +101,10 @@ def _unpack_state(buf: torch.Tensor) -> FExState:
 def fex_scan(audio, coef, state: FExState | None = None, *,
              frame_shift: int = FRAME_SHIFT, env_alpha: float = 0.0606,
              log_eps: float = 2.0 ** -11, compress: bool = True,
-             backend: str = "xla", b_bits: int = 12, a_bits: int = 8,
-             coef_formats=None) -> tuple[torch.Tensor, FExState]:
+             backend: str = "xla", block_b: int | None = None,
+             unroll: int | None = None, b_bits: int = 12, a_bits: int = 8,
+             coef_formats=None, consult_cache: bool = True
+             ) -> tuple[torch.Tensor, FExState]:
     """Run the FEx over a chunk of audio, carrying explicit state.
 
     Args:
@@ -122,11 +124,19 @@ def fex_scan(audio, coef, state: FExState | None = None, *,
         16-bit registers, mixed-precision coefficient codes; returns
         grid-exact floats, bit-true against ``core.fixed_point.
         int_fex_scan``).
+      block_b: streams per kernel launch (the kernels' batch tile).
+      unroll: the kernels' per-sample loop unroll factor (must divide
+        ``frame_shift``; bit-exact at any legal value).  Like
+        ``block_b``, ``None`` consults the ``kernels.autotune`` cache and
+        otherwise keeps the default launch; "xla" ignores both.
       b_bits / a_bits: coefficient word widths for the "pallas-int"
         format derivation when ``coef_formats`` is not given.
       coef_formats: the ``sos_formats`` pair (what ``FeatureExtractor``
         passes); without it "pallas-int" derives the formats from the
         packed rows (equivalent for symmetric-form banks).
+      consult_cache: False leaves a ``None`` knob at the default launch
+        without reading the cache (a session passes the configuration it
+        looked up once).
 
     Returns:
       (features (B, T // frame_shift, C), new ``FExState``).  Processing
@@ -139,14 +149,24 @@ def fex_scan(audio, coef, state: FExState | None = None, *,
     kw = dict(frame_shift=frame_shift, env_alpha=env_alpha, log_eps=log_eps,
               compress=compress)
     if backend == "pallas":
+        if consult_cache and (block_b is None or unroll is None):
+            from repro_torch.kernels import autotune
+            tuned = autotune.resolve(
+                "batched_iir_fex", (B, C, frame_shift), "float32", 0.0,
+                device=audio.device, B=B, frame_shift=frame_shift)
+            block_b = block_b if block_b is not None else tuned.get("block_b")
+            unroll = unroll if unroll is not None else tuned.get("unroll")
         feats, buf = batched_iir_fex(audio.float().contiguous(), coef,
-                                     _pack_state(state), **kw)
+                                     _pack_state(state), block_b=block_b,
+                                     unroll=unroll, **kw)
     elif backend == "pallas-int":
         feats, buf = _fex_scan_int(audio, coef, _pack_state(state),
                                    frame_shift=frame_shift,
                                    env_alpha=env_alpha, log_eps=log_eps,
                                    compress=compress, b_bits=b_bits,
-                                   a_bits=a_bits, coef_formats=coef_formats)
+                                   a_bits=a_bits, coef_formats=coef_formats,
+                                   block_b=block_b, unroll=unroll,
+                                   consult_cache=consult_cache)
     elif backend == "xla":
         feats, buf = batched_iir_fex_ref(audio, coef, _pack_state(state),
                                          **kw)
@@ -156,7 +176,8 @@ def fex_scan(audio, coef, state: FExState | None = None, *,
 
 
 def _fex_scan_int(audio, coef, buf, *, frame_shift, env_alpha, log_eps,
-                  compress, b_bits, a_bits, coef_formats):
+                  compress, b_bits, a_bits, coef_formats, block_b, unroll,
+                  consult_cache):
     """``fex_scan(backend="pallas-int")``: quantize the coefficient bank
     onto its mixed-precision grids, run the integer kernel wrapper on
     codes, and hand back grid-exact floats so the float state carry
@@ -180,9 +201,15 @@ def _fex_scan_int(audio, coef, buf, *, frame_shift, env_alpha, log_eps,
     feats_c, codes = fp.int_fex_scan(
         audio_codes.contiguous(), coef_codes.to(audio.device),
         fp.fex_state_to_codes(buf.float(), ffmt).contiguous(), ffmt,
-        frame_shift=frame_shift, backend="pallas")
+        frame_shift=frame_shift, backend="pallas", block_b=block_b,
+        unroll=unroll, consult_cache=consult_cache)
     return (fp.from_code(feats_c, ffmt.feat_frac),
             fp.fex_state_from_codes(codes, ffmt))
+
+
+def frames_per_second(cfg: FExConfig) -> float:
+    """Decision frames per second of audio (62.5 at 8 kHz, 128 samples)."""
+    return cfg.fs / cfg.frame_shift
 
 
 def build_sos_bank(cfg: FExConfig) -> np.ndarray:

@@ -14,8 +14,14 @@ on the CPU: a product is fused into the following add exactly where XLA
 fuses it, written as ``fmaf`` in the source, and nowhere else (nvcc would
 otherwise contract ``a*b + c`` on its own); and denormals are flushed to
 zero, as XLA:CPU runs.  ``-Xptxas -v`` keeps each kernel's register and
-shared-memory report in the build log.  The shared header
-``csrc/xla_math.cuh`` is part of every library's hash.
+shared-memory report in the build log.  The shared headers ``csrc/*.cuh``
+are part of every library's hash.
+
+A library key is a source name (``"iir_fex"``) or a variant of one,
+``variant("iir_fex", FEX_UNROLL=4)`` = ``"iir_fex+FEX_UNROLL=4"``: the
+same source compiled with ``-DFEX_UNROLL=4`` into a library of its own
+(the FEx kernels' ``unroll`` instances).  The defines are part of the
+hash and of the file name.
 """
 from __future__ import annotations
 
@@ -64,17 +70,33 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> pathlib.Path:
+def variant(name: str, **defines) -> str:
+    """The key of ``csrc/<name>.cu`` built with ``-D<KEY>=<value>`` for
+    each define (``name`` itself when there is none)."""
+    return name + "".join(f"+{k}={int(v)}" for k, v in sorted(
+        defines.items()))
+
+
+def _split(key: str) -> tuple[str, list[str]]:
+    """A library key → (source name, nvcc -D flags)."""
+    name, *defines = key.split("+")
+    return name, [f"-D{d}" for d in defines]
+
+
+def _lib_path(key: str) -> pathlib.Path:
+    name, defines = _split(key)
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    flags = " ".join((*NVCC_FLAGS, *defines)).encode()
+    digest = hashlib.sha1(src + flags).hexdigest()
+    stem = key.replace("+", ".").replace("=", "")
+    return BUILD_DIR / f"{stem}-{digest[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, Built]:
-    """Compile every library in ``names`` that is not built yet, one nvcc
-    per source, all started together.  Raises with nvcc's output if any
-    build fails."""
+    """Compile every library in ``names`` (keys: source names or
+    ``variant``s) that is not built yet, one nvcc per library, all started
+    together.  Raises with nvcc's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: dict[str, Built] = {}
     running = {}
@@ -85,8 +107,9 @@ def build(names=KERNELS) -> dict[str, Built]:
             out[name] = Built(lib, 0.0, "")
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src, defines = _split(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         running[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -94,7 +117,7 @@ def build(names=KERNELS) -> dict[str, Built]:
     for name, (lib, tmp, proc) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode})\n"
+            failed.append(f"--- nvcc {name} (exit {proc.returncode})\n"
                           f"{log}")
             continue
         os.replace(tmp, lib)
@@ -108,7 +131,8 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of a key (``csrc/<name>.cu``, or a
+    ``variant``), built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))

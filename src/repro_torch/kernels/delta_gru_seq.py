@@ -20,6 +20,17 @@ frozen h and counts no transmitted delta there, as the reference's
 masked instantiations count in ``masked_launches``, those of the plain
 ones in ``launches``.
 
+Both take the reference's launch knobs (``kernels/autotune.py``):
+``block_b`` (streams per launch: ``B / block_b`` launches over
+consecutive slices of streams, xs read with its full-B strides; the
+plain versions run the slices and stitch the state back together) and
+``block_t`` (frames of x staged in shared memory at a time, clipped to
+what shared memory holds; the float kernel's default 1 is its
+one-frame-ahead register load, the int kernel's default ``min(32, T)``;
+the plain versions validate it).  ``None`` is the default launch, and
+every value is bit for bit the default's.  The masked instantiations
+take no knob, as the reference's masked scans take none.
+
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.  Neither kernel has a
 backward: an input that requires a gradient is refused
@@ -32,6 +43,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autotune import validate_block_b, validate_divisor
 from repro_torch.kernels.gru_math import delta_branch, gru_gates
 from repro_torch.kernels.platform import refuse_grad
 
@@ -44,17 +56,19 @@ def _r16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int) -> int:
+def seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
+                          x_frames: int = 0) -> int:
     """Dynamic shared memory of one CTA of the float kernel (the layout of
     ``layout`` in ``csrc/delta_gru_seq.cu``): W_x and W_h at a row pitch
     of 3H rounded up to 4 floats, the compacted (Δ, row offset) lists (a
     segment of 32 8-byte entries per warp), the two rows the gates read
-    and the segment counts, each part rounded up to 16 bytes."""
+    and the segment counts, and for the staged instance (``x_frames`` >=
+    2) x for ``x_frames`` frames, each part rounded up to 16 bytes."""
     I, H = input_dim, hidden_dim
     pitch = -(-3 * H // 4) * 4
     segments = -(-I // 32) + -(-H // 32)
     return (_r16(4 * (I + H) * pitch) + 256 * segments + 8 * pitch
-            + _r16(4 * segments))
+            + _r16(4 * segments) + _r16(4 * x_frames * I))
 
 
 def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
@@ -78,29 +92,44 @@ def int_seq_kernel_smem_bytes(input_dim: int, hidden_dim: int,
 INT_X_FRAMES = 32
 
 
-def gru_launch_plan(B: int, I: int, H: int) -> dict:
-    """The float ΔGRU kernel's launch for B streams, input width I and
-    hidden H: ``ctas`` (one per stream), ``threads`` (a warp multiple
-    covering the 3H columns and the I x encoders) and dynamic
-    ``smem_bytes``.  The masked instantiation launches alike: its wake
-    bits live in registers, not in shared memory.  Raises ``ValueError``
-    for a ΔGRU the kernel cannot hold (``check_kernel_fits``)."""
+def staged_frames(I: int, H: int, T: int, block_t: int | None) -> int:
+    """The float kernel's staged x frames for ``block_t``: 0 (x loaded one
+    frame ahead into a register: ``block_t`` None or 1, the default), else
+    ``block_t`` frames, at most T, fewer where shared memory is short."""
+    x_frames = 0 if block_t is None else min(block_t, max(T, 1))
+    while (x_frames > 1 and seq_kernel_smem_bytes(I, H, x_frames)
+           > MAX_SMEM_BYTES):
+        x_frames -= 1
+    return x_frames if x_frames >= 2 else 0
+
+
+def gru_launch_plan(B: int, I: int, H: int, x_frames: int = 0) -> dict:
+    """The float ΔGRU kernel's launch for B streams (of one launch: a
+    ``block_b`` launch takes the plan of ``block_b`` streams), input width
+    I and hidden H, with ``x_frames`` staged frames (``staged_frames``):
+    ``ctas`` (one per stream), ``threads`` (a warp multiple covering the
+    3H columns and the I x encoders) and dynamic ``smem_bytes``.  The
+    masked instantiation launches with the default plan: its wake bits
+    live in registers, not in shared memory.  Raises ``ValueError`` for a
+    ΔGRU the kernel cannot hold (``check_kernel_fits``)."""
     check_kernel_fits(I, H)
     return {"ctas": B, "threads": -(-3 * H // 32) * 32,
-            "smem_bytes": seq_kernel_smem_bytes(I, H)}
+            "smem_bytes": seq_kernel_smem_bytes(I, H, x_frames)}
 
 
-def gru_int_launch_plan(B: int, I: int, H: int, T: int) -> dict:
-    """The int ΔGRU kernel's launch for B streams, input width I, hidden
-    H and T frames: ``ctas`` (one per stream), ``threads`` (a warp
-    multiple covering the 3H columns, four per column group, and the I
-    x encoders), ``x_frames`` (frames of x codes staged at a time: up to
+def gru_int_launch_plan(B: int, I: int, H: int, T: int,
+                        block_t: int | None = None) -> dict:
+    """The int ΔGRU kernel's launch for B streams (of one launch, as in
+    ``gru_launch_plan``), input width I, hidden H and T frames: ``ctas``
+    (one per stream), ``threads`` (a warp multiple covering the 3H
+    columns, four per column group, and the I x encoders), ``x_frames``
+    (frames of x codes staged at a time: ``block_t``, by default up to
     INT_X_FRAMES, fewer where shared memory is short) and dynamic
-    ``smem_bytes``; the masked instantiation launches alike.  Raises
-    ``ValueError`` for a ΔGRU the kernel cannot hold
+    ``smem_bytes``; the masked instantiation launches with the default
+    plan.  Raises ``ValueError`` for a ΔGRU the kernel cannot hold
     (``check_int_kernel_fits``)."""
     check_int_kernel_fits(I, H)
-    x_frames = max(1, min(INT_X_FRAMES, T))
+    x_frames = max(1, min(INT_X_FRAMES if block_t is None else block_t, T))
     while (x_frames > 1 and int_seq_kernel_smem_bytes(I, H, x_frames)
            > MAX_SMEM_BYTES):
         x_frames -= 1
@@ -176,14 +205,60 @@ def _freeze(awake_t, new, old):
     return torch.where(awake_t[:, None], new, old)
 
 
+def _knobs(kernel: str, xs, awake, block_b, block_t):
+    """The reference's knob checks: (block_b or B, block_t).  The masked
+    instantiation takes no knob."""
+    T, B = xs.shape[0], xs.shape[1]
+    if awake is not None and (block_b is not None or block_t is not None):
+        raise ValueError(f"{kernel}: the masked instantiation (awake=) "
+                         f"takes no block_b / block_t")
+    bb = validate_block_b(kernel, B, block_b)
+    validate_divisor(kernel, "block_t", block_t, "T", T)
+    return bb, block_t
+
+
+def _by_slices(fn, bb: int, xs, state):
+    """``fn(xs, state)`` over consecutive slices of ``bb`` streams; hs and
+    counts concatenated on the stream axis, the state on its first.  A
+    one-stream slice of a larger batch runs doubled and keeps its first
+    row: the CPU's BLAS takes another path for a one-row product, which
+    rounds the float sums differently (every other row count rounds as
+    the whole batch does)."""
+    B = xs.shape[1]
+    if bb == B:
+        return fn(xs, state)
+    if bb == 1:
+        def one(x, st):
+            out = fn(torch.cat([x, x], dim=1),
+                     tuple(torch.cat([s, s]) for s in st))
+            return (out[0][:, :1], tuple(s[:1] for s in out[1]),
+                    out[2][:, :1], out[3][:, :1])
+    else:
+        one = fn
+    outs = [one(xs[:, b0:b0 + bb], tuple(s[b0:b0 + bb] for s in state))
+            for b0 in range(0, B, bb)]
+    cat = lambda i: torch.cat([o[i] for o in outs], dim=1)
+    return (cat(0), tuple(torch.cat([o[1][k] for o in outs])
+                          for k in range(len(state))), cat(2), cat(3))
+
+
 def delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
-                      threshold, awake=None):
+                      threshold, awake=None, *, block_b: int | None = None,
+                      block_t: int | None = None):
     """Plain PyTorch version of ``delta_gru_seq`` (same arguments and
-    returns), one frame at a time; with ``awake``, each frame's new state
-    is kept only on awake slots (``torch.where``), as the reference's
-    masked scan keeps it."""
+    returns), one frame at a time, ``block_b`` slices of streams; with
+    ``awake``, each frame's new state is kept only on awake slots
+    (``torch.where``), as the reference's masked scan keeps it."""
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
     _check_awake(awake, xs)
+    bb, _ = _knobs("delta_gru_seq", xs, awake, block_b, block_t)
+    return _by_slices(
+        lambda x, st: _gru_ref(x, *st, w_x, w_h, threshold, awake), bb, xs,
+        (h0, x_hat0, h_hat0, m_x0, m_h0))
+
+
+def _gru_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
+             awake):
     T, B, _ = xs.shape
     H = h0.shape[1]
     h, x_hat, h_hat, m_x, m_h = (a.float() for a in
@@ -220,14 +295,16 @@ def _launcher():
     fn = lib.delta_gru_seq_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 8 + [i] * 7 + [p] * 2
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 8 + [i] * 9 + [p] * 2
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
-                  awake=None):
-    """Run a ΔGRU over a whole chunk of frames in ONE kernel launch.
+                  awake=None, *, block_b: int | None = None,
+                  block_t: int | None = None):
+    """Run a ΔGRU over a whole chunk of frames in ONE kernel launch
+    (``B / block_b`` with ``block_b``).
 
     Args:
       xs:      (T, B, I) inputs, one row per 16 ms frame.
@@ -237,6 +314,9 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
       awake: None, or a (T, B) bool wake trace: the masked instantiation
         runs only the awake frames of each slot (an asleep frame stores
         the frozen h and zero counts and leaves the state as it was).
+      block_b: streams per launch (must divide B; default B, one launch).
+      block_t: frames of x staged in shared memory at a time (must divide
+        T; default 1, x loaded one frame ahead into a register).
 
     Returns ``(hs, (h, x_hat, h_hat, m_x, m_h), nz_dx, nz_dh)`` with
     hs (T, B, H) and nz_* (T, B) int32 per-frame transmit counts.  CPU
@@ -245,11 +325,13 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
     """
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
     _check_awake(awake, xs)
+    bb, block_t = _knobs("delta_gru_seq", xs, awake, block_b, block_t)
     refuse_grad("delta_gru_seq", xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
                 w_h)
     if xs.device.type == "cpu":
         return delta_gru_seq_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x,
-                                 w_h, threshold, awake)
+                                 w_h, threshold, awake, block_b=block_b,
+                                 block_t=block_t)
     if xs.device.type != "cuda":
         raise ValueError(f"delta_gru_seq runs on cuda or cpu, not "
                          f"{xs.device}")
@@ -263,7 +345,8 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
             raise ValueError(f"delta_gru_seq: {name} must be contiguous")
     T, B, I = xs.shape
     H = h0.shape[1]
-    plan = gru_launch_plan(B, I, H)
+    x_frames = staged_frames(I, H, T, block_t)
+    plan = gru_launch_plan(bb, I, H, x_frames)
     # Held until the launch is enqueued: a freed copy's block could be
     # handed to an output below.
     awake_c = None if awake is None else awake.contiguous()
@@ -279,16 +362,18 @@ def delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, threshold,
     lib, fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in args), float(threshold),
-                 hs.data_ptr(), nz_dx.data_ptr(), nz_dh.data_ptr(),
-                 *(a.data_ptr() for a in final), T, B, I, H, plan["ctas"],
-                 plan["threads"], plan["smem_bytes"],
-                 None if awake_c is None else awake_c.data_ptr(), stream)
-    build.check(lib, err, "delta_gru_seq kernel launch")
-    if awake is None:
-        delta_gru_seq.launches += 1
-    else:
-        delta_gru_seq.masked_launches += 1
+        for b0 in range(0, B, bb):
+            err = fn(*(a.data_ptr() for a in args), float(threshold),
+                     hs.data_ptr(), nz_dx.data_ptr(), nz_dh.data_ptr(),
+                     *(a.data_ptr() for a in final), T, B, I, H,
+                     plan["ctas"], plan["threads"], plan["smem_bytes"],
+                     x_frames, b0,
+                     None if awake_c is None else awake_c.data_ptr(), stream)
+            build.check(lib, err, "delta_gru_seq kernel launch")
+            if awake is None:
+                delta_gru_seq.launches += 1
+            else:
+                delta_gru_seq.masked_launches += 1
     return hs, final, nz_dx, nz_dh
 
 
@@ -308,15 +393,25 @@ def _th_pair(th) -> tuple:
 
 
 def delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th,
-                          *, fmt, awake=None):
+                          *, fmt, awake=None, block_b: int | None = None,
+                          block_t: int | None = None):
     """Plain PyTorch version of ``delta_gru_seq_int`` with an integer
     ``fmt`` (same arguments and returns): one ``gru_frame_step`` per frame
-    on the fused ``[m_x | m_h]`` block, int16 codes carried; with
-    ``awake``, each frame's new state is kept only on awake slots, as the
-    reference's ``masked_int_gru_scan`` keeps it."""
-    from repro_torch.core.fixed_point import gru_frame_step
+    on the fused ``[m_x | m_h]`` block, int16 codes carried, ``block_b``
+    slices of streams; with ``awake``, each frame's new state is kept
+    only on awake slots, as the reference's ``masked_int_gru_scan`` keeps
+    it."""
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
     _check_awake(awake, xs)
+    bb, _ = _knobs("delta_gru_seq_int", xs, awake, block_b, block_t)
+    return _by_slices(
+        lambda x, st: _gru_int_ref(x, *st, w_x, w_h, th, fmt, awake), bb,
+        xs, (h0, x_hat0, h_hat0, m_x0, m_h0))
+
+
+def _gru_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, fmt,
+                 awake):
+    from repro_torch.core.fixed_point import gru_frame_step
     T, B, _ = xs.shape
     H = h0.shape[1]
     th_x, th_h = _th_pair(th)
@@ -380,14 +475,17 @@ def _int_launcher():
     fn = lib.delta_gru_seq_int_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 8 + [p] * 2
+        fn.argtypes = [p] * 8 + [i] * 7 + [p] * 8 + [i] * 9 + [p] * 2
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
-                      fmt=None, packed: bool | None = None, awake=None):
-    """Run the integer ΔGRU over a whole chunk of frames in ONE launch.
+                      fmt=None, packed: bool | None = None, awake=None,
+                      block_b: int | None = None, block_t: int | None = None):
+    """Run the integer ΔGRU over a whole chunk of frames in ONE launch
+    (``B / block_b`` with ``block_b``; ``block_t`` frames of x codes
+    staged at a time, default ``min(32, T)``).
 
     With ``fmt`` a ``core.fixed_point.GruFormats``: xs (T, B, I), h0,
     x_hat0, h_hat0 int16 codes, m_x0/m_h0 (B, 3H) int32 on the 24-bit
@@ -410,6 +508,7 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
     _check_shapes(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h)
     T, B, I = xs.shape
     H = h0.shape[1]
+    bb, block_t = _knobs("delta_gru_seq_int", xs, awake, block_b, block_t)
     if packed:
         if fmt is None:
             raise ValueError("delta_gru_seq_int: packed=True requires an "
@@ -425,12 +524,14 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
             raise ValueError(f"delta_gru_seq_int: the identity-quant mode "
                              f"takes one Δ_TH, got {th_x} and {th_h}")
         return delta_gru_seq(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h,
-                             float(th_x), awake)
+                             float(th_x), awake, block_b=block_b,
+                             block_t=block_t)
     _check_awake(awake, xs)
     if xs.device.type == "cpu":
         return delta_gru_seq_int_ref(xs, h0, x_hat0, h_hat0, m_x0, m_h0,
                                      w_x, w_h, (th_x, th_h), fmt=fmt,
-                                     awake=awake)
+                                     awake=awake, block_b=block_b,
+                                     block_t=block_t)
     if xs.device.type != "cuda":
         raise ValueError(f"delta_gru_seq_int runs on cuda or cpu, not "
                          f"{xs.device}")
@@ -443,7 +544,7 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"delta_gru_seq_int: {name} must be contiguous")
-    plan = gru_int_launch_plan(B, I, H, T)
+    plan = gru_int_launch_plan(bb, I, H, T, block_t)
     _check_int_formats(fmt)
     # Held until the launch is enqueued: a freed copy's block could be
     # handed to an output below.
@@ -460,18 +561,19 @@ def delta_gru_seq_int(xs, h0, x_hat0, h_hat0, m_x0, m_h0, w_x, w_h, th, *,
     lib, fn = _int_launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in args), int(th_x), int(th_h),
-                 fmt.shift_x, fmt.shift_h, fmt.acc_bits, fmt.acc_frac,
-                 fmt.hid_frac, hs.data_ptr(), nz_dx.data_ptr(),
-                 nz_dh.data_ptr(), *(a.data_ptr() for a in final), T, B, I,
-                 H, plan["ctas"], plan["threads"], plan["smem_bytes"],
-                 plan["x_frames"],
-                 None if awake_c is None else awake_c.data_ptr(), stream)
-    build.check(lib, err, "delta_gru_seq_int kernel launch")
-    if awake is None:
-        delta_gru_seq_int.launches += 1
-    else:
-        delta_gru_seq_int.masked_launches += 1
+        for b0 in range(0, B, bb):
+            err = fn(*(a.data_ptr() for a in args), int(th_x), int(th_h),
+                     fmt.shift_x, fmt.shift_h, fmt.acc_bits, fmt.acc_frac,
+                     fmt.hid_frac, hs.data_ptr(), nz_dx.data_ptr(),
+                     nz_dh.data_ptr(), *(a.data_ptr() for a in final), T, B,
+                     I, H, plan["ctas"], plan["threads"], plan["smem_bytes"],
+                     plan["x_frames"], b0,
+                     None if awake_c is None else awake_c.data_ptr(), stream)
+            build.check(lib, err, "delta_gru_seq_int kernel launch")
+            if awake is None:
+                delta_gru_seq_int.launches += 1
+            else:
+                delta_gru_seq_int.masked_launches += 1
     return hs, final, nz_dx, nz_dh
 
 

@@ -15,6 +15,15 @@ order of the reference's ``_int_fex_scan_xla``.
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.
 
+Both take the reference's launch knobs (``kernels/autotune.py``):
+``block_b`` (streams per launch: ``B / block_b`` launches over
+consecutive slices of streams; the plain version runs the slices and
+stitches the state back together) and ``unroll`` (the unroll factor of
+the kernel's per-sample loop: the library built for it,
+``build.variant(..., FEX_UNROLL=unroll)``; the plain version validates
+it).  ``None`` is the default launch; every value is bit for bit the
+default's.  ``iir_fex`` is the reference's single-stream wrapper.
+
 State layout (B, 5, C) float32, rows = [s0_1, s0_2, s1_1, s1_2, env]
 (section-0 DF2T registers, section-1 DF2T registers, envelope).
 """
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autotune import validate_block_b, validate_divisor
 from repro_torch.kernels.xla_math import INV_LN2, fma, ftz, xla_log
 
 STATE_ROWS = 5      # [s0_1, s0_2, s1_1, s1_2, env]
@@ -101,13 +111,41 @@ def _check_args(x, coef, state):
                          f"{x.device}, {coef.device}, {state.device}")
 
 
+def _knobs(kernel: str, B: int, frame_shift: int, block_b, unroll):
+    """The reference's knob checks: (block_b or B, unroll or None)."""
+    bb = validate_block_b(kernel, B, block_b)
+    validate_divisor(kernel, "unroll", unroll, "frame_shift", frame_shift)
+    return bb, unroll
+
+
+def _by_slices(fn, bb: int, x, state):
+    """``fn(x, state)`` over consecutive slices of ``bb`` streams, the
+    features and states concatenated back (one call when bb == B)."""
+    B = x.shape[0]
+    if bb == B:
+        return fn(x, state)
+    outs = [fn(x[b0:b0 + bb], state[b0:b0 + bb]) for b0 in range(0, B, bb)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
 def batched_iir_fex_ref(x, coef, state, *, frame_shift: int = 128,
                         env_alpha: float = 0.0606,
-                        log_eps: float = 2.0 ** -11, compress: bool = True):
+                        log_eps: float = 2.0 ** -11, compress: bool = True,
+                        block_b: int | None = None,
+                        unroll: int | None = None):
     """Plain PyTorch version of ``batched_iir_fex`` (same arguments and
     returns): a loop over samples calling ``fex_sample_step``, frames
-    outer, in the reference's op order."""
+    outer, in the reference's op order; ``block_b`` slices of streams."""
     _check_args(x, coef, state)
+    bb, _ = _knobs("batched_iir_fex", x.shape[0], frame_shift, block_b,
+                   unroll)
+    return _by_slices(
+        lambda xs, st: _fex_ref(xs, coef, st, frame_shift=frame_shift,
+                                env_alpha=env_alpha, log_eps=log_eps,
+                                compress=compress), bb, x, state)
+
+
+def _fex_ref(x, coef, state, *, frame_shift, env_alpha, log_eps, compress):
     B, T = x.shape
     C = coef.shape[1]
     n_frames = T // frame_shift
@@ -137,9 +175,10 @@ FEX_LANES, FEX_TILE, FEX_X_STAGES, FEX_STAGES, FEX_THREADS = 32, 64, 4, 2, 128
 
 
 def fex_launch_plan(B: int, C: int) -> dict:
-    """The float FEx kernel's launch for B streams of C channels: ``ctas``
-    (one per FEX_LANES pairs), ``threads`` and dynamic ``smem_bytes``
-    (the audio, y0 and y1 rings, float32)."""
+    """The float FEx kernel's launch for B streams of C channels (one
+    launch; ``block_b`` launches take the plan of ``block_b`` streams):
+    ``ctas`` (one per FEX_LANES pairs), ``threads`` and dynamic
+    ``smem_bytes`` (the audio, y0 and y1 rings, float32)."""
     if B < 1 or C < 1:
         raise ValueError(f"batched_iir_fex: needs B >= 1 and C >= 1, "
                          f"got B={B}, C={C}")
@@ -148,19 +187,30 @@ def fex_launch_plan(B: int, C: int) -> dict:
             "smem_bytes": 4 * slots * FEX_LANES * (FEX_TILE + 4)}
 
 
-def _launcher():
-    lib = build.load("iir_fex")
+def library(name: str, unroll: int | None):
+    """The build key of a FEx kernel's library for ``unroll`` (None: the
+    default instance).  Both kernels run their per-sample loop over tiles
+    of 64 samples, so every unroll of 64 or more is the fully unrolled
+    tile: one library."""
+    if unroll is None:
+        return name
+    return build.variant(name, FEX_UNROLL=min(unroll, FEX_TILE))
+
+
+def _launcher(unroll: int | None = None):
+    lib = build.load(library("iir_fex", unroll))
     fn = lib.iir_fex_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [i] * 5 + [f] * 3 + [i] * 4 + [p]
+        fn.argtypes = [p] * 5 + [i] * 5 + [f] * 3 + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
 
 def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
                     env_alpha: float = 0.0606, log_eps: float = 2.0 ** -11,
-                    compress: bool = True):
+                    compress: bool = True, block_b: int | None = None,
+                    unroll: int | None = None):
     """Run the full FEx over a chunk of raw audio in ONE kernel launch.
 
     Args:
@@ -171,17 +221,24 @@ def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
       state: (B, 5, C) float32 carried filter/envelope state.
       compress: in-kernel log₂ + 12-bit quantization (the deployed
              datapath); False emits raw pre-log envelopes.
+      block_b: streams per launch (must divide B; default B, one launch).
+      unroll: the per-sample loop's unroll factor (must divide
+             ``frame_shift``; default the kernel's own tile loop).
 
     Returns (features (B, T // frame_shift, C), new state (B, 5, C)).
     Feeding ``[a | b]`` through two calls with the state carried equals
     one call on the concatenation.  CPU tensors run the plain version;
-    CUDA tensors launch ``csrc/iir_fex.cu`` (contiguous float32 only).
+    CUDA tensors launch ``csrc/iir_fex.cu`` (contiguous float32 only),
+    ``B / block_b`` times.
     """
     _check_args(x, coef, state)
+    bb, unroll = _knobs("batched_iir_fex", x.shape[0], frame_shift,
+                        block_b, unroll)
     if x.device.type == "cpu":
         return batched_iir_fex_ref(x, coef, state, frame_shift=frame_shift,
                                    env_alpha=env_alpha, log_eps=log_eps,
-                                   compress=compress)
+                                   compress=compress, block_b=block_b,
+                                   unroll=unroll)
     if x.device.type != "cuda":
         raise ValueError(f"batched_iir_fex runs on cuda or cpu, not "
                          f"{x.device}")
@@ -199,19 +256,21 @@ def batched_iir_fex(x, coef, state, *, frame_shift: int = 128,
     if n_frames == 0 or B == 0 or C == 0:
         return feats, state
     state_out = torch.empty_like(state)
-    plan = fex_launch_plan(B, C)
-    lib, fn = _launcher()
+    plan = fex_launch_plan(bb, C)
+    lib, fn = _launcher(unroll)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # 1 - env_alpha is formed in double and rounded to float once, by
-        # the c_float argument, as the reference folds its constants.
-        err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
-                 feats.data_ptr(), state_out.data_ptr(), B, T, n_frames, C,
-                 frame_shift, env_alpha, 1.0 - env_alpha, log_eps,
-                 int(compress), plan["ctas"], plan["threads"],
-                 plan["smem_bytes"], stream)
-    build.check(lib, err, "iir_fex kernel launch")
-    batched_iir_fex.launches += 1
+        for b0 in range(0, B, bb):
+            # 1 - env_alpha is formed in double and rounded to float once,
+            # by the c_float argument, as the reference folds its
+            # constants.
+            err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
+                     feats.data_ptr(), state_out.data_ptr(), bb, T,
+                     n_frames, C, frame_shift, env_alpha, 1.0 - env_alpha,
+                     log_eps, int(compress), plan["ctas"], plan["threads"],
+                     plan["smem_bytes"], b0, stream)
+            build.check(lib, err, "iir_fex kernel launch")
+            batched_iir_fex.launches += 1
     return feats, state_out
 
 
@@ -219,13 +278,24 @@ batched_iir_fex.launches = 0
 
 
 # --------------------------------------------------------------- int variant
-def batched_iir_fex_int_ref(x, coef, state, *, fmt, frame_shift: int = 128):
+def batched_iir_fex_int_ref(x, coef, state, *, fmt, frame_shift: int = 128,
+                            block_b: int | None = None,
+                            unroll: int | None = None):
     """Plain PyTorch version of ``batched_iir_fex_int`` (same arguments
     and returns): frames outer, one ``int_fex_sample_step`` per sample,
-    ``int_compress_env`` after each frame, int32 arithmetic."""
+    ``int_compress_env`` after each frame, int32 arithmetic;
+    ``block_b`` slices of streams."""
+    _check_args(x, coef, state)
+    bb, _ = _knobs("batched_iir_fex_int", x.shape[0], frame_shift, block_b,
+                   unroll)
+    return _by_slices(
+        lambda xs, st: _fex_int_ref(xs, coef, st, fmt=fmt,
+                                    frame_shift=frame_shift), bb, x, state)
+
+
+def _fex_int_ref(x, coef, state, *, fmt, frame_shift):
     from repro_torch.core.fixed_point import (int_compress_env,
                                               int_fex_sample_step)
-    _check_args(x, coef, state)
     B, T = x.shape
     C = coef.shape[1]
     n_frames = T // frame_shift
@@ -252,7 +322,8 @@ FEX_INT_LANES, FEX_INT_TILE, FEX_INT_STAGES, FEX_INT_THREADS = 32, 64, 2, 160
 
 
 def fex_int_launch_plan(B: int, C: int) -> dict:
-    """The integer FEx kernel's launch for B streams of C channels:
+    """The integer FEx kernel's launch for B streams of C channels (one
+    launch; ``block_b`` launches take the plan of ``block_b`` streams):
     ``ctas`` (one per FEX_INT_LANES pairs), ``threads`` and dynamic
     ``smem_bytes`` (the (P0, Q0), y0, (P1, Q1) and y1 rings)."""
     if B < 1 or C < 1:
@@ -263,12 +334,12 @@ def fex_int_launch_plan(B: int, C: int) -> dict:
             "smem_bytes": ring * (8 + 4 + 8 + 4)}
 
 
-def _int_launcher():
-    lib = build.load("iir_fex_int")
+def _int_launcher(unroll: int | None = None):
+    lib = build.load(library("iir_fex_int", unroll))
     fn = lib.iir_fex_int_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 5 + [i] * 12 + [f] * 4 + [i] * 3 + [p]
+        fn.argtypes = [p] * 5 + [i] * 12 + [f] * 4 + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -284,21 +355,28 @@ def _check_int_formats(fmt) -> None:
                              f"must lie in [0, 15]")
 
 
-def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128):
-    """The integer FEx over a chunk of audio codes in ONE kernel launch.
+def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128,
+                        block_b: int | None = None,
+                        unroll: int | None = None):
+    """The integer FEx over a chunk of audio codes in ONE kernel launch
+    (``B / block_b`` with ``block_b``).
 
     x: (B, T) int16 Q0.11 audio codes (trailing ``T % frame_shift``
     samples ignored); coef: (6, C) int32 coefficient codes
     (``core.fixed_point.quantize_fex``); state: (B, 5, C) int16 register
-    codes; ``fmt``: the ``FexFormats``.  Returns (feature codes
-    (B, T // frame_shift, C) int16, new state (B, 5, C) int16).  CPU
-    tensors run the plain version; CUDA tensors launch
-    ``csrc/iir_fex_int.cu`` (contiguous, exact dtypes only).
+    codes; ``fmt``: the ``FexFormats``; ``block_b`` / ``unroll`` as in
+    ``batched_iir_fex``.  Returns (feature codes (B, T // frame_shift, C)
+    int16, new state (B, 5, C) int16).  CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/iir_fex_int.cu`` (contiguous,
+    exact dtypes only).
     """
     _check_args(x, coef, state)
+    bb, unroll = _knobs("batched_iir_fex_int", x.shape[0], frame_shift,
+                        block_b, unroll)
     if x.device.type == "cpu":
         return batched_iir_fex_int_ref(x, coef, state, fmt=fmt,
-                                       frame_shift=frame_shift)
+                                       frame_shift=frame_shift,
+                                       block_b=block_b, unroll=unroll)
     if x.device.type != "cuda":
         raise ValueError(f"batched_iir_fex_int runs on cuda or cpu, not "
                          f"{x.device}")
@@ -318,23 +396,25 @@ def batched_iir_fex_int(x, coef, state, *, fmt, frame_shift: int = 128):
     if n_frames == 0 or B == 0 or C == 0:
         return feats, state
     state_out = torch.empty_like(state)
-    plan = fex_int_launch_plan(B, C)
-    lib, fn = _int_launcher()
+    plan = fex_int_launch_plan(bb, C)
+    lib, fn = _int_launcher(unroll)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # The float constants are powers of two (exact in float32) and
-        # log_range, rounded to float32 once, as the plain version's
-        # float32 tensor holds it.
-        err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
-                 feats.data_ptr(), state_out.data_ptr(), B, T, n_frames, C,
-                 frame_shift, fmt.sig_frac - fmt.feat_frac, fmt.b_frac,
-                 fmt.a_frac, fmt.env_frac - fmt.sig_frac, fmt.alpha_frac,
-                 fmt.alpha_code, fmt.eps_code, 2.0 ** -fmt.env_frac,
-                 fmt.log_range, float(1 << fmt.feat_frac),
-                 1.0 - 2.0 ** -fmt.feat_frac, plan["ctas"], plan["threads"],
-                 plan["smem_bytes"], stream)
-    build.check(lib, err, "iir_fex_int kernel launch")
-    batched_iir_fex_int.launches += 1
+        for b0 in range(0, B, bb):
+            # The float constants are powers of two (exact in float32) and
+            # log_range, rounded to float32 once, as the plain version's
+            # float32 tensor holds it.
+            err = fn(x.data_ptr(), coef.data_ptr(), state.data_ptr(),
+                     feats.data_ptr(), state_out.data_ptr(), bb, T,
+                     n_frames, C, frame_shift, fmt.sig_frac - fmt.feat_frac,
+                     fmt.b_frac, fmt.a_frac, fmt.env_frac - fmt.sig_frac,
+                     fmt.alpha_frac, fmt.alpha_code, fmt.eps_code,
+                     2.0 ** -fmt.env_frac, fmt.log_range,
+                     float(1 << fmt.feat_frac), 1.0 - 2.0 ** -fmt.feat_frac,
+                     plan["ctas"], plan["threads"], plan["smem_bytes"], b0,
+                     stream)
+            build.check(lib, err, "iir_fex_int kernel launch")
+            batched_iir_fex_int.launches += 1
     return feats, state_out
 
 
@@ -346,6 +426,19 @@ def init_fex_kernel_state(batch: int, n_channels: int,
     """Zero (B, 5, C) carry — quiescent filters, zero envelope."""
     return torch.zeros((batch, STATE_ROWS, n_channels), dtype=torch.float32,
                        device=device)
+
+
+def iir_fex(x, coef, *, frame_shift: int = 128,
+            env_alpha: float = 0.0606) -> torch.Tensor:
+    """Single-stream compatibility wrapper: (T,) audio → (F, C) raw
+    (pre-log) envelope features, zero initial state; one launch of
+    ``batched_iir_fex`` on a CUDA tensor, its plain version on a CPU one."""
+    C = coef.shape[1]
+    feats, _ = batched_iir_fex(
+        x[None].float().contiguous(), coef,
+        init_fex_kernel_state(1, C, x.device), frame_shift=frame_shift,
+        env_alpha=env_alpha, compress=False)
+    return feats[0]
 
 
 def pack_coefficients(sos) -> torch.Tensor:

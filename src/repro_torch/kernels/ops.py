@@ -11,13 +11,13 @@ from repro_torch.kernels.delta_gru_seq import delta_gru_seq, delta_gru_seq_int
 from repro_torch.kernels.delta_matvec import delta_matvec, make_block_mask
 from repro_torch.kernels.detect_head import detect_head
 from repro_torch.kernels.iir_fex import (batched_iir_fex, batched_iir_fex_int,
-                                         init_fex_kernel_state,
+                                         iir_fex, init_fex_kernel_state,
                                          pack_coefficients)
 from repro_torch.kernels.wake_head import wake_head
 
 __all__ = [
     "delta_matvec", "make_block_mask", "delta_gru_cell", "delta_gru_seq",
-    "delta_gru_seq_int", "batched_iir_fex", "batched_iir_fex_int",
+    "delta_gru_seq_int", "iir_fex", "batched_iir_fex", "batched_iir_fex_int",
     "init_fex_kernel_state", "pack_coefficients", "delta_matvec_auto",
     "detect_head", "wake_head",
 ]

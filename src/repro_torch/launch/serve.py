@@ -8,8 +8,8 @@ re-admitted.
 
 ``--mode kws-detect``: always-on detection.  Every slot listens to one
 continuous synthesized stream (``--stream-seconds`` long, keywords at
-``--events-per-min`` in a noise bed at ``--snr-db``, from
-``--stream-seed``); each step runs FEx → VAD gate → ΔGRU → FC → the
+``--events-per-min`` in a noise bed at ``--snr-db``, from ``--seed``,
+the reference's stream-synthesis seed); each step runs FEx → VAD gate → ΔGRU → FC → the
 detection head kernel, and the fires are scored against the streams'
 ground-truth events: hits, misses, false alarms per hour, VAD duty.
 
@@ -24,9 +24,12 @@ split.  Stage 0 starts from the seeded init (seed 7, as the reference
 seeds it).
 
 Weights come from ``--params`` (a checkpoint's ``arrays.npz``, as
-either package writes it) or, without it, from the seeded
-``models.kws.init_kws``; ``--train-steps N`` then quick-trains them on the
-device before serving, as the reference's serve does: utterance-level
+either package writes it) or, without it, from ``models.kws.init_kws``
+seeded by the port-only ``--init-seed`` (default 0, which also seeds the
+quick training and, plus one, the kws-audio requests: the reference's
+fixed seeds); ``--train-steps N`` (default 120, the reference's) then
+quick-trains them on the device before serving, as the reference's serve
+does (``--train-steps 0`` serves them as they are): utterance-level
 (``kws.loss_fn`` on ``synth_batch``) for kws-audio, frame-level
 (``kws.frame_loss_fn`` on ``synth_frame_batch`` streams) for kws-detect
 and kws-cascade, whose stage 0 is trained too (binary head, labels
@@ -281,14 +284,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--watchdog-ms", type=float, default=0.0,
                     help="step-latency watchdog budget in ms (0 = off); "
                          "breaches count as overload pressure")
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and the requests")
+    ap.add_argument("--seed", type=int, default=100,
+                    help="stream-synthesis seed of kws-detect and "
+                         "kws-cascade (one stream per slot), as the "
+                         "reference's --seed")
+    ap.add_argument("--init-seed", type=int, default=0,
+                    help="seed of the random weights, of the quick "
+                         "training's batches and (plus one) of the "
+                         "kws-audio requests; port-only (the reference "
+                         "fixes these seeds at 0 and 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions "
                          "of the kernels)")
     ap.add_argument("--params", default="",
                     help="arrays.npz of a KWS checkpoint (default: random "
-                         "weights from --seed)")
+                         "weights from --init-seed)")
     ap.add_argument("--numerics", choices=["float32", "int8"],
                     default="float32",
                     help="serving datapath: the float kernels or the "
@@ -317,9 +327,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable the VAD gate (always-open features)")
     ap.add_argument("--tol-s", type=float, default=0.5,
                     help="fire-to-event matching tolerance in seconds")
-    ap.add_argument("--stream-seed", type=int, default=100,
-                    help="stream-synthesis seed (one stream per slot), "
-                         "separate from the weights' --seed")
     # kws-cascade options
     ap.add_argument("--wake-threshold", type=float, default=0.5,
                     help="stage-0 posterior that wakes stage 1")
@@ -335,13 +342,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--s0-threshold", type=float, default=0.05,
                     help="stage-0 delta threshold")
     # quick training before serving
-    ap.add_argument("--train-steps", type=int, default=0,
+    ap.add_argument("--train-steps", type=int, default=120,
                     help="AdamW steps of quick training before serving "
-                         "(0 = serve the loaded or seeded weights; the "
-                         "reference trains 120 by default): utterance-"
-                         "level for kws-audio, frame-level for kws-detect "
-                         "and kws-cascade (stage 0 too, even with "
-                         "--bundle), QAT with --numerics int8")
+                         "(the reference's default; 0 = serve the loaded "
+                         "or seeded weights): utterance-level for "
+                         "kws-audio, frame-level for kws-detect and "
+                         "kws-cascade (stage 0 too, even with --bundle), "
+                         "QAT with --numerics int8")
     return ap
 
 
@@ -473,13 +480,13 @@ def _load_model(args):
     elif args.params:
         params = kws.load_npz_params(args.params, device)
     else:
-        gen = torch.Generator().manual_seed(args.seed)
+        gen = torch.Generator().manual_seed(args.init_seed)
         params = kws.init_kws(gen, CONFIG, input_dim=fex.cfg.n_active)
     if params is not None and args.train_steps:
         params = quick_train(args, fex,
                              {k: v.to(device) for k, v in params.items()},
                              CONFIG, frame_level=args.mode != "kws-audio",
-                             seed=args.seed, what="detector")
+                             seed=args.init_seed, what="detector")
     return device, fex, params, bundle
 
 
@@ -498,8 +505,8 @@ def serve_kws_audio(args):
     from repro_torch.launch.streaming import SlotScheduler, StreamingKwsSession
 
     device, fex, params, bundle = _load_model(args)
-    audio_q, label_q = synth_batch(np.random.default_rng(args.seed + 1),
-                                   args.requests)
+    audio_q, label_q = synth_batch(
+        np.random.default_rng(args.init_seed + 1), args.requests)
     supervisor, input_policy, injector = _session_extras(args)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
@@ -581,7 +588,7 @@ def serve_kws_detect(args):
                                 s0_channels=args.s0_channels)
         params0 = stage0_params(args, fex, device)
     shift = fex.cfg.frame_shift
-    streams = make_streams(args.stream_seed, args.slots,
+    streams = make_streams(args.seed, args.slots,
                            duration_s=args.stream_seconds,
                            snr_db=args.snr_db,
                            events_per_min=args.events_per_min)

@@ -72,6 +72,7 @@ from repro_torch.frontend.fex import (FeatureExtractor, FExConfig, FExState,
 from repro_torch.frontend.vad import (VADConfig, VADState, frame_energy,
                                       init_vad_state, vad_gate,
                                       vad_state_flags)
+from repro_torch.kernels import autotune
 from repro_torch.kernels.detect_head import detect_head
 from repro_torch.kernels.platform import resolve_device
 from repro_torch.kernels.wake_head import wake_head
@@ -443,12 +444,17 @@ def _feats_bad(feats) -> torch.Tensor:
 
 
 def _process_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, state: dg.DeltaState,
-                   acc: _Accum, feats, *, threshold: float):
+                   acc: _Accum, feats, *, threshold: float,
+                   gru_knobs: dict | None = None):
     """Chunk step on features:
-    (state, acc, feats (F,B,C)) -> (state', acc', out, health)."""
+    (state, acc, feats (F,B,C)) -> (state', acc', out, health).
+    ``gru_knobs``: the ΔGRU kernel's launch knobs (the session's tuned
+    configuration; the default launch without it, no cache read)."""
     in_bad = _feats_bad(feats)
     hs, state, stats = dg.delta_gru_scan(gru, feats.contiguous(), threshold,
-                                         state, backend="pallas")
+                                         state, backend="pallas",
+                                         consult_cache=False,
+                                         **(gru_knobs or {}))
     out = _classify(w_fc, b_fc, hs, stats)
     health = slot_health(in_bad, None, state)
     return (state, _bump(acc, stats, feats.shape[0] * feats.shape[1], 0),
@@ -458,22 +464,28 @@ def _process_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, state: dg.DeltaState,
 def _process_audio_chunk(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
                          fex_state: FExState, state: dg.DeltaState,
                          acc: _Accum, audio, *, threshold: float,
-                         frame_shift: int, env_alpha: float, log_eps: float):
+                         frame_shift: int, env_alpha: float, log_eps: float,
+                         fex_knobs: dict | None = None,
+                         gru_knobs: dict | None = None):
     """Audio→decision step: FEx kernel → ΔGRU kernel → FC.
 
     audio: (B, S) raw samples on the device, S a multiple of frame_shift.
-    Returns (fex_state', state', acc', ChunkResult, health), all on the
-    device.
+    ``fex_knobs`` / ``gru_knobs``: the kernels' launch knobs (the
+    session's tuned configurations; the default launches without them,
+    and no step reads the autotune cache).  Returns (fex_state', state',
+    acc', ChunkResult, health), all on the device.
     """
     in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
     audio = quantize_audio_12b(audio.float())
     feats, fex_state = fex_scan(
         audio, coef, fex_state, frame_shift=frame_shift,
         env_alpha=env_alpha, log_eps=log_eps, compress=True,
-        backend="pallas")
+        backend="pallas", consult_cache=False, **(fex_knobs or {}))
     xs = feats.movedim(1, 0).contiguous()            # (F, B, C)
     hs, state, stats = dg.delta_gru_scan(gru, xs, threshold, state,
-                                         backend="pallas")
+                                         backend="pallas",
+                                         consult_cache=False,
+                                         **(gru_knobs or {}))
     out = _classify(w_fc, b_fc, hs, stats)
     decisions = xs.shape[0] * xs.shape[1]            # frames × streams
     acc = _bump(acc, stats, decisions, decisions * frame_shift)
@@ -493,14 +505,17 @@ def _classify_int(w_fc, b_fc, hs_codes, stats, logit_frac: int):
 
 def _process_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc,
                        state: dg.DeltaState, acc: _Accum, feats, *,
-                       threshold: float, gfmt: fp.GruFormats):
+                       threshold: float, gfmt: fp.GruFormats,
+                       gru_knobs: dict | None = None):
     """Integer mirror of ``_process_chunk``: feats (F, B, C) floats on the
     12-bit grid → codes → int ΔGRU kernel → int FC.  ``state`` carries
     int16/int32 codes."""
     in_bad = _feats_bad(feats)
     xs = fp.to_code(feats, gfmt.feat_frac, 16, torch.int16).contiguous()
     hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs, threshold,
-                                              state, backend="pallas")
+                                              state, backend="pallas",
+                                              consult_cache=False,
+                                              **(gru_knobs or {}))
     stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
                                   gru.w_h.shape[0])
     out = _classify_int(w_fc, b_fc, hs, stats, gfmt.logit_frac)
@@ -513,21 +528,27 @@ def _process_audio_chunk_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
                              fex_state: FExState, state: dg.DeltaState,
                              acc: _Accum, audio, *, threshold: float,
                              frame_shift: int, gfmt: fp.GruFormats,
-                             ffmt: fp.FexFormats):
+                             ffmt: fp.FexFormats,
+                             fex_knobs: dict | None = None,
+                             gru_knobs: dict | None = None):
     """The deployed INTEGER audio→decision step: 12-bit ADC codes → int
     FEx kernel → int ΔGRU kernel → int FC.  ``fex_state`` holds int16
-    register codes, ``state`` int16/int32 ΔGRU codes.  Returns
-    (fex_state', state', acc', ChunkResult, health), all on the device.
+    register codes, ``state`` int16/int32 ΔGRU codes; the knobs as in
+    ``_process_audio_chunk``.  Returns (fex_state', state', acc',
+    ChunkResult, health), all on the device.
     """
     in_bad = ~torch.isfinite(audio).all(dim=1)       # pre-quantizer
     audio = quantize_audio_12b(audio.float())
     audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
     feats, fex_buf = fp.int_fex_scan(
         audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
-        frame_shift=frame_shift, backend="pallas")
+        frame_shift=frame_shift, backend="pallas", consult_cache=False,
+        **(fex_knobs or {}))
     xs = feats.movedim(1, 0).contiguous()            # (F, B, C) codes
     hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs, threshold,
-                                              state, backend="pallas")
+                                              state, backend="pallas",
+                                              consult_cache=False,
+                                              **(gru_knobs or {}))
     stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
                                   gru.w_h.shape[0])
     out = _classify_int(w_fc, b_fc, hs, stats, gfmt.logit_frac)
@@ -566,7 +587,9 @@ def _process_audio_chunk_detect(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
                                 det_state: DetectorState, acc: _Accum,
                                 audio, *, threshold: float, frame_shift: int,
                                 env_alpha: float, log_eps: float,
-                                vad_cfg: VADConfig, det_cfg: DetectorConfig):
+                                vad_cfg: VADConfig, det_cfg: DetectorConfig,
+                                fex_knobs: dict | None = None,
+                                gru_knobs: dict | None = None):
     """Always-on detection step: audio → FEx kernel → VAD gate → ΔGRU
     kernel → FC → detection head kernel.  The VAD clamps the delta path
     by sample-and-holding the features during silence (Δx = 0 exactly).
@@ -578,11 +601,13 @@ def _process_audio_chunk_detect(gru: dg.DeltaGRUParams, w_fc, b_fc, coef,
     feats, fex_state = fex_scan(
         audio, coef, fex_state, frame_shift=frame_shift,
         env_alpha=env_alpha, log_eps=log_eps, compress=True,
-        backend="pallas")
+        backend="pallas", consult_cache=False, **(fex_knobs or {}))
     xs = feats.movedim(1, 0)                         # (F, B, C)
     xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
     hs, state, stats = dg.delta_gru_scan(gru, xs.contiguous(), threshold,
-                                         state, backend="pallas")
+                                         state, backend="pallas",
+                                         consult_cache=False,
+                                         **(gru_knobs or {}))
     det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
                                   det_cfg=det_cfg, det_state=det_state)
     decisions = xs.shape[0] * xs.shape[1]
@@ -600,7 +625,9 @@ def _process_audio_chunk_detect_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
                                     audio, *, threshold: float,
                                     frame_shift: int, gfmt: fp.GruFormats,
                                     ffmt: fp.FexFormats, vad_cfg: VADConfig,
-                                    det_cfg: DetectorConfig):
+                                    det_cfg: DetectorConfig,
+                                    fex_knobs: dict | None = None,
+                                    gru_knobs: dict | None = None):
     """Integer mirror of ``_process_audio_chunk_detect``: the VAD holds
     int16 feature codes (a held code stream is a zero integer delta) and
     gates on the energy of the float 12-bit audio, before the codes; the
@@ -611,12 +638,15 @@ def _process_audio_chunk_detect_int(gru: fp.IntGruWeights, w_fc, b_fc, coef,
     audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
     feats, fex_buf = fp.int_fex_scan(
         audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
-        frame_shift=frame_shift, backend="pallas")
+        frame_shift=frame_shift, backend="pallas", consult_cache=False,
+        **(fex_knobs or {}))
     xs = feats.movedim(1, 0)                         # (F, B, C) codes
     xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
     hs, state, nz_dx, nz_dh = fp.int_gru_scan(gru, gfmt, xs.contiguous(),
                                               threshold, state,
-                                              backend="pallas")
+                                              backend="pallas",
+                                              consult_cache=False,
+                                              **(gru_knobs or {}))
     stats = dg._stats_from_counts(nz_dx, nz_dh, xs.shape[-1],
                                   gru.w_h.shape[0])
     det_state, out = _detect_tail(w_fc, b_fc, hs, stats, gate,
@@ -641,7 +671,9 @@ def _process_audio_chunk_cascade(gru: dg.DeltaGRUParams, w_fc, b_fc,
                                  frame_shift: int, env_alpha: float,
                                  log_eps: float, vad_cfg: VADConfig,
                                  det_cfg: DetectorConfig,
-                                 cas_cfg: CascadeConfig):
+                                 cas_cfg: CascadeConfig,
+                                 fex_knobs: dict | None = None,
+                                 gru0_knobs: dict | None = None):
     """Two-stage cascade step: audio → FEx kernel → VAD gate → stage-0
     micro-ΔGRU (``delta_gru_seq`` on the leading channels) → FC → the
     wake head kernel (stage 0's posterior → wake machine) → stage-1 ΔGRU
@@ -655,13 +687,15 @@ def _process_audio_chunk_cascade(gru: dg.DeltaGRUParams, w_fc, b_fc,
     feats, fex_state = fex_scan(
         audio, coef, fex_state, frame_shift=frame_shift,
         env_alpha=env_alpha, log_eps=log_eps, compress=True,
-        backend="pallas")
+        backend="pallas", consult_cache=False, **(fex_knobs or {}))
     xs = feats.movedim(1, 0)                         # (F, B, C)
     xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
-    # Stage 0: always on, the leading channels, its own Δ_TH.
+    # Stage 0: always on, the leading channels, its own Δ_TH.  (Stage 1
+    # runs the masked instantiation, which takes no knob.)
     xs0 = xs[..., :cas_cfg.s0_channels].contiguous()
     hs0, s0_state, stats0 = dg.delta_gru_scan(
-        gru0, xs0, cas_cfg.s0_threshold, cas_state.s0, backend="pallas")
+        gru0, xs0, cas_cfg.s0_threshold, cas_state.s0, backend="pallas",
+        consult_cache=False, **(gru0_knobs or {}))
     awake_t, awake, hang = wake_head(hs0 @ w_fc0 + b_fc0, cas_state.awake,
                                      cas_state.hang, cas_cfg)
     hs, state, stats = dg.masked_delta_gru_scan(gru, xs.contiguous(),
@@ -693,7 +727,9 @@ def _process_audio_chunk_cascade_int(gru: fp.IntGruWeights, w_fc, b_fc,
                                      gfmt0: fp.GruFormats,
                                      vad_cfg: VADConfig,
                                      det_cfg: DetectorConfig,
-                                     cas_cfg: CascadeConfig):
+                                     cas_cfg: CascadeConfig,
+                                     fex_knobs: dict | None = None,
+                                     gru0_knobs: dict | None = None):
     """Integer mirror of ``_process_audio_chunk_cascade``: both stages on
     the deployed code-domain datapath (stage 0 through its own promoted
     formats ``gfmt0``), the wake head on stage 0's dequantized
@@ -705,13 +741,14 @@ def _process_audio_chunk_cascade_int(gru: fp.IntGruWeights, w_fc, b_fc,
     audio_codes = fp.to_code(audio, ffmt.feat_frac, 16, torch.int16)
     feats, fex_buf = fp.int_fex_scan(
         audio_codes.contiguous(), coef, _pack_state(fex_state), ffmt,
-        frame_shift=frame_shift, backend="pallas")
+        frame_shift=frame_shift, backend="pallas", consult_cache=False,
+        **(fex_knobs or {}))
     xs = feats.movedim(1, 0)                         # (F, B, C) codes
     xs, gate, vad_state = vad_gate(xs, energy, vad_state, vad_cfg)
     xs0 = xs[..., :cas_cfg.s0_channels].contiguous()
     hs0, s0_state, nzx0, nzh0 = fp.int_gru_scan(
         gru0, gfmt0, xs0, cas_cfg.s0_threshold, cas_state.s0,
-        backend="pallas")
+        backend="pallas", consult_cache=False, **(gru0_knobs or {}))
     logits0 = fp.from_code(fp.int_fc(hs0, w_fc0, b_fc0), gfmt0.logit_frac)
     awake_t, awake, hang = wake_head(logits0, cas_state.awake,
                                      cas_state.hang, cas_cfg)
@@ -969,11 +1006,14 @@ class StreamingKwsSession:
         self._sat_events = 0
         self._flagged: frozenset[int] = frozenset()
         self._slo: dict = {}
+        self._tuning: dict = {}
         if input_dim is not None:
             self._init_state(input_dim)
+        self._resolve_tuning()
 
     def _init_state(self, input_dim: int):
         self._input_dim = input_dim
+        self._resolve_tuning()
         if self.numerics == "int8":
             self._state = fp.init_int_delta_state(
                 self.batch, input_dim, self.cfg.d_model, self._gru)
@@ -1010,7 +1050,101 @@ class StreamingKwsSession:
                     self.batch, self.n_classes, self.device)
             if self._cascade is not None:
                 self._cas_state = self._fresh_cascade_state()
+            self._resolve_tuning()
         return self._fex
+
+    # ----------------------------------------------------- kernel tuning
+    def _tuning_entries(self) -> list[tuple]:
+        """(role, kernel, shape, dtype, Δ_TH) of each tunable kernel launch
+        this session's steps make, as far as the session knows them: the
+        ΔGRU (once its input width is known; stage 1 of a cascade runs
+        the masked instantiation, which takes no knob, but is listed as
+        the reference lists it), the FEx (once there is one) and the
+        cascade's stage 0.  ``n_shards`` is 1: one launch serves every
+        slot."""
+        int8 = self.numerics == "int8"
+        gru, gdt = (("delta_gru_seq_int", "int8") if int8
+                    else ("delta_gru_seq", "float32"))
+        b = self.batch // self.n_shards
+        out = []
+        if self._input_dim is not None:
+            out.append(("gru", gru, (b, int(self._input_dim),
+                                     int(self._gru.w_h.shape[0])), gdt,
+                        self.threshold))
+        if self._fex is not None:
+            fcfg = self._fex.cfg
+            out.append(("fex", "batched_iir_fex_int" if int8
+                        else "batched_iir_fex",
+                        (b, int(fcfg.n_active), int(fcfg.frame_shift)),
+                        "int16" if int8 else "float32", 0.0))
+        if self._cascade is not None:
+            out.append(("gru0", gru, (b, int(self._cascade.s0_channels),
+                                      self._s0_hidden), gdt,
+                        self._cascade.s0_threshold))
+        return out
+
+    def _tuned(self, kernel: str, shape: tuple, dtype: str,
+               threshold) -> dict:
+        """The cached configuration of one launch shape, looked up once per
+        (kernel, shape, dtype, Δ_TH bucket) and kept: the serving step
+        never reads the cache file.  {} when autotuning is disabled or
+        the cache has no entry (the default launch)."""
+        key = (kernel, shape, dtype, autotune.threshold_bucket(threshold))
+        if key not in self._tuning:
+            cfg = (autotune.lookup(kernel, shape, dtype, threshold,
+                                   self.device)
+                   if autotune.autotune_enabled() else None)
+            self._tuning[key] = cfg or {}
+        return self._tuning[key]
+
+    def _resolve_tuning(self) -> None:
+        """Look up every configuration the steps will use (at creation,
+        when the input width or the FEx appears, after ``set_threshold``)."""
+        for _, *entry in self._tuning_entries():
+            self._tuned(*entry)
+
+    def _step_knobs(self, n_frames: int) -> dict:
+        """Each kernel's launch knobs for a step of ``n_frames`` frames:
+        its looked-up configuration with every knob illegal for this
+        chunk dropped (``autotune.sanitize``; pure, no file access)."""
+        shift = self._fex.cfg.frame_shift if self._fex is not None else None
+        knobs = {}
+        for role, kernel, shape, dtype, th in self._tuning_entries():
+            cfg = self._tuned(kernel, shape, dtype, th)
+            knobs[f"{role}_knobs"] = (
+                autotune.sanitize(kernel, cfg, B=self.batch,
+                                  frame_shift=shift) if role == "fex"
+                else autotune.sanitize(kernel, cfg, B=self.batch,
+                                       T=n_frames))
+        return knobs
+
+    def kernel_tuning_report(self) -> dict:
+        """Which autotuned kernel configurations THIS session's steps use.
+
+        The session looks each configuration up in the ``kernels.autotune``
+        cache once — when it is built, when its input width or FEx first
+        appears, after ``set_threshold`` — and passes it to the scans
+        explicitly; this reports the RAW configuration under each key
+        (ΔGRU and FEx, with the shapes one launch plan serves) as the
+        session looked it up (``enabled`` is the environment's switch
+        now; a session built with it off looked nothing up).  The step
+        still drops a knob that is illegal for a chunk (a ``block_t``
+        that does not divide its frame count), so a listed knob may fall
+        back to its default for such a chunk.  An empty config means a
+        cold cache: the default launch.  Never raises (a broken cache
+        reads as empty); purely observational.
+        """
+        enabled = autotune.autotune_enabled()
+        report: dict = {"platform": autotune.platform_tag(self.device),
+                        "cache": str(autotune.cache_path()),
+                        "enabled": enabled, "kernels": {}}
+        for role, kernel, shape, dtype, th in self._tuning_entries():
+            if role == "gru0":          # the reference reports stage 1
+                continue
+            report["kernels"][kernel] = {
+                "shape": list(shape),
+                "config": dict(self._tuned(kernel, shape, dtype, th))}
+        return report
 
     def _fresh_cascade_state(self) -> CascadeState:
         return init_cascade_state(self.batch, self._gru0,
@@ -1101,6 +1235,13 @@ class StreamingKwsSession:
         else:
             kw = dict(env_alpha=fcfg.env_alpha, log_eps=fcfg.log_eps)
         weights = (self._gru, self._w_fc, self._b_fc, self._coef)
+        knobs = self._step_knobs(n_frames)
+        if self._cascade is not None:
+            kw.update(fex_knobs=knobs["fex_knobs"],
+                      gru0_knobs=knobs["gru0_knobs"])
+        else:
+            kw.update(fex_knobs=knobs["fex_knobs"],
+                      gru_knobs=knobs["gru_knobs"])
         if self._cascade is not None:
             step = _process_audio_chunk_cascade
             if self.numerics == "int8":
@@ -1161,6 +1302,7 @@ class StreamingKwsSession:
                              f" session state is {self._input_dim}-wide")
         step, kw = ((_process_chunk_int, {"gfmt": self._bundle.gfmt})
                     if self.numerics == "int8" else (_process_chunk, {}))
+        kw["gru_knobs"] = self._step_knobs(feats.shape[0])["gru_knobs"]
         self._state, self._acc, out, self._last_health = step(
             self._gru, self._w_fc, self._b_fc, self._state, self._acc, feats,
             threshold=self.threshold, **kw)
@@ -1268,6 +1410,7 @@ class StreamingKwsSession:
             raise ValueError(f"delta threshold must be finite and >= 0, "
                              f"got {threshold}")
         self.threshold = threshold
+        self._resolve_tuning()
 
     def _health_flags(self) -> np.ndarray:
         """The last step's (batch,) health mask on the host (waits for

@@ -251,6 +251,7 @@ def test_serve_kws_cascade_on_cpu(numerics, capsys):
     """The CLI's cascade mode, 2 slots × 2 s streams, the session driven by
     ``run_continuous_detect`` as kws-detect drives its own."""
     argv = ["--mode", "kws-cascade", "--device", "cpu", "--slots", "2",
+            "--train-steps", "0",
             "--stream-seconds", "2", "--chunk-samples", "4096",
             "--numerics", numerics, "--fire-threshold", "0.09",
             "--release-threshold", "0.085", "--wake-threshold", "0.45",

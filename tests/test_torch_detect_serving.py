@@ -226,6 +226,7 @@ def test_serve_kws_detect_on_cpu(numerics, capsys):
     """The CLI's detect mode, 2 slots × 2 s streams, with a fire threshold
     the random model reaches."""
     argv = ["--mode", "kws-detect", "--device", "cpu", "--slots", "2",
+            "--train-steps", "0",
             "--stream-seconds", "2", "--chunk-samples", "1024",
             "--numerics", numerics, "--fire-threshold", "0.09",
             "--release-threshold", "0.085"]
@@ -247,7 +248,7 @@ def test_detect_loop_and_cli_checks(weights):
             tserve.validate_args(ap.parse_args(["--mode", "kws-detect",
                                                 flag, val]))
     args = ap.parse_args(["--mode", "kws-detect"])
-    assert (args.stream_seed, args.seed, args.fire_threshold) == (100, 0, 0.4)
+    assert (args.seed, args.init_seed, args.fire_threshold) == (100, 0, 0.4)
     sess = _port(weights[1], "float32", batch=1)
     z = [np.zeros(256, np.float32)]
     with pytest.raises(ValueError, match="depth"):

@@ -468,6 +468,7 @@ def test_serve_faults_cli_on_cpu(capsys):
     """A small fault run of the CLI: NaN bursts every step, duplicated and
     split chunks, the supervisor healing, depth 2."""
     argv = ["--mode", "kws-audio", "--device", "cpu", "--slots", "1",
+            "--train-steps", "0",
             "--requests", "1", "--chunk-samples", "2048", "--numerics",
             "int8", "--faults", "nan_burst:1.0,dup_chunk:0.3,"
             "one_sample_chunk:0.5", "--degrade-thresholds", "0.2,0.4",

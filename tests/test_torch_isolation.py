@@ -136,6 +136,63 @@ def test_training_modules_import_with_jax_blocked():
     assert out.stdout.split()[-1] == "ok"
 
 
+_IMPORT_TUNING = """
+import sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+from repro_torch import commands
+from repro_torch.core import sparsity
+from repro_torch.kernels import autotune, ref
+for mod, names in ((autotune, ("SCHEMA_VERSION", "ENV_CACHE", "ENV_ENABLE",
+                               "legal_block_b", "validate_block_b",
+                               "validate_divisor", "cache_path",
+                               "autotune_enabled", "clear_memo",
+                               "threshold_bucket", "platform_tag",
+                               "cache_key", "lookup", "record", "resolve",
+                               "tune_delta_gru_seq",
+                               "tune_batched_iir_fex")),
+                   (sparsity, ("SparsityAccumulator", "delta_histogram",
+                               "sparsity_at_threshold")),
+                   (ref, ("delta_matvec_ref", "iir_fex_ref",
+                          "delta_gru_cell_ref")),
+                   (commands, ("ALL_COMMANDS",))):
+    for name in names:
+        assert hasattr(mod, name), (mod.__name__, name)
+import importlib.util, pathlib
+for name in ("torch_quickstart", "torch_serve_streaming_kws",
+             "torch_train_kws_e2e"):
+    spec = importlib.util.spec_from_file_location(
+        name, pathlib.Path({examples!r}) / f"{{name}}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax",
+                                                "benchmarks"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_tuning_modules_and_examples_import_with_jax_blocked():
+    examples = PKG.parent.parent / "examples"
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_TUNING.format(examples=str(examples))],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart.py",
+                                  "torch_serve_streaming_kws.py",
+                                  "torch_train_kws_e2e.py", "chip_smoke.py"])
+def test_examples_and_chip_smoke_import_nothing_of_jax(name):
+    root = PKG.parent.parent
+    path = root / "examples" / name if name.startswith("torch_") \
+        else root / name
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), mod
+
+
 def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):

@@ -221,3 +221,22 @@ def test_scheduler_evict_names_the_slot_state(weights):
         sched.evict(0)
     with pytest.raises(ValueError, match="out of range"):
         sched.evict(5)
+
+
+def test_serve_parser_defaults_match_the_reference():
+    """``--train-steps`` and ``--seed`` mean what the reference's mean, at
+    its defaults: 120 quick-training steps, and the stream-synthesis seed
+    100.  The port's weight, training and request seed is the port-only
+    ``--init-seed`` (default 0: the reference's fixed seeds 0 and 1)."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    j = jserve.build_parser().parse_args([])
+    t = tserve.build_parser().parse_args([])
+    assert (t.train_steps, t.seed) == (j.train_steps, j.seed) == (120, 100)
+    assert t.init_seed == 0 and not hasattr(t, "stream_seed")
+    t = tserve.build_parser().parse_args(["--seed", "7", "--init-seed", "3"])
+    assert (t.seed, t.init_seed) == (7, 3)
+    with pytest.raises(SystemExit):
+        tserve.build_parser().parse_args(["--stream-seed", "100"])
+    help_text = tserve.build_parser().format_help()
+    assert "--init-seed" in help_text and "--stream-seed" not in help_text

@@ -436,6 +436,6 @@ def test_serve_train_steps_on_cpu(mode, numerics, capsys, monkeypatch):
 
 def test_serve_train_steps_validation():
     ap = tserve.build_parser()
-    assert ap.parse_args([]).train_steps == 0
+    assert ap.parse_args([]).train_steps == 120      # the reference's
     with pytest.raises(ValueError, match="train-steps"):
         tserve.validate_args(ap.parse_args(["--train-steps", "-1"]))
