@@ -178,7 +178,29 @@ Phases, each exiting non-zero on failure:
      autotuning off over 4 steps: the report lists what was recorded,
      each kernel launches B / block_b times a step, and votes, logits and
      counts are equal bit for bit; the three examples at small flags;
-  11. the ``kernels`` JSON line (the eight kernels and the two masked
+  11. the LM stacks (eager PyTorch; no kernel of the port on their path,
+     every launch count stays 0): the ten ARCH_IDS at smoke width in
+     float32 on the card against the same weights on the CPU (loss,
+     prefill and one decode step's logits within 1e-4 of max|·|), then
+     their bf16 configs on the card (finite); qwen2-0.5b, mamba2-370m
+     and granite-moe-3b-a800m at full width with the port's seeded init:
+     the parameter count equal to the cost model's (plus the q/k/v
+     biases, which it leaves out), 4 prompts × 128 tokens
+     prefilled and 32 greedy tokens decoded (ms, tokens/s, device
+     activities and busy share of a decode step, peak memory, FLOP/s from
+     ``launch/costmodel.py``), prefill-then-decode against the longer
+     prefill at the reference's rtol = atol = 0.15 on the first 4 of the
+     full-width layers in float32 (the MoE at the reference's capacity
+     1.25, where the two part by design: its gap held to the CPU's on the
+     same weights, at the same tolerance; bf16 and the full depth printed
+     beside a chaos probe at 4, 8 and all layers: the float32 logits
+     after the embedding is scaled by 1 + 1e-6, and layer 0's attention
+     score std), mamba2's Δ decode at Δ_TH 0
+     against the dense one (float32, 1e-3 of max|·|); ``serve --mode lm --arch qwen2-0.5b --requests 8
+     --slots 4``, ``train --arch qwen2-0.5b --full-config --steps 4
+     --batch 8 --seq 128`` and its resume from the checkpoint, and 12
+     AdamW steps lowering the smoke loss on one batch;
+  12. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations; the four tuned ones with their sweep), the card
      line, and the final ``{"ok": true, ...}`` line.
 
@@ -4203,6 +4225,430 @@ def tuning_phase(torch, np, fex, params, bundle, card, cache):
                 "timed": len(reports[k]["sweep"])} for k in TUNED_KERNELS}
 
 
+# ------------------------------------------------- phase 11: LM stacks --
+# The seed's LM stacks (``models/``) run as eager PyTorch: no kernel of
+# the port lies on their path (the reference's attention, MoE dispatch
+# and SSD scan are plain JAX), so the phase holds the card's results to
+# the CPU's, checks the decode cache paths and prints the figures.
+LM_F32_TOL = 1e-4          # smoke configs in float32, CUDA vs CPU, of max|·|
+LM_CONSIST_TOL = 0.15      # the reference's rtol = atol (test_arch_smoke)
+LM_CONSIST_LAYERS = 4      # depth of the gated cache check (full width)
+LM_PROBE_LAYERS = (4, 8)   # depths of the chaos probe, besides the full one
+LM_DELTA_TOL = 1e-3        # Δ decode at Δ_TH 0 vs dense, f32, of max|·|
+LM_FULL = ("qwen2-0.5b", "mamba2-370m", "granite-moe-3b-a800m")
+LM_B, LM_PROMPT, LM_NEW, LM_CACHE = 4, 128, 32, 192
+LM_PREFILL_REPS, LM_DELTA_STEPS = 5, 8
+
+
+def _lm_rel(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _lm_inputs(torch, np, cfg, B, S, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))
+                            .astype(np.int32)).to(device)
+    emb = None
+    if cfg.frontend != "none":
+        emb = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(
+                device)
+    return toks, emb
+
+
+def _lm_outputs(torch, api, params, toks, emb, S, P, cache_len):
+    """(loss, prefill logits of P tokens, the next token's decode logits)."""
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
+    if emb is not None:
+        batch["embeds"] = emb
+    with torch.no_grad():
+        loss, _ = api.loss(params, batch)
+    cache, lp = api.prefill(params, toks[:, :P],
+                            api.init_cache(toks.shape[0], cache_len), emb)
+    ld, _ = api.decode_step(params, cache, toks[:, P:P + 1])
+    return loss, lp, ld
+
+
+def lm_smoke_against_cpu(torch, np, bad):
+    """Every ARCH_ID at smoke width: float32 on the card against the same
+    weights on the CPU (loss, prefill logits, one decode step's logits
+    within LM_F32_TOL of max|·|: cuBLAS sums in another order), then the
+    bf16 config on the card, everything finite."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import get_api
+    from repro_torch.parallel.sharding import tree_map
+    worst = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+        params, _ = get_api(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        toks, emb = _lm_inputs(torch, np, cfg, 2, 32, 0)
+        cpu = _lm_outputs(torch, get_api(cfg, device="cpu"), params, toks,
+                          emb, 32, 16, 64)
+        gpu = _lm_outputs(torch, get_api(cfg, device="cuda"),
+                          tree_map(lambda t: t.cuda(), params), toks.cuda(),
+                          emb.cuda() if emb is not None else None, 32, 16,
+                          64)
+        errs = [_lm_rel(g, c) for g, c in zip(gpu, cpu)]
+        worst[arch] = max(errs)
+        bad.check(max(errs) <= LM_F32_TOL,
+                  f"{arch} smoke float32 CUDA vs CPU: relative errors "
+                  f"(loss, prefill, decode) {errs} > {LM_F32_TOL}")
+        bcfg = get_smoke_config(arch)
+        bapi = get_api(bcfg, device="cuda")
+        bparams, _ = bapi.init(torch.Generator(device="cuda").manual_seed(0))
+        out = _lm_outputs(torch, bapi, bparams, toks.cuda(),
+                          emb.cuda() if emb is not None else None, 32, 16,
+                          64)
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in out)
+        bad.check(finite and out[1].dtype == torch.bfloat16,
+                  f"{arch} smoke bf16 on the card: not finite or not bf16")
+        print(f"[lm] {arch:22s} smoke f32 CUDA vs CPU: loss {errs[0]:.1e}, "
+              f"prefill {errs[1]:.1e}, decode {errs[2]:.1e} of max|·|; "
+              f"bf16 on the card finite: {finite} (loss "
+              f"{float(out[0]):.4f})")
+    return worst
+
+
+def _first_layers(params, cfg, n):
+    """The first ``n`` layers of a stack's full-width weights (every
+    per-layer subtree sliced on its leading L dim)."""
+    from repro_torch.parallel.sharding import tree_map
+    stacked = {"attn", "norm1", "norm2", "mlp", "moe", "mamba"}
+    return {k: tree_map(lambda t: t[:n], v) if k in stacked else v
+            for k, v in params.items()}
+
+
+def _qkv_bias_params(cfg) -> int:
+    """The q/k/v biases, which ``costmodel.param_count`` leaves out, as
+    the reference's does."""
+    return (cfg.num_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
+            if cfg.qkv_bias else 0)
+
+
+def _score_std(torch, cfg, params, tokens) -> float:
+    """The std of layer 0's causal attention scores, q·k/√Dh after the
+    norm, the q/k biases and rope (float32 weights)."""
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import Sharder
+    lp = {k: L.layer_slice(params[k], 0) for k in ("attn", "norm1")}
+    x = L.apply_norm(lp["norm1"], L.embed_tokens(params["embed"], tokens,
+                                                 Sharder()), cfg.norm_type)
+    a, pos = lp["attn"], torch.arange(tokens.shape[1], device=tokens.device)
+    q = torch.einsum("bsd,dhe->bshe", x, a["wq"]) + a.get("bq", 0.0)
+    k = torch.einsum("bsd,dke->bske", x, a["wk"]) + a.get("bk", 0.0)
+    q, k = L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta)
+    k = k.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    s = torch.einsum("bshe,bthe->bhst", q, k) / cfg.d_head ** 0.5
+    causal = torch.ones(s.shape[-2:], dtype=torch.bool,
+                        device=s.device).tril()
+    return float(s[..., causal].std())
+
+
+def _sync_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_full_width(torch, np, arch, card, bad) -> dict:
+    """One full-width model on the card with the port's seeded init (bf16):
+    its parameter count, prefill of LM_B prompts × LM_PROMPT tokens and
+    LM_NEW greedy decode steps (ms, tokens/s, device activities and busy
+    share of a decode step, peak memory, FLOP/s from the cost model),
+    prefill-then-decode against the longer prefill (gated in float32 at
+    LM_CONSIST_LAYERS of its layers, the MoE's gap at capacity 1.25 held
+    to the CPU's; printed in bf16 and at full depth beside the chaos
+    probe), and for the SSM the Δ decode at Δ_TH 0 against the dense
+    decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import costmodel
+    from repro_torch.models import get_api
+    from repro_torch.parallel.sharding import tree_leaves, tree_map
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = get_api(cfg, device="cuda")
+    params, _ = api.init(torch.Generator(device="cuda").manual_seed(0))
+    n_init = sum(t.numel() for t in tree_leaves(params))
+    n_model = costmodel.param_count(cfg)
+    bad.check(n_init == n_model + _qkv_bias_params(cfg),
+              f"{arch}: init holds {n_init} parameters, the cost model "
+              f"{n_model} and the q/k/v biases {_qkv_bias_params(cfg)}")
+    toks, _ = _lm_inputs(torch, np, cfg, LM_B, LM_PROMPT, 1, "cuda")
+    prompt = toks[:, :LM_PROMPT]
+
+    def prefill():
+        return api.prefill(params, prompt, api.init_cache(LM_B, LM_CACHE))
+
+    prefill()                                         # warm-up
+    pre_ms = []
+    for _ in range(LM_PREFILL_REPS):
+        (cache, logits), ms = _sync_ms(torch, prefill)
+        pre_ms.append(ms)
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    dec_ms, finite = [], True
+    for _ in range(LM_NEW):
+        (logits, cache), ms = _sync_ms(
+            torch, lambda: api.decode_step(params, cache, tok))
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        finite &= bool(torch.isfinite(logits.float()).all())
+        dec_ms.append(ms)
+    bad.check(finite, f"{arch}: decode logits not finite")
+    (_, acts, busy_ms) = cuda_activities(
+        torch, lambda: api.decode_step(params, cache, tok))
+    peak = torch.cuda.max_memory_allocated()
+    pre = statistics.median(pre_ms)
+    dec = statistics.median(dec_ms[2:])
+    c_pre = costmodel.step_costs(cfg, ShapeConfig("p", LM_PROMPT, LM_B,
+                                                  "prefill"))
+    c_dec = costmodel.step_costs(cfg, ShapeConfig("d", LM_CACHE, LM_B,
+                                                  "decode"))
+    # Prefill-then-decode against the longer prefill, in float32 on the
+    # first LM_CONSIST_LAYERS layers of the same full-width weights.  The
+    # seed's init (``layers.py::_init``) takes fan-in from shape[-2], so
+    # wq (D, H, Dh) is scaled by 1/√H and wk by 1/√K, not 1/√D: layer 0's
+    # attention scores have a std of ~10² and the softmax is a hard max.
+    # Past a few layers two orders of summation then part by O(1) (the
+    # probe below; the JAX reference does the same on the CPU,
+    # benchmarks/lm_chaos_witness.py); bf16 and the full depth are
+    # printed.  MoE at the reference's capacity 1.25: a 129-token group
+    # keeps other (token, expert) pairs than a 128-token one, so the two
+    # part by design (the reference's own check leaves MoE out), and the
+    # card's gap is held to the CPU's on the same weights instead.
+    def paths(c, p, device="cuda"):
+        capi = get_api(c, device=device)
+        t = toks.to(device)
+        c1, _ = capi.prefill(p, t[:, :LM_PROMPT],
+                             capi.init_cache(LM_B, LM_CACHE))
+        step, _ = capi.decode_step(p, c1, t[:, LM_PROMPT:LM_PROMPT + 1])
+        _, full = capi.prefill(p, t, capi.init_cache(LM_B, LM_CACHE))
+        return step.float(), full.float()
+
+    def gap(c, p):
+        step, full = paths(c, p)
+        ok = torch.allclose(step, full, rtol=LM_CONSIST_TOL,
+                            atol=LM_CONSIST_TOL)
+        return float((step - full).abs().max()), ok
+
+    f32 = tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    n_cut = min(LM_CONSIST_LAYERS, cfg.num_layers)
+    cut32 = dataclasses.replace(cfg32, num_layers=n_cut)
+    w32 = _first_layers(f32, cfg, n_cut)
+    gated = f"{n_cut} layers, float32"
+    moe_gap = None
+    if cfg.family == "moe":
+        step, full = paths(cut32, w32)
+        on_cpu = paths(cut32, tree_map(lambda t: t.cpu(), w32), "cpu")
+        g_card, g_cpu = (step - full).cpu(), on_cpu[0] - on_cpu[1]
+        ok = torch.allclose(g_card, g_cpu, rtol=LM_CONSIST_TOL,
+                            atol=LM_CONSIST_TOL)
+        moe_gap = {"card": float(g_card.abs().max()),
+                   "cpu": float(g_cpu.abs().max()),
+                   "card_vs_cpu": float((g_card - g_cpu).abs().max()),
+                   "ok": ok}
+        consist = {gated: (moe_gap["card"], torch.allclose(
+            step, full, rtol=LM_CONSIST_TOL, atol=LM_CONSIST_TOL))}
+        bad.check(ok, f"{arch}: the prefill-then-decode gap at capacity "
+                      f"1.25, {n_cut} full-width layers, float32, on the "
+                      f"card against the CPU's: {moe_gap} beyond rtol = "
+                      f"atol = {LM_CONSIST_TOL}")
+    else:
+        consist = {gated: gap(cut32, w32)}
+        d, ok = consist[gated]
+        bad.check(ok, f"{arch}: prefill-then-decode vs the longer prefill "
+                      f"at {n_cut} full-width layers, float32, max|Δ| "
+                      f"{d:.2e} beyond rtol = atol = {LM_CONSIST_TOL}")
+    del w32
+    consist[f"{n_cut} layers"] = gap(
+        dataclasses.replace(cfg, num_layers=n_cut),
+        _first_layers(params, cfg, n_cut))
+    consist["full depth"] = gap(cfg, params)
+    consist["full depth, float32"] = gap(cfg32, f32)
+    # the chaos probe: float32, the embedding scaled by 1 + 1e-6
+    probe = {}
+    for n in sorted({*LM_PROBE_LAYERS, cfg.num_layers}):
+        if n > cfg.num_layers:
+            continue
+        c = dataclasses.replace(cfg32, num_layers=n)
+        w = _first_layers(f32, cfg, n)
+        api32 = get_api(c, device="cuda")
+        nudged = dict(w, embed={"table": w["embed"]["table"] * (1 + 1e-6)})
+        _, a = api32.prefill(w, toks, api32.init_cache(LM_B, LM_CACHE))
+        _, b = api32.prefill(nudged, toks, api32.init_cache(LM_B, LM_CACHE))
+        probe[n] = float((a - b).abs().max())
+        del w, nudged, a, b
+    score_std = (_score_std(torch, cfg, f32, prompt)
+                 if cfg.family in ("dense", "moe") else None)
+    del f32
+    delta = None
+    if cfg.family == "ssm":
+        del cache
+        f32 = tree_map(lambda t: t.float(), params)
+        del params
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                    use_delta=True, delta_threshold=0.0)
+        apis = [get_api(c, device="cuda") for c in
+                (cfg32, dataclasses.replace(cfg32, use_delta=False))]
+        caches = [a.init_cache(LM_B, LM_CACHE) for a in apis]
+        delta = 0.0
+        for t in range(LM_DELTA_STEPS):
+            outs = []
+            for i, a in enumerate(apis):
+                lg, caches[i] = a.decode_step(f32, caches[i], toks[:, t:t + 1])
+                outs.append(lg)
+            delta = max(delta, _lm_rel(outs[0], outs[1]))
+        bad.check(delta <= LM_DELTA_TOL,
+                  f"{arch}: Δ decode at Δ_TH 0 vs dense {delta:.2e} > "
+                  f"{LM_DELTA_TOL}")
+        del f32, caches
+    res = {"arch": arch, "params": n_init, "param_count": n_model,
+           "prefill_ms": pre, "prefill_tok_s": LM_B * LM_PROMPT / pre * 1e3,
+           "decode_ms_per_token": dec, "decode_tok_s": LM_B / dec * 1e3,
+           "decode_activities": acts, "decode_busy_ms": busy_ms,
+           "decode_busy_share": busy_ms / dec, "peak_bytes": peak,
+           "prefill_flops_s": c_pre.hlo_flops / (pre / 1e3),
+           "decode_flops_s": c_dec.hlo_flops / (dec / 1e3),
+           "prefill_model_flops_s": c_pre.model_flops / (pre / 1e3),
+           "consistency_max_abs": {k: v[0] for k, v in consist.items()},
+           "moe_gap_max_abs": moe_gap, "chaos_probe_max_abs": probe,
+           "layer0_score_std": score_std, "delta_vs_dense": delta}
+    print(f"[lm] {arch} full width on {card}: {n_init / 1e6:.1f} M params "
+          f"(cost model {n_model / 1e6:.1f} M), peak "
+          f"{peak / 2**30:.2f} GiB; prefill {LM_B}x{LM_PROMPT} "
+          f"{pre:.2f} ms median of {LM_PREFILL_REPS} "
+          f"({res['prefill_tok_s']:.0f} tok/s, "
+          f"{res['prefill_flops_s'] / 1e12:.2f} TFLOP/s); decode "
+          f"{dec:.2f} ms per token step of {LM_B} "
+          f"({res['decode_tok_s']:.0f} tok/s, "
+          f"{res['decode_flops_s'] / 1e12:.3f} TFLOP/s), {acts} device "
+          f"activities a step, busy {busy_ms:.2f} ms = "
+          f"{100 * res['decode_busy_share']:.1f} % of the step")
+    print(f"[lm] {arch} prefill-then-decode vs the longer prefill: "
+          + ", ".join(f"{k} max|Δ| {d:.2e} ({'ok' if ok else 'beyond'} "
+                      f"{LM_CONSIST_TOL})" for k, (d, ok) in consist.items())
+          + ("" if moe_gap is None else
+             f"; the {gated} gap at capacity 1.25, card {moe_gap['card']:.4f}"
+             f" against the CPU's {moe_gap['cpu']:.4f} (max|Δ| "
+             f"{moe_gap['card_vs_cpu']:.2e}, "
+             f"{'ok' if moe_gap['ok'] else 'beyond'} {LM_CONSIST_TOL})")
+          + "; float32, embedding × (1 + 1e-6): max|Δ| "
+          + ", ".join(f"{v:.4f} at {n} layers" for n, v in probe.items())
+          + ("" if score_std is None else
+             f"; layer 0's attention scores: std {score_std:.1f}")
+          + ("" if delta is None else
+             f"; Δ decode at Δ_TH 0 vs dense (f32, {LM_DELTA_STEPS} steps) "
+             f"{delta:.2e} of max|·|"))
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_clis(torch, np, bad) -> dict:
+    """The LM CLIs on the card, in this process: ``serve --mode lm``, the
+    full-config ``train`` and its resume; then the reference's smoke
+    check that AdamW on one repeated batch lowers the loss."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import get_api
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train import optimizer as opt
+    out = {}
+    argv = ["--mode", "lm", "--arch", "qwen2-0.5b", "--requests", "8",
+            "--slots", "4"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    text = buf.getvalue()
+    print(f"[lm] serve {' '.join(argv)}: rc {rc}, "
+          f"{time.perf_counter() - t0:.1f} s: {text.splitlines()[0]}")
+    bad.check(rc == 0 and "served 8 requests" in text,
+              f"serve --mode lm: rc {rc}, printed {text[:200]!r}")
+    out["serve_line"] = text.splitlines()[0]
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", "qwen2-0.5b", "--full-config", "--batch", "8",
+                "--seq", "128", "--ckpt-dir", d]
+        t0 = time.perf_counter()
+        run = train.train_lm(train.build_parser().parse_args(
+            base + ["--steps", "4"]))
+        t_run = time.perf_counter() - t0
+        losses = [h.metrics["loss"] for h in run["trainer"].history]
+        walls = [h.wall_s * 1e3 for h in run["trainer"].history]
+        bad.check(len(losses) == 4 and all(np.isfinite(losses)),
+                  f"train --full-config: losses {losses}")
+        t0 = time.perf_counter()
+        run2 = train.train_lm(train.build_parser().parse_args(
+            base + ["--steps", "1"]))
+        t_resume = time.perf_counter() - t0
+        bad.check(run2["start"] == 4 and run2["trainer"].step == 5,
+                  f"train resume: restored step {run2['start']}, ended at "
+                  f"{run2['trainer'].step}")
+        print(f"[lm] train {' '.join(base[:-2])} --steps 4: losses "
+              f"{[round(x, 4) for x in losses]}, step ms {[round(w, 1) for w in walls]}, "
+              f"{t_run:.1f} s with its checkpoint; resumed from step "
+              f"{run2['start']} to {run2['trainer'].step} in "
+              f"{t_resume:.1f} s")
+        out.update(train_losses=losses, train_step_ms=walls,
+                   train_run_s=t_run, resume_s=t_resume)
+        del run, run2
+    torch.cuda.empty_cache()
+    cfg = get_smoke_config("qwen2-0.5b")
+    fn, _ = build_train_step(cfg, ShapeConfig("tiny", 32, 4, "train"),
+                             Sharder(), opt_cfg=opt.AdamWConfig(
+                                 lr=1e-2, warmup_steps=0, weight_decay=0.0,
+                                 total_steps=1000))
+    params, _ = get_api(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    state = opt.init(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).cuda()
+    losses = []
+    for _ in range(12):
+        params, state, m = fn(params, state, {"tokens": toks,
+                                              "labels": toks})
+        losses.append(float(m["loss"]))
+    bad.check(losses[-1] < losses[0] - 0.5,
+              f"smoke AdamW on one batch: losses {losses}")
+    print(f"[lm] smoke qwen2-0.5b, 12 AdamW steps on one batch: loss "
+          f"{losses[0]:.3f} → {losses[-1]:.3f}")
+    out["smoke_losses"] = losses
+    return out
+
+
+def lm_phase(torch, np, card) -> dict:
+    """Phase 11: the LM stacks on the card (no kernel of the port runs:
+    every wrapper's count stays 0)."""
+    bad = Failures("LM phase")
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    worst = lm_smoke_against_cpu(torch, np, bad)
+    t_smoke = time.perf_counter() - t0
+    full = [lm_full_width(torch, np, arch, card, bad) for arch in LM_FULL]
+    t_full = time.perf_counter() - t0
+    clis = lm_clis(torch, np, bad)
+    launched = {k: v for k, v in read_launches(wrappers).items() if v}
+    bad.check(not launched, f"the LM path launched kernels: {launched}")
+    secs = time.perf_counter() - t0
+    print(f"[lm] phase {secs:.1f} s (smoke {t_smoke:.1f} s, full width "
+          f"{t_full - t_smoke:.1f} s, CLIs {secs - t_full:.1f} s); "
+          f"kernel launches on the LM path: 0")
+    print("[lm] " + json.dumps({"card": card, "smoke_f32_rel_err": worst,
+                                "full_width": full, "clis": clis}))
+    bad.raise_any()
+    return {"seconds": secs, "full_width": full}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -4293,6 +4739,7 @@ def main() -> int:
     fault_launches = fault_res["serve_launches"]
     train_res = training_phase(torch, np)
     tune_res = tuning_phase(torch, np, fex, params, bundle, card, tune_cache)
+    lm_phase(torch, np, card)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]

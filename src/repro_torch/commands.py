@@ -38,6 +38,14 @@ SERVE_FAULTS_CMD = (
     '--faults "nan_burst:0.05,dup_chunk:0.05,one_sample_chunk:0.05,'
     'churn_storm:0.05" --degrade-thresholds 0.2,0.4 --max-queue 48')
 
+# LM stacks -----------------------------------------------------------------
+LM_TESTS_CMD = "PYTHONPATH=src python -m pytest -q tests/test_torch_lm_*.py"
+SERVE_LM_CMD = ("PYTHONPATH=src python -m repro_torch.launch.serve "
+                "--mode lm --arch qwen2-0.5b --requests 8 --slots 4")
+TRAIN_LM_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
+                "--arch qwen2-0.5b --full-config --steps 4 --batch 8 "
+                "--seq 128")
+
 # Train → deploy ------------------------------------------------------------
 TRAIN_PROMOTE_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
                      "--arch deltakws --steps 100 --batch 64 "
@@ -64,4 +72,7 @@ ALL_COMMANDS = {
     "train_promote": TRAIN_PROMOTE_CMD,
     "serve_bundle": SERVE_BUNDLE_CMD,
     "tune": TUNE_CMD,
+    "lm_tests": LM_TESTS_CMD,
+    "serve_lm": SERVE_LM_CMD,
+    "train_lm": TRAIN_LM_CMD,
 }

@@ -1,21 +1,20 @@
 """Core ΔGRU, fixed-point quantization and the IC energy model.
 
-The package-level names of the reference's ``repro.core``.  Left out:
-``delta_dense`` (``DeltaStream``, ``delta_matmul``,
-``init_delta_stream``) and ``delta_gru.delta_encode``, which only the LM
-stacks use (ROADMAP.md queue 1 item 12).
-"""
+The package-level names of the reference's ``repro.core``."""
 from repro_torch.core.delta_gru import (
     DeltaGRUCell,
     DeltaGRUParams,
     DeltaState,
     DeltaStats,
+    delta_encode,
     delta_gru_scan,
     dense_gru_scan,
     init_delta_gru,
     init_delta_state,
     temporal_sparsity,
 )
+from repro_torch.core.delta_dense import (DeltaStream, delta_matmul,
+                                          init_delta_stream)
 from repro_torch.core.fixed_point import (
     FexFormats,
     GruFormats,

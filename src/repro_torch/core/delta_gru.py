@@ -95,6 +95,15 @@ def init_delta_state(batch: int, input_dim: int, hidden_dim: int,
     )
 
 
+def delta_encode(x, x_hat, threshold):
+    """Δ encoder: returns (delta, new_x_hat, transmitted_mask).
+
+    delta[i] = x[i] - x_hat[i] where |x - x_hat| > th, else 0.  x_hat only
+    advances for transmitted components (the IC's Δ-encoder semantics).
+    """
+    return delta_branch(x, x_hat, threshold)
+
+
 def _stats_from_counts(nz_dx, nz_dh, in_dim: int,
                        hidden_dim: int) -> DeltaStats:
     """Rebuild DeltaStats from per-frame transmit counts (device-side)."""

@@ -1,6 +1,15 @@
 """Serve CLI of the port: ``python -m repro_torch.launch.serve``.
 
-``--mode kws-audio`` (default): continuous batching of synthesized 1 s
+``--mode lm`` (default): greedy decoding with one of the LM stacks
+(``--arch``, default ``qwen2-0.5b``, its smoke config with the port's
+seeded init), as the reference serves them: ``--requests`` random
+prompts of ``--prompt-len`` tokens over ``--slots`` slots, each slot a
+batch-of-one cache of ``--cache-len`` positions (admission stays
+independent per slot); a prompt is prefilled, then ``--max-new`` tokens
+are decoded by argmax over the padded vocabulary; a finished slot admits
+the next request.  It prints ``served N requests, T tokens in …``.
+
+``--mode kws-audio``: continuous batching of synthesized 1 s
 utterances over ``--slots`` stream slots: each step runs one
 ``--chunk-samples`` chunk per slot through the FEx and ΔGRU kernels,
 finished utterances are decided by majority vote and their slots
@@ -226,17 +235,26 @@ def _depth(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--mode", choices=["kws-audio", "kws-detect",
+    ap.add_argument("--mode", choices=["lm", "kws-audio", "kws-detect",
                                        "kws-cascade"],
-                    default="kws-audio",
-                    help="kws-audio: utterances by majority vote; "
+                    default="lm",
+                    help="lm: greedy decoding with an LM stack (--arch); "
+                         "kws-audio: utterances by majority vote; "
                          "kws-detect: always-on detection on continuous "
                          "streams; kws-cascade: the same through the "
                          "two-stage wake cascade.  Weights come from "
                          "--params, --bundle or the seeded random init, "
                          "then --train-steps of training")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="lm: the architecture served (its smoke config)")
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="lm: prompt tokens per request")
+    ap.add_argument("--max-new", type=int, default=24,
+                    help="lm: tokens decoded per request")
+    ap.add_argument("--cache-len", type=int, default=64,
+                    help="lm: KV-cache positions per slot")
     ap.add_argument("--slots", type=int, default=4,
-                    help="stream slots served together")
+                    help="stream slots (lm: decode slots) served together")
     ap.add_argument("--requests", type=int, default=8,
                     help="1 s utterances to serve")
     ap.add_argument("--chunk-samples", type=int, default=4096,
@@ -355,7 +373,8 @@ def build_parser() -> argparse.ArgumentParser:
 def validate_args(args):
     """Reject nonsensical flags with a clear ``ValueError`` before any
     device work starts."""
-    for name in ("slots", "chunk_samples", "inflight_depth", "max_queue"):
+    for name in ("slots", "chunk_samples", "inflight_depth", "max_queue",
+                 "prompt_len", "max_new", "cache_len"):
         if getattr(args, name) < 1:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 1, "
                              f"got {getattr(args, name)}")
@@ -719,6 +738,80 @@ def _cascade_main(args) -> int:
     return 0
 
 
+def serve_lm(args) -> dict:
+    """``--mode lm``: the reference's LM serve loop on ``args.device``.
+    Returns ``done`` (finished requests: prompt, out tokens), ``tokens``
+    decoded, ``seconds`` of the decode loop, ``device`` and ``cfg``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.platform import resolve_device
+    from repro_torch.models import get_api
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    api = get_api(cfg, device=device)
+    params, _ = api.init(torch.Generator(device=device).manual_seed(
+        args.init_seed))
+
+    rng = np.random.default_rng(0)
+    queue = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(np.int32)
+             for _ in range(args.requests)]
+    done = []
+    # Batch-of-one caches per slot keep admission independent.
+    slots = {i: None for i in range(args.slots)}
+
+    def tok(t):
+        return torch.tensor([[t]], dtype=torch.int32, device=device)
+
+    def admit(slot):
+        if not queue:
+            slots[slot] = None
+            return
+        prompt = queue.pop(0)
+        cache = api.init_cache(1, args.cache_len)
+        if api.prefill is not None:
+            cache, logits = api.prefill(
+                params, torch.from_numpy(prompt[None]).to(device), cache)
+        else:   # decode the prompt token by token
+            for t in prompt:
+                logits, cache = api.decode_step(params, cache, tok(int(t)))
+        slots[slot] = {"cache": cache, "out": [], "prompt": prompt,
+                       "last": int(torch.argmax(logits[0, -1]))}
+
+    for s in range(args.slots):
+        admit(s)
+    t0 = time.perf_counter()
+    tokens = 0
+    while any(v is not None for v in slots.values()):
+        for s, st in list(slots.items()):
+            if st is None:
+                continue
+            logits, st["cache"] = api.decode_step(params, st["cache"],
+                                                  tok(st["last"]))
+            st["last"] = int(torch.argmax(logits[0, -1]))
+            st["out"].append(st["last"])
+            tokens += 1
+            if len(st["out"]) >= args.max_new:
+                done.append(st)
+                admit(s)
+    return {"done": done, "tokens": tokens,
+            "seconds": time.perf_counter() - t0, "device": device,
+            "cfg": cfg}
+
+
+def _lm_main(args) -> int:
+    run = serve_lm(args)
+    dt = max(run["seconds"], 1e-9)
+    dev = run["device"]
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"served {len(run['done'])} requests, {run['tokens']} tokens in "
+          f"{dt:.1f}s ({run['tokens'] / dt:.1f} tok/s, {args.arch} smoke "
+          f"config on {name})")
+    for i, st in enumerate(run["done"][:3]):
+        print(f"  req{i}: prompt[:4]={st['prompt'][:4].tolist()} "
+              f"out[:8]={st['out'][:8]}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -726,6 +819,8 @@ def main(argv=None) -> int:
         validate_args(args)
     except ValueError as e:
         ap.error(str(e))
+    if args.mode == "lm":
+        return _lm_main(args)
     if args.mode == "kws-detect":
         return _detect_main(args)
     if args.mode == "kws-cascade":

@@ -1,0 +1,562 @@
+"""Shared neural-net layers for the architecture zoo.
+
+Port of ``repro/models/layers.py``.  Functional style: ``init_*`` builds
+(params, logical_axes) dict pairs via :class:`AxTree`; ``apply_*`` are
+plain functions on tensors.  All weights are stored in ``cfg.dtype``
+(bf16 by default); norm scales and softmax statistics are kept in f32.
+
+Initialisers draw from a ``torch.Generator`` on the generator's device,
+with the reference's scales; ``key=None`` gives ``meta`` tensors (shapes
+and dtypes only, no allocation: the counterpart of ``jax.eval_shape``).
+
+Attention is the reference's ``_attend``: a direct masked softmax for a
+one-token query or fewer than ``FLASH_MIN_KV`` keys, else the q/kv-tiled
+online-softmax ``flash_attention`` whose backward recomputes the scores
+per tile (an ``autograd.Function``).  Both are plain PyTorch, as the
+reference's are plain JAX: no Pallas kernel lies on this path.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel.sharding import AxTree, Sharder
+
+BIG_WINDOW = 1 << 30
+FLASH_MIN_KV = 4096
+KV_CHUNK = 1024
+Q_CHUNK = 512
+NEG = -1e30
+
+
+# ------------------------------------------------------------------- utils
+def _device(key) -> torch.device:
+    return key.device if key is not None else torch.device("meta")
+
+
+def _init(key, shape, dtype, scale=None):
+    """Normal(0, scale²) in f32, cast to ``dtype``; default scale
+    1/√fan_in (the second-to-last dim, or the only one)."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(
+        shape[0] if len(shape) == 1 else shape[-2])
+    if key is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    x = torch.randn(shape, generator=key, device=key.device,
+                    dtype=torch.float32)
+    return (x * float(scale)).to(dtype)
+
+
+def _full(shape, value, dtype, device):
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def stacked(shape, layers):
+    return shape if layers is None else (layers, *shape)
+
+
+def st_axes(axes, layers):
+    return axes if layers is None else ("layers", *axes)
+
+
+# Selective remat: ``checkpoint_name`` tags the ops run inside it, and
+# ``save_names_policy`` tells torch.utils.checkpoint to keep the outputs of
+# tagged ops instead of recomputing them (jax.checkpoint_policies.
+# save_only_these_names).
+_CHECKPOINT_NAME: contextvars.ContextVar = contextvars.ContextVar(
+    "checkpoint_name", default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    token = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(token)
+
+
+def save_names_context(*names):
+    """A ``context_fn`` for ``torch.utils.checkpoint.checkpoint`` that
+    saves the outputs of ops run under ``checkpoint_name(n)`` for ``n`` in
+    ``names`` and recomputes every other op."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    keep = frozenset(names)
+
+    def policy(ctx, op, *args, **kwargs):
+        if _CHECKPOINT_NAME.get() in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat(fn, *args, context_fn=None):
+    """``fn(*args)`` with its activations recomputed in backward
+    (``jax.checkpoint``); a plain call when no gradient is recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if context_fn is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked (leading L dim) parameter subtree."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ------------------------------------------------------------------- norms
+def init_norm(d: int, layers=None, *, bias=False, dtype=torch.float32,
+              device="cpu"):
+    t = AxTree()
+    t.add("scale", _full(stacked((d,), layers), 1.0, dtype, device),
+          st_axes(("act_embed",), layers))
+    if bias:
+        t.add("bias", _full(stacked((d,), layers), 0.0, dtype, device),
+              st_axes(("act_embed",), layers))
+    return t.build()
+
+
+def apply_norm(p, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    out = xf * p["scale"].to(torch.float32)
+    if "bias" in p:
+        out = out + p["bias"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------------- rope
+def rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, D) rotary over the last dim (half-split); positions:
+    (..., S).  Angles in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    ar = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=x.device), ar / half)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------- attention
+def init_attention(key, cfg, layers=None):
+    """GQA attention weights (d_model, n_heads, n_kv_heads, d_head, qk_norm,
+    qkv_bias, dtype of ``cfg``)."""
+    D, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dev = _device(key)
+    t = AxTree()
+    t.add("wq", _init(key, stacked((D, H, Dh), layers), cfg.dtype),
+          st_axes(("embed", "heads", "head_dim"), layers))
+    t.add("wk", _init(key, stacked((D, K, Dh), layers), cfg.dtype),
+          st_axes(("embed", "kv_heads", "head_dim"), layers))
+    t.add("wv", _init(key, stacked((D, K, Dh), layers), cfg.dtype),
+          st_axes(("embed", "kv_heads", "head_dim"), layers))
+    t.add("wo", _init(key, stacked((H, Dh, D), layers), cfg.dtype,
+                      scale=1.0 / np.sqrt(H * Dh)),
+          st_axes(("heads", "head_dim", "embed"), layers))
+    if cfg.qkv_bias:
+        t.add("bq", _full(stacked((H, Dh), layers), 0.0, cfg.dtype, dev),
+              st_axes(("heads", "head_dim"), layers))
+        t.add("bk", _full(stacked((K, Dh), layers), 0.0, cfg.dtype, dev),
+              st_axes(("kv_heads", "head_dim"), layers))
+        t.add("bv", _full(stacked((K, Dh), layers), 0.0, cfg.dtype, dev),
+              st_axes(("kv_heads", "head_dim"), layers))
+    if cfg.qk_norm:
+        t.add("q_norm", _full(stacked((Dh,), layers), 1.0, torch.float32, dev),
+              st_axes(("head_dim",), layers))
+        t.add("k_norm", _full(stacked((Dh,), layers), 1.0, torch.float32, dev),
+              st_axes(("head_dim",), layers))
+    return t.build()
+
+
+def _rms_head(x, scale, eps=1e-6):
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.to(torch.float32)).to(x.dtype)
+
+
+def _causal_mask(qpos, kpos, window):
+    """(S, T) mask: key ≤ query, and inside the window when one is set."""
+    m = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        m = m & (kpos[None, :] > (qpos[:, None] - window))
+    return m
+
+
+def _write_cache(cache, new, cache_index: int):
+    """Write ``new`` (B, S, …) into ``cache`` (B, S_max, …) at
+    ``cache_index`` along dim 1, in place, with the start clamped so the
+    update fits (``jax.lax.dynamic_update_slice_in_dim`` semantics)."""
+    S, S_max = new.shape[1], cache.shape[1]
+    start = min(max(int(cache_index), 0), S_max - S)
+    cache[:, start:start + S] = new.to(cache.dtype)
+    return cache
+
+
+def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
+                    kv_cache=None, cache_index=None, kv_positions=None,
+                    causal: bool = True, cross_kv=None, attend_local=None):
+    """GQA attention.
+
+    Train/prefill: kv_cache=None → causal (+ optional sliding window) mask;
+    ``causal=False`` gives bidirectional (encoder) attention.
+    Decode: kv_cache=(k, v) of shape (B, S_max, K, Dh), written at
+    ``cache_index`` in place; attends over all positions < cache_index+1.
+    Prefill with a cache (S > 1) writes the cache but attends over the
+    fresh local k/v (the builders always prefill at index 0).
+    Cross-attention: ``cross_kv=(k, v)`` precomputed from the memory — no
+    cache update, full attention over the memory.
+    Returns (out, new_kv_cache or None).
+    """
+    B, S, D = x.shape
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // K
+    if attend_local is None:
+        attend_local = S > 1
+    if S > 1:
+        x = shd.act(x, ("batch", "seq", "act_embed"))
+
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = _rms_head(q, p["q_norm"])
+    if cross_kv is None:
+        k = torch.einsum("bsd,dke->bske", x, p["wk"])
+        v = torch.einsum("bsd,dke->bske", x, p["wv"])
+        if cfg.qkv_bias:
+            k = k + p["bk"]
+            v = v + p["bv"]
+        if cfg.qk_norm:
+            k = _rms_head(k, p["k_norm"])
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if S > 1:
+            k = shd.act(k, ("batch", "seq", "kv_heads", None))
+            v = shd.act(v, ("batch", "seq", "kv_heads", None))
+    else:
+        k, v = cross_kv
+    q = shd.act(q, ("batch", "seq", "act_heads", None))
+
+    dev = x.device
+    if cross_kv is not None:
+        qpos, causal_mask, new_cache = None, False, None
+    elif kv_cache is not None and attend_local:
+        ck, cv = kv_cache
+        new_cache = (_write_cache(ck, k, cache_index),
+                     _write_cache(cv, v, cache_index))
+        qpos = torch.arange(S, device=dev)
+        causal_mask = True
+        kv_cache = None           # train-style: static diagonal skipping
+    elif kv_cache is not None:
+        ck, cv = kv_cache
+        k = _write_cache(ck, k, cache_index)
+        v = _write_cache(cv, v, cache_index)
+        qpos = int(cache_index) + torch.arange(S, device=dev)
+        causal_mask = True
+        new_cache = (k, v)
+    else:
+        qpos = torch.arange(S, device=dev)
+        causal_mask = causal
+        new_cache = None
+
+    qg = q.reshape(B, S, K, G, Dh)
+    # Train/prefill causal path: qpos is structurally arange(S) → pass None
+    # so _attend can skip above-diagonal KV tiles statically.
+    qpos_arg = None if (kv_cache is None and cross_kv is None) else qpos
+    mask_qpos = qpos if causal_mask else None
+    out = _attend(qg, k, v, mask_qpos, qpos=qpos_arg, window=window,
+                  causal=causal_mask).reshape(B, S, H, Dh)
+    out = out.to(x.dtype)
+    out = shd.act(out, ("batch", "seq", "act_heads", None))
+    out = tp_down_proj(out, p["wo"], shd, "bshe,hed->bsd",
+                       ("batch", "seq", "act_heads", None),
+                       ("heads", "head_dim", "embed"))
+    return out, new_cache
+
+
+def _attend(qg, k, v, mask_qpos, qpos=None, window=None, causal=True):
+    """Online-softmax attention.  qg: (B,S,K,G,Dh); k,v: (B,T,K,Dh).
+
+    ``mask_qpos``: query positions of the causal mask (None = no mask).
+    For T ≥ FLASH_MIN_KV uses the q/kv-tiled ``flash_attention`` (scores
+    recomputed per tile in backward — S×T never materializes in either
+    pass); a one-token query or a short T takes the direct path.
+    """
+    B, S, K, G, Dh = qg.shape
+    T = k.shape[1]
+    scale = float(1.0 / np.sqrt(Dh))
+    if S == 1 or T < FLASH_MIN_KV:
+        # The dot runs in the operands' dtype (the reference's: no f32
+        # copy of the cache); softmax statistics are f32.
+        scores = torch.einsum("bskge,btke->bkgst", qg, k
+                              ).to(torch.float32) * scale
+        if mask_qpos is not None:
+            mask = _causal_mask(mask_qpos, torch.arange(T, device=k.device),
+                                window)
+            scores = torch.where(mask[None, None, None], scores,
+                                 torch.full((), NEG, device=scores.device))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bkgst,btke->bskge", probs, v)
+
+    # Static causal diagonal: in train/prefill qpos == arange(S) and
+    # S == T, so q-chunk i never attends kv-chunk j when j·ck ≥ (i+1)·cq.
+    static_diag = (causal and qpos is None and S == T and window is None)
+    if qpos is None:
+        qpos = torch.arange(S, device=qg.device)
+    win = BIG_WINDOW if window is None else int(window)
+    return flash_attention(qg, k, v, qpos.to(torch.int64), win, causal,
+                           static_diag)
+
+
+def _tile_mask(qp, kp, window: int, causal: bool):
+    """(cq, ck) mask from absolute positions."""
+    if not causal:
+        return torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                          device=qp.device)
+    m = kp[None, :] <= qp[:, None]
+    return m & (kp[None, :] > (qp[:, None] - window))
+
+
+def _pick_chunks(S, T):
+    cq = Q_CHUNK
+    while S % cq:
+        cq //= 2
+    ck = KV_CHUNK
+    while T % ck:
+        ck //= 2
+    return max(cq, 1), max(ck, 1)
+
+
+def _f32(x):
+    return x.to(torch.float32)
+
+
+def _n_kv(i, nq, nk, cq, ck, static_diag):
+    """KV chunks q-chunk ``i`` visits (all, or up to the diagonal)."""
+    return min(nk, -(-((i + 1) * cq) // ck)) if static_diag else nk
+
+
+def _flash_fwd_impl(qg, k, v, qpos, window, causal, static_diag):
+    B, S, K, G, Dh = qg.shape
+    T = k.shape[1]
+    scale = float(1.0 / np.sqrt(Dh))
+    cq, ck = _pick_chunks(S, T)
+    nq, nk = S // cq, T // ck
+    kp_all = torch.arange(T, device=k.device)
+    outs, lses = [], []
+    for i in range(nq):
+        qb = qg[:, i * cq:(i + 1) * cq]                      # (B,cq,K,G,Dh)
+        qp = qpos[i * cq:(i + 1) * cq]
+        m = torch.full((B, K, G, cq), NEG, dtype=torch.float32,
+                       device=qg.device)
+        l = torch.zeros((B, K, G, cq), dtype=torch.float32, device=qg.device)
+        acc = torch.zeros((B, K, G, cq, Dh), dtype=torch.float32,
+                          device=qg.device)
+        for j in range(_n_kv(i, nq, nk, cq, ck, static_diag)):
+            kb = k[:, j * ck:(j + 1) * ck]
+            vb = v[:, j * ck:(j + 1) * ck]
+            s = torch.einsum("bskge,btke->bkgst", _f32(qb), _f32(kb)) * scale
+            msk = _tile_mask(qp, kp_all[j * ck:(j + 1) * ck], window,
+                             causal)[None, None, None]
+            s = torch.where(msk, s, torch.full((), NEG, device=s.device))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            pr = torch.where(msk, torch.exp(s - m_new[..., None]),
+                             torch.zeros((), device=s.device))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(pr, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btke->bkgse", _f32(pr.to(vb.dtype)), _f32(vb))
+            m = m_new
+        lc = torch.clamp_min(l, 1e-20)
+        outs.append(acc / lc[..., None])                     # (B,K,G,cq,Dh)
+        lses.append(m + torch.log(lc))                       # (B,K,G,cq)
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(v.dtype)
+    return out.contiguous(), torch.cat(lses, dim=3)          # (B,S,K,G,Dh)
+
+
+def _flash_bwd_impl(qg, k, v, qpos, window, causal, static_diag, out, lse,
+                    dout):
+    B, S, K, G, Dh = qg.shape
+    T = k.shape[1]
+    scale = float(1.0 / np.sqrt(Dh))
+    cq, ck = _pick_chunks(S, T)
+    nq, nk = S // cq, T // ck
+    kp_all = torch.arange(T, device=k.device)
+    dk = torch.zeros((B, T, K, Dh), dtype=torch.float32, device=k.device)
+    dv = torch.zeros((B, T, K, Dh), dtype=torch.float32, device=k.device)
+    dqs = []
+    for i in range(nq):
+        sl = slice(i * cq, (i + 1) * cq)
+        qb, dob, ob, qp = qg[:, sl], dout[:, sl], out[:, sl], qpos[sl]
+        lse_b = lse[..., sl]                                 # (B,K,G,cq)
+        delta = torch.sum(_f32(dob) * _f32(ob), dim=-1)      # (B,cq,K,G)
+        delta = delta.permute(0, 2, 3, 1)                    # (B,K,G,cq)
+        dq = torch.zeros((B, cq, K, G, Dh), dtype=torch.float32,
+                         device=qg.device)
+        for j in range(_n_kv(i, nq, nk, cq, ck, static_diag)):
+            ks = slice(j * ck, (j + 1) * ck)
+            kb, vb = k[:, ks], v[:, ks]
+            s = torch.einsum("bskge,btke->bkgst", _f32(qb), _f32(kb)) * scale
+            msk = _tile_mask(qp, kp_all[ks], window, causal)[None, None, None]
+            pr = torch.where(msk, torch.exp(s - lse_b[..., None]),
+                             torch.zeros((), device=s.device))
+            dv[:, ks] += torch.einsum("bkgst,bskge->btke", pr, _f32(dob))
+            dp = torch.einsum("bskge,btke->bkgst", _f32(dob), _f32(vb))
+            ds = pr * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bkgst,btke->bskge", ds, _f32(kb))
+            dk[:, ks] += torch.einsum("bkgst,bskge->btke", ds, _f32(qb))
+        dqs.append(dq)
+    dq = torch.cat(dqs, dim=1).to(qg.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qg, k, v, qpos, window, causal, static_diag):
+        out, lse = _flash_fwd_impl(qg, k, v, qpos, window, causal,
+                                   static_diag)
+        ctx.save_for_backward(qg, k, v, qpos, out, lse)
+        ctx.window, ctx.causal, ctx.static_diag = window, causal, static_diag
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, qpos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(qg, k, v, qpos, ctx.window, ctx.causal,
+                                     ctx.static_diag, out, lse, dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(qg, k, v, qpos, window, causal: bool,
+                    static_diag: bool = False):
+    """Tiled online-softmax attention, (B,S,K,G,Dh) × (B,T,K,Dh) →
+    (B,S,K,G,Dh), with a backward that recomputes each tile's scores from
+    the saved log-sum-exp (the reference's custom VJP)."""
+    return _FlashAttention.apply(qg, k, v, qpos, int(window), bool(causal),
+                                 bool(static_diag))
+
+
+# ------------------------------------------------- TP collective matmul
+def tp_down_proj(h, w, shd: Sharder, eq: str, h_logical: tuple,
+                 w_logical: tuple):
+    """Down-projection.  Without a 'model' mesh axis it is the plain
+    einsum; the tensor-parallel reduce-scatter form across cards is
+    ROADMAP.md queue 1 item 9b."""
+    mesh = shd.mesh
+    if mesh is None or "model" not in mesh.axis_names:
+        return shd.act(torch.einsum(eq, h, w),
+                       ("batch", "res_seq", "act_embed"))
+    raise NotImplementedError(
+        "tp_down_proj across a 'model' mesh axis is ROADMAP.md queue 1 "
+        "item 9b (the slot mesh across cards), which waits for a machine "
+        "with more than one card")
+
+
+# --------------------------------------------------------------------- mlp
+def init_mlp(key, cfg, layers=None, d_ff=None, act=None):
+    D = cfg.d_model
+    F_ = d_ff or cfg.d_ff
+    act = act or cfg.mlp_act
+    t = AxTree()
+    if act in ("swiglu", "geglu"):
+        t.add("wi_gate", _init(key, stacked((D, F_), layers), cfg.dtype),
+              st_axes(("embed", "mlp"), layers))
+    t.add("wi", _init(key, stacked((D, F_), layers), cfg.dtype),
+          st_axes(("embed", "mlp"), layers))
+    t.add("wo", _init(key, stacked((F_, D), layers), cfg.dtype,
+                      scale=1.0 / np.sqrt(F_)),
+          st_axes(("mlp", "embed"), layers))
+    return t.build()
+
+
+def apply_mlp(p, cfg, x, shd: Sharder, act=None):
+    """swiglu / geglu / gelu (tanh approximation, ``jax.nn.gelu``'s
+    default) / relu2.  The up and gate products run under
+    ``checkpoint_name("mlp_up")`` / ``("mlp_gate")``: the ``save_mlp``
+    remat policy keeps them."""
+    act = act or cfg.mlp_act
+    if x.shape[1] > 1:
+        x = shd.act(x, ("batch", "seq", "act_embed"))
+    with checkpoint_name("mlp_up"):
+        h = torch.einsum("bsd,df->bsf", x, p["wi"])
+    if act in ("swiglu", "geglu"):
+        with checkpoint_name("mlp_gate"):
+            g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
+        g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+        h = g * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        raise ValueError(act)
+    h = shd.act(h, ("batch", "seq", "act_mlp"))
+    return tp_down_proj(h, p["wo"], shd, "bsf,fd->bsd",
+                        ("batch", "seq", "act_mlp"), ("mlp", "embed"))
+
+
+# --------------------------------------------------------------- embedding
+def init_embedding(key, vocab_padded: int, d: int, dtype):
+    t = AxTree()
+    t.add("table", _init(key, (vocab_padded, d), dtype, scale=1.0),
+          ("vocab", "embed"))
+    return t.build()
+
+
+def embed_tokens(p, tokens, shd: Sharder):
+    x = p["table"][tokens.to(torch.int64)]
+    return shd.act(x, ("batch", "res_seq", "act_embed"))
+
+
+def _chunk_loss(xc, lc, head, vocab_size):
+    logits = torch.einsum("bsd,dv->bsv", xc, head).to(torch.float32)
+    V = head.shape[-1]
+    if vocab_size is not None and vocab_size < V:
+        pad = torch.arange(V, device=logits.device) >= vocab_size
+        logits = torch.where(pad[None, None],
+                             torch.full((), NEG, device=logits.device),
+                             logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_softmax_xent(x, head, labels, shd: Sharder, n_chunks: int = 8,
+                         vocab_size: int | None = None):
+    """Mean cross-entropy with seq-chunked logits so (B,S,V) never fully
+    materializes outside one chunk: each chunk's logits are recomputed in
+    backward (``torch.utils.checkpoint``).  head: (D, V_padded); labels:
+    (B, S)."""
+    B, S, D = x.shape
+    n_chunks = min(n_chunks, S)
+    while S % n_chunks:
+        n_chunks -= 1
+    c = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + remat(_chunk_loss, x[:, sl], labels[:, sl], head,
+                              vocab_size)
+    return total / (B * S)

@@ -1,0 +1,26 @@
+"""Family → model API dispatch (port of ``repro/models/registry.py``)."""
+from __future__ import annotations
+
+from repro_torch.parallel.sharding import Sharder
+
+
+def get_api(cfg, shd: Sharder | None = None, device=None):
+    """The LM API of ``cfg.family``.  ``device`` is where ``init_cache``
+    puts caches (``None`` → CUDA, raising without a GPU; ``"cpu"`` for
+    the CPU); ``init(key)`` draws on the generator's device, or gives
+    ``meta`` tensors for ``key=None``."""
+    shd = shd or Sharder(mesh=None)
+    if cfg.family in ("dense", "moe", "vlm"):
+        from repro_torch.models import transformer
+        return transformer.make_api(cfg, shd, device)
+    if cfg.family == "ssm":
+        from repro_torch.models import mamba2
+        return mamba2.make_api(cfg, shd, device)
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        return hybrid.make_api(cfg, shd, device)
+    if cfg.family == "audio":
+        from repro_torch.models import encdec
+        return encdec.make_api(cfg, shd, device)
+    raise ValueError(f"no LM api for family {cfg.family!r} "
+                     f"(kws uses repro_torch.models.kws directly)")

@@ -7,8 +7,9 @@ parameters are cast from it.  ``AdamWState`` has the reference's fields,
 so a checkpoint's keys (``opt/step``, ``opt/master/w_x``, …) are the same
 in both packages.  The step counter, the learning rate and the clip factor
 stay tensors on the parameters' device: an update reads nothing back to
-the host.  (``opt_axes``, the sharding of the state, comes with the slot
-mesh across cards.)
+the host.  The parameters may be a flat dict (the KWS model) or nested
+dicts whose leaves mix dtypes (the LM stacks: bf16 weights, an f32 MoE
+router and norm scales); the state mirrors their structure.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.parallel.sharding import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,13 +45,17 @@ class AdamWState(NamedTuple):
 def init(params: dict) -> AdamWState:
     """Zero moments and a float32 master copy that never aliases a
     parameter tensor."""
-    master = {k: p.detach().to(torch.float32, copy=True)
-              for k, p in params.items()}
-    dev = next(iter(master.values())).device
+    master = tree_map(lambda p: p.detach().to(torch.float32, copy=True),
+                      params)
+    dev = tree_leaves(master)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      master=master,
-                      m={k: torch.zeros_like(v) for k, v in master.items()},
-                      v={k: torch.zeros_like(v) for k, v in master.items()})
+                      master=master, m=tree_map(torch.zeros_like, master),
+                      v=tree_map(torch.zeros_like, master))
+
+
+def opt_axes(param_axes) -> AdamWState:
+    """Logical-axes tree for the optimizer state (mirrors the params)."""
+    return AdamWState(step=(), master=param_axes, m=param_axes, v=param_axes)
 
 
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -63,7 +70,7 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.values()))
+                          for x in tree_leaves(tree)))
 
 
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict
@@ -77,17 +84,19 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict
     lr = lr_at(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
-    master, m, v = {}, {}, {}
-    for k, g in grads.items():
+
+    def upd(g, mst, m, v):
         g = g.to(torch.float32) * clip
-        m[k] = cfg.b1 * state.m[k] + (1 - cfg.b1) * g
-        v[k] = cfg.b2 * state.v[k] + (1 - cfg.b2) * torch.square(g)
-        mhat = m[k] / b1c
-        vhat = v[k] / b2c
-        mst = state.master[k]
-        master[k] = mst - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                                + cfg.weight_decay * mst)
-    new_params = {k: master[k].to(params[k].dtype, copy=True)
-                  for k in params}
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+        mhat = m / b1c
+        vhat = v / b2c
+        return (mst - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                            + cfg.weight_decay * mst), m, v)
+
+    out = tree_map(upd, grads, state.master, state.m, state.v)
+    master, m, v = (tree_map(lambda o: o[i], out) for i in range(3))
+    new_params = tree_map(lambda mst, p: mst.to(p.dtype, copy=True),
+                          master, params)
     return (new_params, AdamWState(step=step, master=master, m=m, v=v),
             {"grad_norm": gnorm, "lr": lr})

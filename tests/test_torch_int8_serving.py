@@ -130,8 +130,8 @@ def test_serve_cli_int8_with_and_without_bundle(tmp_path, capsys):
                                     for k, v in params.items()})
     jb = jfp.promote_kws(params, 0.2, fex=JFex())
     bundle = jpromote.save_bundle(tmp_path / "b", jb)
-    common = ["--device", "cpu", "--slots", "2", "--chunk-samples", "4096",
-              "--train-steps", "0"]
+    common = ["--mode", "kws-audio", "--device", "cpu", "--slots", "2",
+              "--chunk-samples", "4096", "--train-steps", "0"]
     ap = tserve.build_parser()
     args = ap.parse_args(common + ["--requests", "2", "--bundle",
                                    str(bundle)])

@@ -181,6 +181,46 @@ def test_tuning_modules_and_examples_import_with_jax_blocked():
     assert out.stdout.split()[-1] == "ok"
 
 
+_IMPORT_LM = """
+import pkgutil, sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+import repro_torch
+mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")}
+need = {"repro_torch.parallel", "repro_torch.parallel.sharding",
+        "repro_torch.launch.costmodel", "repro_torch.launch.inputs",
+        "repro_torch.launch.steps", "repro_torch.data.lm_data",
+        "repro_torch.core.delta_dense"} | {
+        f"repro_torch.models.{m}" for m in ("layers", "moe", "transformer",
+                                            "mamba2", "hybrid", "encdec",
+                                            "registry")}
+assert need <= mods, sorted(need - mods)
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.models import get_api, params_from_numpy
+from repro_torch.parallel.sharding import (AxTree, Sharder, DEFAULT_RULES,
+                                           DECODE_RULES, slot_shards,
+                                           check_slot_partition)
+from repro_torch.train.optimizer import opt_axes
+for arch in ARCH_IDS:
+    get_api(get_config(arch)).init(None)      # meta tensors: no allocation
+    get_smoke_config(arch)
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_lm_modules_import_with_jax_blocked():
+    """The package walk covers ``repro_torch.parallel`` and every LM
+    module; the full-width configs build as meta tensors."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_LM],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_serve_streaming_kws.py",
                                   "torch_train_kws_e2e.py", "chip_smoke.py"])

@@ -167,17 +167,13 @@ def test_matvec_and_cell_oracles_match_jax():
 
 # The reference's package-level names the port leaves to the LM stacks
 # (ROADMAP.md queue 1 item 12).
-LM_ONLY = {"DeltaStream", "delta_matmul", "init_delta_stream",
-           "delta_encode"}
-
-
 def _public(mod):
     return {n for n in dir(mod) if not n.startswith("_")
             and not isinstance(getattr(mod, n), type(jax))}
 
 
 def test_package_level_names_match_the_reference():
-    assert _public(tcore) == _public(jcore) - LM_ONLY
+    assert _public(tcore) == _public(jcore)
     assert _public(tfront) == _public(jfront)
     assert tcore.SparsityAccumulator is tsp.SparsityAccumulator
     assert tfront.fex_scan is tfx.fex_scan

@@ -411,8 +411,8 @@ def test_launch_train_on_cpu(tmp_path, capsys, monkeypatch):
     assert tckpt.latest_step(tmp_path / "ck") == 2
     jb = jpromote.load_bundle(bundle)                # the JAX package reads it
     assert jb.coef is not None and jb.threshold == 0.1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrain.main(["--arch", "qwen2-0.5b"])
+    with pytest.raises(SystemExit):                 # not an arch of the port
+        ttrain.main(["--arch", "qwen2-0.6b"])
 
 
 @pytest.mark.parametrize("mode,numerics", [
