@@ -200,9 +200,33 @@ Phases, each exiting non-zero on failure:
      --slots 4``, ``train --arch qwen2-0.5b --full-config --steps 4
      --batch 8 --seq 128`` and its resume from the checkpoint, and 12
      AdamW steps lowering the smoke loss on one batch;
-  12. the ``kernels`` JSON line (the eight kernels and the two masked
-     instantiations; the four tuned ones with their sweep), the card
-     line, and the final ``{"ok": true, ...}`` line.
+  12. the slot mesh: cuBLAS's float FC over each shard's streams against
+     the same rows of the whole batch (the cases whose bits differ,
+     printed) and ``streaming._fc``, which sums in one fixed order (none
+     may differ); two shards on the one card (``SlotMesh.on("cuda",
+     2)``), each on its own CUDA stream, in plain, detect and cascade
+     mode and both numerics, 32 slots × 4 chunks of 4096 samples of
+     keyword streams with a reset of one slot per shard between chunks,
+     against the unsharded CUDA session: every output (logits by their
+     bits), state and summary equal; counts zeroed just before the
+     sharded run and read just after: each path kernel once per shard
+     per step, the others never; two-shard CUDA sessions against
+     two-shard CPU sessions in every mode (4 streams × 2048 samples,
+     three unaligned chunks, a reset per shard: int8 every code equal,
+     float the same but floats within 1e-4); ``set_sync_debug_mode
+     ("error")`` around ``process_audio`` and ``reset_streams`` of
+     unsupervised sharded plain, detect and cascade sessions; the
+     always-on plain step at 256 slots, unsharded against two shards, 5
+     alternating rounds of 16 chunks on the same audio in both numerics
+     (outputs equal bit for bit; ``--profile``: device activities and
+     busy share); ``serve --mode kws-audio --devices 2`` raising the
+     "visible" error on a one-card machine (with more cards, the checks
+     and the timing again on ``make_slot_mesh(min(count, 4))``, and
+     ``serve --devices`` over those cards against ``--devices 1``);
+  13. the ``kernels`` JSON line (the eight kernels and the two masked
+     instantiations; the four tuned ones with their sweep; each with its
+     launches in phase 12's two-shard run, ``launches_slot_mesh``), the
+     card line, and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -3310,15 +3334,18 @@ def serve_under_faults(torch, bad):
     return launches
 
 
-def check_no_syncs(torch, np, params, bad):
+def check_no_syncs(torch, np, params, bad, shards: int = 1,
+                   resets=(3,), tag: str = "faults"):
     """``torch.cuda.set_sync_debug_mode("error")`` around
     ``process_audio`` and ``reset_streams`` of unsupervised sessions,
     plain in both numerics, detect and cascade: three chunks (one not
     frame-aligned, one a single sample) and a reset wave each, after a
     warm-up chunk outside the mode.  No synchronisation may be
-    reported."""
+    reported.  ``shards`` > 1: the sessions shard their slots over that
+    many shards on the card (each on its own stream)."""
     from repro_torch.configs.deltakws import CONFIG
     from repro_torch.frontend.vad import VADConfig
+    from repro_torch.launch.mesh import SlotMesh
     from repro_torch.launch.streaming import StreamingKwsSession
     from repro_torch.models.detector import DetectorConfig
     audio = fault_audio(np, SLOTS, 3 * CHUNK, 5)
@@ -3329,8 +3356,10 @@ def check_no_syncs(torch, np, params, bad):
              ("cascade", "float32", dict(det, cascade=cascade_config(),
                                          stage0_params=stage0(torch))))
     for kind, numerics, kw in kinds:
+        mesh = SlotMesh.on("cuda", shards) if shards > 1 else None
         sess = StreamingKwsSession(params, CONFIG, threshold=0.1,
-                                   batch=SLOTS, numerics=numerics, **kw)
+                                   batch=SLOTS, numerics=numerics,
+                                   mesh=mesh, **kw)
         sess.process_audio(audio[:, :CHUNK])
         sess.reset_streams([0, 1])
         torch.cuda.synchronize()
@@ -3341,14 +3370,15 @@ def check_no_syncs(torch, np, params, bad):
                                                      2 * CHUNK - 99),
                            (2 * CHUNK - 99, 3 * CHUNK)):
                 sess.process_audio(audio[:, lo:hi])
-                sess.reset_streams([lo % SLOTS, 3])
+                sess.reset_streams([lo % SLOTS, *resets])
         except RuntimeError as e:
             err = str(e).splitlines()[0]
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        print(f"[faults] sync debug mode 'error', unsupervised {kind} "
-              f"{numerics} session, process_audio + reset_streams x3: "
+        print(f"[{tag}] sync debug mode 'error', unsupervised {kind} "
+              f"{numerics} session{f' on {shards} shards' * (shards > 1)}"
+              f", process_audio + reset_streams x3: "
               f"{'no synchronisation' if err is None else err}")
         bad.check(err is None, f"{kind} {numerics} process_audio or "
                                f"reset_streams synchronised: {err}")
@@ -4649,6 +4679,350 @@ def lm_phase(torch, np, card) -> dict:
     return {"seconds": secs, "full_width": full}
 
 
+# ------------------------------------------------------- the slot mesh --
+MESH_SHARDS = 2                # phase 12: shards on one card, own streams
+MESH_CHUNKS = 4                # the bit-for-bit runs: SLOTS × 4 chunks
+MESH_TIMED_CHUNKS, MESH_ROUNDS = 16, 5    # the 256-slot timing
+MESH_CPU_CUTS = ((0, 1000), (1000, 1001), (1001, 2048))
+
+
+def mesh_kinds(torch, cascade_cfg=CASCADE_SERVE):
+    """(kind, numerics, session keywords, path kernels) of the serving
+    modes phase 12 shards."""
+    from repro_torch.frontend.vad import VADConfig
+    from repro_torch.models.detector import DetectorConfig
+    det = dict(detector=DetectorConfig(0.3, 0.095, 0.09, 4),
+               vad=VADConfig(0.02))
+    cas = dict(det, cascade=cascade_config(cascade_cfg),
+               stage0_params=stage0(torch))
+    kinds = []
+    for numerics in ("float32", "int8"):
+        fex, gru = (("batched_iir_fex_int", "delta_gru_seq_int")
+                    if numerics == "int8"
+                    else ("batched_iir_fex", "delta_gru_seq"))
+        kinds += [("plain", numerics, {}, (fex, gru)),
+                  ("detect", numerics, det, (fex, gru, "detect_head")),
+                  ("cascade", numerics, cas,
+                   (fex, gru, f"{gru} (masked)", "wake_head",
+                    "detect_head"))]
+    return kinds
+
+
+def trace_tensors(torch, sess, outs) -> dict:
+    """A session's chunk results (concatenated over chunks) and its
+    joined per-stream state, by name, on the host."""
+    from repro_torch.parallel.sharding import tensors_of
+    got = {f: torch.cat([getattr(o, f) for o in outs])
+           for f in outs[0]._fields if getattr(outs[0], f) is not None}
+    for name in ("state", "fex_state", "vad_state", "det_state",
+                 "cas_state"):
+        for k, t in enumerate(tensors_of(getattr(sess, name))):
+            got[f"{name}[{k}]"] = t
+    return {k: v.cpu() for k, v in got.items()}
+
+
+def differing(torch, a: dict, b: dict) -> dict:
+    """Elements differing bit for bit, by name (floats by bit pattern)."""
+    out = {}
+    for k, x in a.items():
+        y = b.get(k)
+        if y is None or x.shape != y.shape or x.dtype != y.dtype:
+            out[k] = "shape or dtype"
+            continue
+        n = (bits_differ(torch, x, y) if x.dtype == torch.float32
+             else int((x != y).sum()))
+        if n:
+            out[k] = n
+    return out
+
+
+def no_slo(summary):
+    return dataclasses.replace(summary, slo={})
+
+
+def mesh_bit_for_bit(torch, np, params, mesh, bad, tag: str) -> dict:
+    """Every serving mode in both numerics, SLOTS slots × MESH_CHUNKS
+    chunks of keyword streams with a reset of one slot per shard between
+    chunks: the sharded session against the unsharded one on the card,
+    every output, state and summary bit for bit; launch counts zeroed
+    just before the sharded run and read just after: each path kernel
+    once per shard per step, nothing else."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.launch.streaming import StreamingKwsSession
+    wrappers = kernel_wrappers()
+    n, B = mesh.size, SLOTS
+    per = B // n
+    audio = fault_audio(np, B, MESH_CHUNKS * CHUNK, 12)
+    resets = [[i * per + (5 * c + 1) % per for i in range(n)]
+              for c in range(MESH_CHUNKS - 1)]
+    launches = {}
+    for kind, numerics, kw, path in mesh_kinds(torch):
+        runs = {}
+        for label, m in (("unsharded", None), ("sharded", mesh)):
+            sess = StreamingKwsSession(params, CONFIG, threshold=0.1,
+                                       batch=B, numerics=numerics, mesh=m,
+                                       **kw)
+            torch.cuda.synchronize()
+            zero_launches(wrappers)
+            outs = []
+            for c in range(MESH_CHUNKS):
+                outs.append(sess.process_audio(
+                    audio[:, c * CHUNK:(c + 1) * CHUNK]))
+                if c < MESH_CHUNKS - 1:
+                    sess.reset_streams(resets[c])
+            torch.cuda.synchronize()
+            got = read_launches(wrappers)
+            runs[label] = (trace_tensors(torch, sess, outs),
+                           no_slo(sess.summary()))
+        diff = differing(torch, runs["unsharded"][0], runs["sharded"][0])
+        same_summary = runs["unsharded"][1] == runs["sharded"][1]
+        want = n * MESH_CHUNKS
+        off = {k: v for k, v in got.items()
+               if v != (want if k in path else 0)}
+        launches[(kind, numerics)] = {k: got[k] for k in path}
+        summ = runs["sharded"][1]
+        events = runs["sharded"][0].get("events")
+        fires = -1 if events is None else int((events >= 0).sum())
+        print(f"[mesh] {tag}: {kind} {numerics}, {B} slots x {MESH_CHUNKS} "
+              f"chunks of {CHUNK}, against the unsharded session: "
+              f"differing {diff or 'nothing'}, summaries "
+              f"{'equal' if same_summary else 'DIFFER'}, launches "
+              f"{launches[(kind, numerics)]} (want {want} each), fires "
+              f"{fires}, vad duty {summ.vad_duty:.3f}, stage-1 duty "
+              f"{summ.stage1_duty:.3f}")
+        bad.check(not diff and same_summary,
+                  f"{tag} {kind} {numerics}: sharded != unsharded {diff}")
+        bad.check(not off, f"{tag} {kind} {numerics}: launches {off}, "
+                           f"want {want} of {path} and 0 of the others")
+    return launches
+
+
+def mesh_against_cpu(torch, np, params, bad):
+    """Two-shard CUDA sessions against two-shard CPU sessions (the plain
+    versions) in every mode and numerics: 4 continuous streams, three
+    unaligned chunks of 2048 samples with a reset of slots 1 and 2 (one
+    per shard) after the first.  int8: every code, vote, event, gate,
+    awake bit and state equal; float: those equal but the float values,
+    logits and float state within 1e-4, and the CPU's stage-0 scores more
+    than SCORE_MARGIN from both thresholds."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.data.continuous import make_streams
+    from repro_torch.launch import streaming
+    from repro_torch.launch.mesh import SlotMesh
+    streams = make_streams(7, 4, duration_s=1.5, snr_db=20.0,
+                           events_per_min=60.0)
+    audio = np.stack([s.audio[:MESH_CPU_CUTS[-1][1]] for s in streams])
+    for kind, numerics, kw, _ in mesh_kinds(torch, CASCADE_CHECK):
+        res, scores = {}, None
+        for dev in ("cuda", "cpu"):
+            sess = streaming.StreamingKwsSession(
+                params, CONFIG, threshold=0.1, batch=4, numerics=numerics,
+                mesh=SlotMesh.on(dev, MESH_SHARDS), **kw)
+            outs = []
+            with capture_args(streaming, "cascade_wake_scan") as cap:
+                for k, (lo, hi) in enumerate(MESH_CPU_CUTS):
+                    outs.append(sess.process_audio(audio[:, lo:hi]))
+                    if k == 0:
+                        sess.reset_streams([1, 2])
+            res[dev] = trace_tensors(torch, sess, outs)
+            if dev == "cpu" and cap.calls:
+                scores = torch.cat([a[3].reshape(-1) for a, _ in cap.calls])
+        c, p = res["cuda"], res["cpu"]
+        exact = numerics == "int8"
+        floats = [k for k, v in p.items() if v.is_floating_point()
+                  and not exact]
+        mism = differing(torch, {k: c[k] for k in p if k not in floats},
+                         {k: p[k] for k in p if k not in floats})
+        err = max([(c[k] - p[k]).abs().max().item() for k in floats
+                   if p[k].numel()] or [0.0])
+        margin = (min((scores - t).abs().min().item()
+                      for t in CASCADE_CHECK[:2])
+                  if scores is not None else None)
+        print(f"[mesh] {kind} {numerics}, {MESH_SHARDS} shards, CUDA vs "
+              f"CPU, 4 streams x 2048 samples: mismatches "
+              f"{mism or 'none'}, float values max abs diff {err:.3g}"
+              + (f", CPU stage-0 scores' least distance to a threshold "
+                 f"{margin:.3g}" if margin is not None else ""))
+        bad.check(not mism and err <= 1e-4,
+                  f"{kind} {numerics} sharded CUDA vs CPU: {mism}, {err}")
+        if kind == "cascade" and not exact:
+            bad.check(margin > SCORE_MARGIN,
+                      f"a stage-0 score lies {margin} from a threshold")
+
+
+def fc_row_probe(torch, bad) -> dict:
+    """Why the float FC sums in a fixed order (``streaming._fc``): cuBLAS's
+    ``hs @ w + b`` over each shard's block of streams against the same
+    rows of the whole batch, at the serving FC's (64 → 12) and stage 0's
+    (16 → 2) widths, F = 16 and 32 frames, B = 32 and 256 streams, 2 and 4
+    shards: the cases whose bits differ, for cuBLAS and for ``_fc``
+    (which must have none)."""
+    from repro_torch.launch.streaming import _fc
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = diff_mm = diff_fc = 0
+    for H, K in ((64, 12), (16, 2)):
+        w = torch.randn(H, K, device="cuda", generator=gen)
+        b = torch.randn(K, device="cuda", generator=gen)
+        for F in (16, 32):
+            for B in (32, 256):
+                hs = torch.rand(F, B, H, device="cuda", generator=gen) * 2 - 1
+                full_mm, full_fc = hs @ w + b, _fc(hs, w, b)
+                for n in (2, 4):
+                    blocks = [x.contiguous() for x in hs.chunk(n, dim=1)]
+                    mm = torch.cat([x @ w + b for x in blocks], dim=1)
+                    fc = torch.cat([_fc(x, w, b) for x in blocks], dim=1)
+                    cases += 1
+                    diff_mm += bits_differ(torch, mm, full_mm) > 0
+                    diff_fc += bits_differ(torch, fc, full_fc) > 0
+    print(f"[mesh] the float FC over each shard's streams against the same "
+          f"rows of the whole batch, {cases} cases (64 -> 12 and 16 -> 2, "
+          f"F 16 and 32, B 32 and 256, 2 and 4 shards): cuBLAS hs @ w + b "
+          f"differs in {diff_mm}, streaming._fc in {diff_fc}")
+    bad.check(diff_fc == 0, f"_fc depends on the row count in {diff_fc} "
+                            f"cases")
+    return {"cases": cases, "cublas_differs": diff_mm, "fc_differs": diff_fc}
+
+
+def mesh_timing(torch, np, params, card, profile, numerics, mesh, bad):
+    """The always-on plain step at ALWAYS_ON_SLOTS slots, unsharded
+    against ``mesh``, MESH_ROUNDS alternating rounds of MESH_TIMED_CHUNKS
+    chunks on the same audio (each step's votes fetched, the host clock
+    between synchronisations; medians); the last round's outputs bit for
+    bit equal.  ``--profile``: device activities and busy share of
+    each."""
+    from repro_torch.configs.deltakws import CONFIG
+    from repro_torch.launch.engine import warm_session
+    from repro_torch.launch.streaming import StreamingKwsSession
+    B, n = ALWAYS_ON_SLOTS, MESH_TIMED_CHUNKS
+    streams = always_on_streams(np)
+    sessions = {1: StreamingKwsSession(params, CONFIG, threshold=0.1,
+                                       batch=B, numerics=numerics),
+                mesh.size: StreamingKwsSession(params, CONFIG, threshold=0.1,
+                                               batch=B, numerics=numerics,
+                                               mesh=mesh)}
+    for sess in sessions.values():
+        warm_session(sess, CHUNK)
+    ms = {k: [] for k in sessions}
+    last = {}
+    for r in range(MESH_ROUNDS):
+        for k in (list(sessions) if r % 2 == 0 else list(sessions)[::-1]):
+            sess = sessions[k]
+            sess.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = []
+            for c in range(n):
+                out = sess.process_audio(streams[:, c * CHUNK:(c + 1) * CHUNK])
+                out.votes.cpu()
+                outs.append(out)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3 / n)
+            last[k] = outs
+    same = all(not bits_differ(torch, a.logits, b.logits)
+               and torch.equal(a.votes, b.votes)
+               for a, b in zip(last[1], last[mesh.size]))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    devs = ", ".join(str(d) for d in mesh.devices)
+    print(f"[mesh] always-on plain {numerics}, {B} slots x {n} chunks of "
+          f"{CHUNK}, {MESH_ROUNDS} alternating rounds: unsharded "
+          f"{med[1]:.3f} ms per step {[round(x, 3) for x in ms[1]]}, "
+          f"{mesh.size} shards ({devs}) {med[mesh.size]:.3f} ms "
+          f"{[round(x, 3) for x in ms[mesh.size]]} "
+          f"({med[mesh.size] / med[1]:.2f}x), outputs "
+          f"{'equal bit for bit' if same else 'DIFFER'} [{card}]")
+    bad.check(same, f"{numerics} 256-slot sharded step differs from the "
+                    f"unsharded one")
+    if profile:
+        for k, sess in sessions.items():
+            sess.reset()
+            print(f"[mesh] profile of the {numerics} step, {k} shard(s):")
+            profile_steps(torch, sess, streams, numerics)
+    return {"unsharded_ms": med[1], "sharded_ms": med[mesh.size],
+            "shards": mesh.size}
+
+
+def serve_on_cards(torch, n: int, bad):
+    """``serve --mode kws-audio --devices n`` (one shard per card) against
+    ``--devices 1`` through the CLI's entry point, counts zeroed just
+    before each run and read just after: the same decisions and summary;
+    the path's kernels once per shard per step (+ the warm-up step)."""
+    from repro_torch.launch import serve
+    wrappers = kernel_wrappers()
+    runs = {}
+    for d in (1, n):
+        args = serve.build_parser().parse_args(
+            ["--mode", "kws-audio", "--devices", str(d), "--slots",
+             str(SLOTS), "--requests", str(REQUESTS), "--chunk-samples",
+             str(CHUNK), "--train-steps", "0"])
+        serve.validate_args(args)
+        zero_launches(wrappers)
+        sess, done, _, stats, dt = serve.serve_kws_audio(args)
+        torch.cuda.synchronize()
+        runs[d] = (done, no_slo(sess.summary()), read_launches(wrappers),
+                   stats["steps"], dt)
+    (done1, summ1, _, _, dt1), (done_n, summ_n, got, steps, dt_n) = \
+        runs[1], runs[n]
+    want = n * (steps + 1)
+    print(f"[mesh] serve --mode kws-audio --devices {n}: {len(done_n)} "
+          f"requests in {dt_n:.2f} s ({dt1:.2f} s at --devices 1), "
+          f"decisions {'equal' if done_n == done1 else 'DIFFER'}, "
+          f"summaries {'equal' if summ_n == summ1 else 'DIFFER'}, "
+          f"launches {got['batched_iir_fex']} / {got['delta_gru_seq']} "
+          f"(want {want})")
+    bad.check(done_n == done1 and summ_n == summ1,
+              f"serve --devices {n} decides otherwise than --devices 1")
+    bad.check(got["batched_iir_fex"] == got["delta_gru_seq"] == want,
+              f"serve --devices {n} launches {got}, want {want}")
+
+
+def mesh_phase(torch, np, params, card, profile) -> dict:
+    """Phase 12: the slot mesh — two shards on the one card, each on its
+    own stream, in every serving mode and numerics; then ``serve
+    --devices``."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import SlotMesh, make_slot_mesh
+    bad = Failures("slot mesh phase")
+    t0 = time.perf_counter()
+    probe = fc_row_probe(torch, bad)
+    one_card = SlotMesh.on("cuda", MESH_SHARDS)
+    launches = mesh_bit_for_bit(torch, np, params, one_card, bad,
+                                f"{MESH_SHARDS} shards on one card")
+    mesh_against_cpu(torch, np, params, bad)
+    check_no_syncs(torch, np, params, bad, shards=MESH_SHARDS,
+                   resets=(3, SLOTS - 1), tag="mesh")
+    timing = {numerics: mesh_timing(torch, np, params, card, profile,
+                                    numerics, one_card, bad)
+              for numerics in ("float32", "int8")}
+    count = torch.cuda.device_count()
+    args = serve.build_parser().parse_args(
+        ["--mode", "kws-audio", "--devices", "2", "--slots", str(SLOTS),
+         "--train-steps", "0"])
+    serve.validate_args(args)
+    if count < 2:
+        try:
+            serve.slot_mesh(args)
+            err = None
+        except ValueError as e:
+            err = str(e)
+        print(f"[mesh] serve --mode kws-audio --devices 2 with {count} "
+              f"card: ValueError: {err}")
+        bad.check(err is not None and "visible" in err,
+                  "--devices 2 on one card did not raise 'beyond visible'")
+        print(f"[mesh] this machine has {count} card: the slot mesh over "
+              f"distinct cards (make_slot_mesh, steps 1 and 4) did not run")
+    else:
+        mesh = make_slot_mesh(min(count, 4))
+        mesh_bit_for_bit(torch, np, params, mesh, bad,
+                         f"make_slot_mesh({mesh.size})")
+        for numerics in ("float32", "int8"):
+            timing[f"{numerics} cards"] = mesh_timing(
+                torch, np, params, card, profile, numerics, mesh, bad)
+        serve_on_cards(torch, mesh.size, bad)
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+    bad.raise_any()
+    return {"launches": launches, "timing": timing, "fc_probe": probe}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -4740,6 +5114,11 @@ def main() -> int:
     train_res = training_phase(torch, np)
     tune_res = tuning_phase(torch, np, fex, params, bundle, card, tune_cache)
     lm_phase(torch, np, card)
+    mesh_res = mesh_phase(torch, np, params, card, args.profile)
+    mesh_launch = {}
+    for (kind, numerics), counts in mesh_res["launches"].items():
+        for name, v in counts.items():
+            mesh_launch.setdefault(name, v)
 
     C = fex.coef.shape[1]
     H = params["w_h"].shape[0]
@@ -4763,6 +5142,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_slot_mesh": mesh_launch[name],
             "max_abs_err": err, "ms": ms,
             "plain_ms": times[(kind + "_plain", SLOTS)], "bound_ms": bnd,
             "bound_by": by, "library_ms": None, "call_ms": call,
@@ -4791,7 +5171,7 @@ def main() -> int:
         "name": "delta_matvec", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_matvec.cu",
         "replaces": "src/repro/kernels/delta_matvec.py:49",
-        "launches": launches["delta_matvec"],
+        "launches": launches["delta_matvec"], "launches_slot_mesh": 0,
         "max_abs_err": mv_res["max_abs_err"], "ms": ms, "plain_ms": plain,
         "bound_ms": bnd, "bound_by": by, "library_ms": lib, "call_ms": call,
         "shape": f"B={ALWAYS_ON_SLOTS} I={WIDE_H} O={3 * WIDE_H} "
@@ -4805,7 +5185,8 @@ def main() -> int:
         "name": "delta_gru_cell", "route": "cuda",
         "source": "src/repro_torch/csrc/delta_gru_cell.cu",
         "replaces": "src/repro/kernels/delta_gru_cell.py:46",
-        "launches": 0, "max_abs_err": cell_res["max_abs_err"], "ms": ms,
+        "launches": 0, "launches_slot_mesh": 0,
+        "max_abs_err": cell_res["max_abs_err"], "ms": ms,
         "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
         "library_ms": None, "call_ms": call,
         "shape": f"B={SLOTS} I={C} H={H}",
@@ -4824,6 +5205,7 @@ def main() -> int:
                 "(jax.nn.softmax, src/repro/launch/streaming.py:587, then "
                 "detector_scan)",
         "launches": head_launches["float32"],
+        "launches_slot_mesh": mesh_launch["detect_head"],
         "launches_int8_run": head_launches["int8"],
         "launches_faults_run": fault_launches.get(
             ("kws-detect", "float32"), {}).get("detect_head"),
@@ -4852,6 +5234,7 @@ def main() -> int:
                     "(template argument kMasked) of the kernel above, the "
                     "port of the XLA-fused plain JAX masked scan",
             "launches": cascade_launches[f"{base} (masked)"],
+            "launches_slot_mesh": mesh_launch[f"{base} (masked)"],
             "launches_faults_run": fault_launches.get(
                 ("kws-cascade", numerics), {}).get(f"{base} (masked)"),
             "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4870,6 +5253,7 @@ def main() -> int:
                 "posterior (jax.nn.softmax(...)[..., 1], "
                 "src/repro/launch/streaming.py:712) and cascade_wake_scan",
         "launches": cascade_launches["wake_head"],
+        "launches_slot_mesh": mesh_launch["wake_head"],
         "launches_faults_run": fault_launches.get(
             ("kws-cascade", "float32"), {}).get("wake_head"),
         "max_abs_err": 0.0, "ms": wk["ms"], "plain_ms": wk["plain"],

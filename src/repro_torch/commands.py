@@ -32,6 +32,8 @@ SERVE_DETECT_CMD = ("PYTHONPATH=src python -m repro_torch.launch.serve "
                     "--mode kws-detect --slots 32 --stream-seconds 30")
 SERVE_CASCADE_CMD = ("PYTHONPATH=src python -m repro_torch.launch.serve "
                      "--mode kws-cascade --slots 32 --stream-seconds 30")
+SERVE_MESH_CMD = ("PYTHONPATH=src python -m repro_torch.launch.serve "
+                  "--mode kws-audio --slots 32 --requests 64 --devices 2")
 SERVE_FAULTS_CMD = (
     "PYTHONPATH=src python -m repro_torch.launch.serve "
     "--mode kws-audio --slots 32 --requests 64 "
@@ -68,6 +70,7 @@ ALL_COMMANDS = {
     "serve_sync": SERVE_SYNC_CMD,
     "serve_detect": SERVE_DETECT_CMD,
     "serve_cascade": SERVE_CASCADE_CMD,
+    "serve_mesh": SERVE_MESH_CMD,
     "serve_faults": SERVE_FAULTS_CMD,
     "train_promote": TRAIN_PROMOTE_CMD,
     "serve_bundle": SERVE_BUNDLE_CMD,

@@ -220,12 +220,14 @@ def _knobs(kernel: str, xs, awake, block_b, block_t):
 def _by_slices(fn, bb: int, xs, state):
     """``fn(xs, state)`` over consecutive slices of ``bb`` streams; hs and
     counts concatenated on the stream axis, the state on its first.  A
-    one-stream slice of a larger batch runs doubled and keeps its first
-    row: the CPU's BLAS takes another path for a one-row product, which
-    rounds the float sums differently (every other row count rounds as
-    the whole batch does)."""
+    one-stream slice, or a batch of one stream (one shard's block of a
+    slot mesh), runs doubled and keeps its first row: the CPU's BLAS
+    takes another path for a one-row product, which rounds the float sums
+    differently (every other row count rounds as the whole batch does),
+    and a stream's rows must not depend on how many it is launched with,
+    as they do not in the kernel."""
     B = xs.shape[1]
-    if bb == B:
+    if bb == B and B != 1:
         return fn(xs, state)
     if bb == 1:
         def one(x, st):

@@ -18,7 +18,12 @@ dispatch never waits for the card; at dispatch the engine starts a
 memory and records a CUDA event behind it; and a drain waits on that
 step's event only, never on the whole stream (a ``.cpu()`` of step t-1
 would also wait for step t).  On a CPU session the same code runs with
-plain tensors and no events.
+plain tensors and no events.  A sharded session (``mesh=``) runs each
+shard's step on its own CUDA stream and joins the results on the mesh's
+first device, whose stream waits on each shard's stream through an
+event; the engine's copies and event follow that join, so a drain waits
+on exactly the shards' events of that step, and the scheduler's
+occupancy counts live streams per shard for ``shard_imbalance``.
 
 Bit-identity contract: the engine issues device operations in exactly
 the order the synchronous loop does (per-step pieces, then fault/churn

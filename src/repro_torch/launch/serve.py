@@ -69,7 +69,14 @@ ladder (``--degrade-thresholds``) stepped up under sustained queue
 pressure and back down with hysteresis, and a step-latency watchdog
 (``--watchdog-ms``) whose breaches count as pressure.
 
-``--devices`` (the slot mesh across cards) is a later slice of the port.
+``--devices N`` shards the slot axis of kws-audio, kws-detect and
+kws-cascade over a slot mesh (``launch.mesh``): on the card
+``make_slot_mesh(N)``, one shard per card, each on its own CUDA stream
+(it raises when fewer than N cards are visible); with ``--device cpu``,
+N shards on the CPU, the counterpart of the reference's ``XLA_FLAGS``
+host split.  ``--slots`` must divide by N.  The scheduler balances
+admissions across the shards, and decisions are those of ``--devices 1``
+bit for bit.
 """
 from __future__ import annotations
 
@@ -254,7 +261,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-len", type=int, default=64,
                     help="lm: KV-cache positions per slot")
     ap.add_argument("--slots", type=int, default=4,
-                    help="stream slots (lm: decode slots) served together")
+                    help="stream slots (lm: decode slots) served together "
+                         "(must divide by --devices)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the KWS slot axis over this many devices "
+                         "(cards; with --device cpu, shards on the CPU)")
     ap.add_argument("--requests", type=int, default=8,
                     help="1 s utterances to serve")
     ap.add_argument("--chunk-samples", type=int, default=4096,
@@ -373,8 +384,8 @@ def build_parser() -> argparse.ArgumentParser:
 def validate_args(args):
     """Reject nonsensical flags with a clear ``ValueError`` before any
     device work starts."""
-    for name in ("slots", "chunk_samples", "inflight_depth", "max_queue",
-                 "prompt_len", "max_new", "cache_len"):
+    for name in ("slots", "devices", "chunk_samples", "inflight_depth",
+                 "max_queue", "prompt_len", "max_new", "cache_len"):
         if getattr(args, name) < 1:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 1, "
                              f"got {getattr(args, name)}")
@@ -385,6 +396,9 @@ def validate_args(args):
     if not math.isfinite(args.threshold) or args.threshold < 0:
         raise ValueError(f"--threshold must be finite and >= 0, "
                          f"got {args.threshold}")
+    if args.slots % args.devices:
+        raise ValueError(f"--slots ({args.slots}) must divide by "
+                         f"--devices ({args.devices})")
     if args.mode in ("kws-detect", "kws-cascade"):
         if args.fire_threshold <= args.release_threshold:
             raise ValueError(
@@ -509,6 +523,20 @@ def _load_model(args):
     return device, fex, params, bundle
 
 
+def slot_mesh(args):
+    """The slot mesh of ``--devices N``: None at 1; on the card
+    ``make_slot_mesh(N)`` (one shard per card; raises beyond the visible
+    cards); with ``--device cpu``, N shards on the CPU."""
+    from repro_torch.kernels.platform import resolve_device
+    from repro_torch.launch.mesh import SlotMesh, make_slot_mesh
+    if args.devices == 1:
+        return None
+    device = resolve_device(args.device)
+    if device.type == "cpu":
+        return SlotMesh.on(device, args.devices)
+    return make_slot_mesh(args.devices)
+
+
 def serve_kws_audio(args):
     """Build the model and session and serve ``args.requests`` utterances.
 
@@ -523,14 +551,15 @@ def serve_kws_audio(args):
     from repro_torch.launch.engine import run_audio_requests
     from repro_torch.launch.streaming import SlotScheduler, StreamingKwsSession
 
+    mesh = slot_mesh(args)
     device, fex, params, bundle = _load_model(args)
     audio_q, label_q = synth_batch(
         np.random.default_rng(args.init_seed + 1), args.requests)
     supervisor, input_policy, injector = _session_extras(args)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
-                               numerics=args.numerics, bundle=bundle,
-                               supervisor=supervisor,
+                               mesh=mesh, numerics=args.numerics,
+                               bundle=bundle, supervisor=supervisor,
                                input_policy=input_policy)
     sched = SlotScheduler(sess)
     ctl = AdmissionController(sess, sched, OverloadPolicy(
@@ -593,6 +622,7 @@ def serve_kws_detect(args):
     from repro_torch.models.detector import (DetectorConfig, det_point,
                                              pool_points)
 
+    mesh = slot_mesh(args)
     device, fex, params, bundle = _load_model(args)
     if bundle is not None:
         print("WARNING: serving a promoted bundle through the detection "
@@ -620,8 +650,9 @@ def serve_kws_detect(args):
     supervisor, input_policy, injector = _session_extras(args)
     sess = StreamingKwsSession(params, CONFIG, threshold=args.threshold,
                                batch=args.slots, fex=fex, device=device,
-                               numerics=args.numerics, bundle=bundle,
-                               detector=det, vad=vad, cascade=cascade,
+                               mesh=mesh, numerics=args.numerics,
+                               bundle=bundle, detector=det, vad=vad,
+                               cascade=cascade,
                                stage0_params=params0, supervisor=supervisor,
                                input_policy=input_policy)
     chunk = args.chunk_samples - args.chunk_samples % shift or shift
@@ -665,6 +696,11 @@ def _device_name(dev) -> str:
             else "cpu (plain PyTorch versions of the kernels)")
 
 
+def _on_devices(sess) -> str:
+    """``N device(s) (name)``: the session's shards and its device."""
+    return f"{sess.n_shards} device(s) ({_device_name(sess.device)})"
+
+
 def _detect_main(args) -> int:
     from repro_torch.data.gscd import FS
     sess, point, stats, dt, n_samples = serve_kws_detect(args)
@@ -674,7 +710,7 @@ def _detect_main(args) -> int:
     audio_s = args.slots * n_samples / FS
     print(f"detect: {args.slots} stream(s) x {n_samples / FS:.0f} s "
           f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
-          f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
+          f"{stats['warmup_s']:.2f} s) on {_on_devices(sess)} "
           f"[{sess.numerics}, depth {slo['depth']}] — "
           f"{audio_s / dt:.1f}x realtime")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
@@ -709,7 +745,7 @@ def _cascade_main(args) -> int:
     audio_s = args.slots * n_samples / FS
     print(f"cascade: {args.slots} stream(s) x {n_samples / FS:.0f} s "
           f"({point.hours:.3f} h audio) in {dt:.2f} s end-to-end (warm-up "
-          f"{stats['warmup_s']:.2f} s) on {_device_name(sess.device)} "
+          f"{stats['warmup_s']:.2f} s) on {_on_devices(sess)} "
           f"[{sess.numerics}, depth {slo['depth']}] — "
           f"{audio_s / dt:.1f}x realtime")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "
@@ -826,7 +862,6 @@ def main(argv=None) -> int:
     if args.mode == "kws-cascade":
         return _cascade_main(args)
     sess, done, labels, stats, dt = serve_kws_audio(args)
-    name = _device_name(sess.device)
     correct = sum(1 for req, pred in done if pred == int(labels[req]))
     summ = sess.summary()
     slo = stats["slo"]
@@ -834,7 +869,8 @@ def main(argv=None) -> int:
     steady_s = max(slo["steady_state_s"], 1e-9)
     print(f"served {len(done)} utterances ({audio_s:.0f} s audio) on "
           f"{args.slots} slots in {dt:.2f} s end-to-end (warm-up "
-          f"{stats['warmup_s']:.2f} s) on {name} [{sess.numerics}, Δ_TH "
+          f"{stats['warmup_s']:.2f} s) on {_on_devices(sess)} "
+          f"[{sess.numerics}, Δ_TH "
           f"{sess.threshold}], pipeline depth {slo['depth']}: "
           f"{correct}/{len(done)} correct")
     print(f"steady-state: {audio_s / steady_s:.1f}x realtime, "

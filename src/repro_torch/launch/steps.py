@@ -19,7 +19,7 @@ from repro_torch.train import optimizer as opt_lib
 def param_specs(cfg: ArchConfig, shd: Sharder):
     """(parameter ``meta`` tensors, logical axes) — no allocation."""
     specs, axes = get_api(cfg, shd).init(None)
-    shd.param_shardings(specs, axes)         # raises on a mesh (item 9b)
+    shd.param_shardings(specs, axes)         # raises on a mesh (item 9c)
     return specs, axes
 
 

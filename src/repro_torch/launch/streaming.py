@@ -1,7 +1,7 @@
 """Streaming KWS sessions — raw audio in, decisions or keyword events out.
 
-PyTorch port of the unsharded part of ``repro/launch/streaming.py``, in
-both numerics.  The session keeps FEx
+PyTorch port of ``repro/launch/streaming.py``, in both numerics,
+unsharded or over a slot mesh.  The session keeps FEx
 state, ΔGRU state and op-count telemetry on the device between chunks;
 the host hands over a chunk of raw audio and gets device tensors back.
 One float32 chunk is one call of ``_process_audio_chunk``: 12-bit
@@ -48,6 +48,20 @@ for the step), quarantines the slots whose state cannot recover on its
 own and resets them; ``set_threshold`` moves Δ_TH mid-stream, the lever
 of ``launch.serve.AdmissionController``.
 
+Scale-out (DESIGN.md §6): with ``mesh=`` (``launch.mesh.SlotMesh``) the
+session is a sharded continuous-batching engine driven by one host
+thread.  The slot axis is split into contiguous blocks, one per shard;
+each shard's FEx, ΔGRU, VAD, detector, cascade and telemetry state lives
+on its device, and its step (``kernels.platform.shard_map_kernels``) is
+the unsharded step at batch B/n, launched on its own CUDA stream; the
+weights are replicated once per device.  Results and health masks are
+joined on the slot axis on the mesh's first device, whose stream waits
+on each shard's stream through an event, so the host never waits; the
+telemetry stays per shard and is summed on the host in ``summary()``.
+Resets touch only the shards that own a reset slot.  Decisions, logits
+and counters are those of the unsharded session bit for bit (the float
+FC sums in a fixed order, ``_fc``, so the row count cannot move them).
+
 Chunk boundaries are invisible: samples past the last whole 16 ms frame
 are carried host-side and prepended to the next chunk.  Without
 ``device=`` the session runs on the GPU and raises when there is none.
@@ -55,6 +69,7 @@ are carried host-side and prepended to the next chunk.  Without
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Any, NamedTuple
 
@@ -74,13 +89,17 @@ from repro_torch.frontend.vad import (VADConfig, VADState, frame_energy,
                                       vad_state_flags)
 from repro_torch.kernels import autotune
 from repro_torch.kernels.detect_head import detect_head
-from repro_torch.kernels.platform import resolve_device
+from repro_torch.kernels.platform import (join_slots, resolve_device,
+                                          shard_map_kernels)
 from repro_torch.kernels.wake_head import wake_head
+from repro_torch.launch.mesh import SlotMesh
 from repro_torch.models import kws
 from repro_torch.models.detector import (NO_EVENT, DetectorConfig,
                                          DetectorState, band_inverted,
                                          detector_state_flags,
                                          init_detector_state)
+from repro_torch.parallel import sharding as shp
+from repro_torch.parallel.sharding import check_slot_partition
 
 
 class ChunkResult(NamedTuple):
@@ -410,8 +429,26 @@ class StreamSummary:
     slo: dict = dataclasses.field(default_factory=dict)
 
 
+def _fc(hs, w, b):
+    """``hs @ w + b`` summed in one fixed order per output, whatever the
+    number of rows: the products, then a pairwise tree over the hidden
+    axis (elementwise adds), then the bias.  cuBLAS picks its algorithm,
+    and with it the order of a dot product's sum, by the row count
+    (frames × streams), so a product over one shard's streams rounded
+    otherwise than the same rows of the whole batch (H100, float32,
+    ``chip_smoke.py`` phase 12); an elementwise op rounds each output on
+    its own, on the card and on the CPU alike."""
+    p = hs.unsqueeze(-1) * w                      # (..., H, K)
+    while p.shape[-2] > 1:
+        half = p.shape[-2] // 2
+        top = p[..., :half, :] + p[..., half:2 * half, :]
+        p = (top if p.shape[-2] % 2 == 0
+             else torch.cat([top, p[..., 2 * half:, :]], dim=-2))
+    return p.squeeze(-2) + b
+
+
 def _classify(w_fc, b_fc, hs, stats):
-    logits = hs @ w_fc + b_fc                     # (F, B, K)
+    logits = _fc(hs, w_fc, b_fc)                  # (F, B, K)
     votes = torch.argmax(logits, -1).to(torch.int32)
     return ChunkResult(logits=logits, votes=votes,
                        nz=stats.nz_dx + stats.nz_dh)
@@ -696,7 +733,7 @@ def _process_audio_chunk_cascade(gru: dg.DeltaGRUParams, w_fc, b_fc,
     hs0, s0_state, stats0 = dg.delta_gru_scan(
         gru0, xs0, cas_cfg.s0_threshold, cas_state.s0, backend="pallas",
         consult_cache=False, **(gru0_knobs or {}))
-    awake_t, awake, hang = wake_head(hs0 @ w_fc0 + b_fc0, cas_state.awake,
+    awake_t, awake, hang = wake_head(_fc(hs0, w_fc0, b_fc0), cas_state.awake,
                                      cas_state.hang, cas_cfg)
     hs, state, stats = dg.masked_delta_gru_scan(gru, xs.contiguous(),
                                                 threshold, state, awake_t)
@@ -829,12 +866,6 @@ def _reset_cascade_slots(state: CascadeState, bias0, mask) -> CascadeState:
         s0=_reset_gru_slots(state.s0, bias0, mask))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-        f"item {item}); use the JAX package repro for it")
-
-
 class StreamingKwsSession:
     """Carries FEx + ΔGRU state and telemetry on the device across chunks.
 
@@ -881,8 +912,16 @@ class StreamingKwsSession:
       stage0_params: the stage-0 model's parameter dict (``init_kws`` with
         ``vocab_size=2`` and the reduced width and input); under
         ``numerics="int8"`` it gets its own promotion at session creation.
-      mesh: the slot mesh across cards, a later slice of the port;
-        setting it raises ``NotImplementedError``.
+      mesh: a ``launch.mesh.SlotMesh`` (``make_slot_mesh(n)`` over n cards,
+        or ``SlotMesh.on(device, n)``) turning the session into a sharded
+        engine: shard i owns the contiguous block of slots
+        [i·B/n, (i+1)·B/n), all its per-stream state lives on its device,
+        its step runs there on its own CUDA stream, the weights are
+        replicated once per device, the results are joined on the slot
+        axis on the mesh's first device (the session's ``device``), and
+        telemetry is summed on the host only in ``summary()``.  ``batch``
+        must divide by the mesh size; a one-shard mesh is the unsharded
+        session.  Every output bit equals the unsharded session's.
       supervisor: a ``SupervisorConfig`` enabling the self-healing
         supervisor: the per-slot health mask the step emits is fetched
         every ``check_every`` chunks, and slots whose quarantine-mask bits
@@ -907,8 +946,10 @@ class StreamingKwsSession:
                  vad: VADConfig | None = None,
                  cascade: CascadeConfig | None = None, stage0_params=None,
                  supervisor=None, input_policy: str = "reject"):
-        if mesh is not None:
-            raise _not_ported("slot sharding over a device mesh", "9b")
+        if mesh is not None and not isinstance(mesh, SlotMesh):
+            raise TypeError(f"mesh must be a launch.mesh.SlotMesh "
+                            f"(make_slot_mesh or SlotMesh.on), got "
+                            f"{type(mesh).__name__}")
         if numerics not in ("float32", "int8"):
             raise ValueError(f"unknown numerics: {numerics!r}")
         if vad is not None and detector is None:
@@ -944,13 +985,24 @@ class StreamingKwsSession:
         if input_policy not in ("reject", "sanitize", "trust"):
             raise ValueError(f"unknown input_policy: {input_policy!r} "
                              f"(choose reject / sanitize / trust)")
-        self.device = resolve_device(device)
+        self.n_shards = check_slot_partition(mesh, batch)
+        self.mesh = mesh if self.n_shards > 1 else None
+        if mesh is not None:
+            devs = [resolve_device(d) for d in mesh.devices]
+            if device is not None and resolve_device(device) != devs[0]:
+                raise ValueError(f"device={device} is not the mesh's first "
+                                 f"device {devs[0]}: a sharded session "
+                                 f"joins its results there")
+            self.device = devs[0]
+        else:
+            self.device = resolve_device(device)
         self._detector = detector
         self._vad = ((vad if vad is not None else VADConfig())
                      if detector is not None else None)
         self.cfg = cfg
         self.batch = batch
-        self.n_shards = 1                  # the slot mesh is a later slice
+        self._reps: list[dict] | None = (
+            None if self.mesh is None else [{} for _ in range(self.n_shards)])
         self.threshold = float(cfg.delta_threshold if threshold is None
                                else threshold)
         self.input_policy = input_policy
@@ -963,13 +1015,13 @@ class StreamingKwsSession:
                 self._bundle = fp.promote_kws(params, self.threshold,
                                               fex=self._fex)
             self.threshold = float(self._bundle.threshold)
-            on_dev = fp.bundle_to(self._bundle, self.device)
-            self._gru, self._w_fc, self._b_fc = (on_dev.gru, on_dev.w_fc,
-                                                 on_dev.b_fc)
+            self._replicate(("gru", "w_fc", "b_fc"),
+                            self._bundle_weights(self._bundle))
         else:
             params = {k: v.to(self.device, torch.float32)
                       for k, v in params.items()}
-            self._gru, self._w_fc, self._b_fc = kws.serving_weights(params)
+            self._replicate(("gru", "w_fc", "b_fc"),
+                            kws.serving_weights(params, mesh=self.mesh))
         self.n_classes = int(self._b_fc.shape[-1])
         self._cascade = cascade
         self._bundle0 = None
@@ -979,13 +1031,13 @@ class StreamingKwsSession:
                 # own weights' range (gfmt0 differs from gfmt).
                 self._bundle0 = fp.promote_kws(stage0_params,
                                                cascade.s0_threshold)
-                on_dev = fp.bundle_to(self._bundle0, self.device)
-                self._gru0, self._w_fc0, self._b_fc0 = (
-                    on_dev.gru, on_dev.w_fc, on_dev.b_fc)
+                self._replicate(("gru0", "w_fc0", "b_fc0"),
+                                self._bundle_weights(self._bundle0))
             else:
-                self._gru0, self._w_fc0, self._b_fc0 = kws.serving_weights(
-                    {k: v.to(self.device, torch.float32)
-                     for k, v in stage0_params.items()})
+                self._replicate(
+                    ("gru0", "w_fc0", "b_fc0"), kws.serving_weights(
+                        {k: v.to(self.device, torch.float32)
+                         for k, v in stage0_params.items()}, mesh=self.mesh))
             self._s0_hidden = int(self._gru0.w_h.shape[0])
             self._s0_classes = int(self._b_fc0.shape[-1])
         self._cas_state: CascadeState | None = None
@@ -995,7 +1047,7 @@ class StreamingKwsSession:
         self._vad_state: VADState | None = None
         self._det_state: DetectorState | None = None
         self._audio_rem: np.ndarray | None = None   # carried tail samples
-        self._acc = _zero_accum(self.device)
+        self._acc = self._each(lambda i: _zero_accum(self._dev(i)))
         self._chunks = 0
         self._input_dim = input_dim
         self._last_health: torch.Tensor | None = None
@@ -1011,19 +1063,101 @@ class StreamingKwsSession:
             self._init_state(input_dim)
         self._resolve_tuning()
 
+    # ------------------------------------------------------ the slot mesh
+    def _each(self, fn):
+        """``fn(i)`` for every shard ``i`` on its device and stream, as a
+        list with one entry per shard; ``fn(0)`` itself without a mesh."""
+        if self.mesh is None:
+            return fn(0)
+        out = []
+        for i in range(self.n_shards):
+            with self.mesh.shard(i):
+                out.append(fn(i))
+        return out
+
+    def _dev(self, i: int) -> torch.device:
+        return self.device if self.mesh is None else self.mesh.device(i)
+
+    def _w(self, i: int, name: str):
+        """Shard ``i``'s replica of the weight ``name`` ("gru", "w_fc",
+        "coef", ...)."""
+        if self.mesh is None:
+            return getattr(self, "_" + name)
+        return self._reps[i][name]
+
+    def _weights(self, *names) -> list:
+        """The step's weight arguments: the tensors without a mesh, else
+        one per-shard list per name."""
+        if self.mesh is None:
+            return [getattr(self, "_" + n) for n in names]
+        return [[rep[n] for rep in self._reps] for n in names]
+
+    def _replicate(self, names, weights):
+        """Keep ``weights`` (a tuple of ``names``, or a per-shard list of
+        such tuples on a mesh) as the session's attributes (the first
+        shard's copy, read for shapes) and per-shard replicas."""
+        if self.mesh is None:
+            for n, w in zip(names, weights):
+                setattr(self, "_" + n, w)
+            return
+        for rep, ws in zip(self._reps, weights):
+            rep.update(zip(names, ws))
+        for n in names:
+            setattr(self, "_" + n, self._reps[0][n])
+
+    def _bundle_weights(self, bundle):
+        """An int8 bundle's ΔGRU and FC codes on the session's device, one
+        copy per device of the mesh (``fp.bundle_to``)."""
+        def codes(device):
+            on_dev = fp.bundle_to(bundle, device)
+            return on_dev.gru, on_dev.w_fc, on_dev.b_fc
+
+        if self.mesh is None:
+            return codes(self.device)
+        return shp.replicate(codes, self.mesh)
+
+    def _shard_ctx(self, i: int):
+        return (contextlib.nullcontext() if self.mesh is None
+                else self.mesh.shard(i))
+
+    def _get(self, name: str, i: int):
+        value = getattr(self, name)
+        return value if self.mesh is None else value[i]
+
+    def _put(self, name: str, i: int, value) -> None:
+        if self.mesh is None:
+            setattr(self, name, value)
+        else:
+            getattr(self, name)[i] = value
+
+    def _joined(self, value):
+        """A per-stream state as one tree of all slots: the value itself
+        without a mesh, else the shards' blocks joined on the first
+        device (``join_slots``; its stream waits on the shards' events)."""
+        if self.mesh is None or value is None:
+            return value
+        return join_slots(self.mesh, value, axis=0)
+
+    def shard_of_slot(self, i: int) -> int:
+        """Which mesh shard owns global slot ``i`` (block partitioning)."""
+        return i // (self.batch // self.n_shards)
+
     def _init_state(self, input_dim: int):
         self._input_dim = input_dim
         self._resolve_tuning()
+        b = self.batch // self.n_shards
         if self.numerics == "int8":
-            self._state = fp.init_int_delta_state(
-                self.batch, input_dim, self.cfg.d_model, self._gru)
+            self._state = self._each(lambda i: fp.init_int_delta_state(
+                b, input_dim, self.cfg.d_model, self._w(i, "gru")))
         else:
-            self._state = dg.init_delta_state(self.batch, input_dim,
-                                              self.cfg.d_model, self._gru)
+            self._state = self._each(lambda i: dg.init_delta_state(
+                b, input_dim, self.cfg.d_model, self._w(i, "gru")))
 
     def _fresh_fex_state(self, n_channels: int) -> FExState:
         dtype = torch.int16 if self.numerics == "int8" else torch.float32
-        return init_fex_state(self.batch, n_channels, self.device, dtype)
+        b = self.batch // self.n_shards
+        return self._each(lambda i: init_fex_state(b, n_channels,
+                                                   self._dev(i), dtype))
 
     def _require_fex(self) -> FeatureExtractor:
         if self._fex is None:
@@ -1039,15 +1173,16 @@ class StreamingKwsSession:
                 # Fold the FEx bank into the bundle if the promotion had
                 # none (fold_fex copies: a shared bundle is untouched).
                 self._bundle = fp.fold_fex(self._bundle, self._fex)
-                self._coef = self._bundle.coef.to(self.device)
+                coef = self._bundle.coef.to(self.device)
             else:
-                self._coef = self._fex.coef.to(self.device)
+                coef = self._fex.coef.to(self.device)
+            self._replicate(("coef",), shp.put_replicated(
+                (coef,), self.mesh))
             self._fex_state = self._fresh_fex_state(fcfg.n_active)
             self._audio_rem = np.zeros((self.batch, 0), np.float32)
             if self._detector is not None:
                 self._vad_state = self._fresh_vad_state(fcfg.n_active)
-                self._det_state = init_detector_state(
-                    self.batch, self.n_classes, self.device)
+                self._det_state = self._fresh_det_state()
             if self._cascade is not None:
                 self._cas_state = self._fresh_cascade_state()
             self._resolve_tuning()
@@ -1060,8 +1195,8 @@ class StreamingKwsSession:
         ΔGRU (once its input width is known; stage 1 of a cascade runs
         the masked instantiation, which takes no knob, but is listed as
         the reference lists it), the FEx (once there is one) and the
-        cascade's stage 0.  ``n_shards`` is 1: one launch serves every
-        slot."""
+        cascade's stage 0, at the shapes one shard's launch serves (B/n
+        streams on a mesh of n shards)."""
         int8 = self.numerics == "int8"
         gru, gdt = (("delta_gru_seq_int", "int8") if int8
                     else ("delta_gru_seq", "float32"))
@@ -1112,9 +1247,9 @@ class StreamingKwsSession:
         for role, kernel, shape, dtype, th in self._tuning_entries():
             cfg = self._tuned(kernel, shape, dtype, th)
             knobs[f"{role}_knobs"] = (
-                autotune.sanitize(kernel, cfg, B=self.batch,
+                autotune.sanitize(kernel, cfg, B=shape[0],
                                   frame_shift=shift) if role == "fex"
-                else autotune.sanitize(kernel, cfg, B=self.batch,
+                else autotune.sanitize(kernel, cfg, B=shape[0],
                                        T=n_frames))
         return knobs
 
@@ -1147,14 +1282,22 @@ class StreamingKwsSession:
         return report
 
     def _fresh_cascade_state(self) -> CascadeState:
-        return init_cascade_state(self.batch, self._gru0,
-                                  int8=self.numerics == "int8")
+        b = self.batch // self.n_shards
+        return self._each(lambda i: init_cascade_state(
+            b, self._w(i, "gru0"), int8=self.numerics == "int8"))
 
     def _fresh_vad_state(self, n_channels: int) -> VADState:
         # The VAD holds what the ΔGRU eats: float features, or int16
         # feature codes in the int8 engine.
         dtype = torch.int16 if self.numerics == "int8" else torch.float32
-        return init_vad_state(self.batch, n_channels, dtype, self.device)
+        b = self.batch // self.n_shards
+        return self._each(lambda i: init_vad_state(b, n_channels, dtype,
+                                                   self._dev(i)))
+
+    def _fresh_det_state(self) -> DetectorState:
+        b = self.batch // self.n_shards
+        return self._each(lambda i: init_detector_state(b, self.n_classes,
+                                                        self._dev(i)))
 
     def _coerce_audio(self, audio) -> np.ndarray:
         """Decode + police one raw-audio chunk per ``input_policy``.
@@ -1227,14 +1370,16 @@ class StreamingKwsSession:
                     logits=logits, votes=z, nz=z, events=z, gate=none,
                     awake=none if self._cascade is not None else None)
             return ChunkResult(logits=logits, votes=z, nz=z)
-        block = _upload(audio[:, :n_frames * shift], self.device,
-                        torch.float32)
+        b = self.batch // self.n_shards
+        block = self._each(lambda i: _upload(
+            audio[i * b:(i + 1) * b, :n_frames * shift], self._dev(i),
+            torch.float32))
         fcfg = fex.cfg
         if self.numerics == "int8":
             kw = dict(gfmt=self._bundle.gfmt, ffmt=self._bundle.ffmt)
         else:
             kw = dict(env_alpha=fcfg.env_alpha, log_eps=fcfg.log_eps)
-        weights = (self._gru, self._w_fc, self._b_fc, self._coef)
+        weights = self._weights("gru", "w_fc", "b_fc", "coef")
         knobs = self._step_knobs(n_frames)
         if self._cascade is not None:
             kw.update(fex_knobs=knobs["fex_knobs"],
@@ -1247,10 +1392,16 @@ class StreamingKwsSession:
             if self.numerics == "int8":
                 step = _process_audio_chunk_cascade_int
                 kw["gfmt0"] = self._bundle0.gfmt
+            # (gru, w_fc, b_fc, gru0, w_fc0, b_fc0, coef, fex_state, state,
+            # cas_state, vad_state, det_state, acc, audio): both stages'
+            # weights replicated, the rest slot-major.
+            step = shard_map_kernels(step, self.mesh,
+                                     slot_major=range(7, 14), time_major=(),
+                                     n_state_out=6)
             (self._fex_state, self._state, self._cas_state, self._vad_state,
              self._det_state, self._acc, out, self._last_health) = step(
-                self._gru, self._w_fc, self._b_fc, self._gru0, self._w_fc0,
-                self._b_fc0, self._coef, self._fex_state, self._state,
+                *self._weights("gru", "w_fc", "b_fc", "gru0", "w_fc0",
+                               "b_fc0", "coef"), self._fex_state, self._state,
                 self._cas_state, self._vad_state, self._det_state, self._acc,
                 block, threshold=self.threshold, frame_shift=shift,
                 vad_cfg=self._vad, det_cfg=self._detector,
@@ -1259,6 +1410,11 @@ class StreamingKwsSession:
             step = (_process_audio_chunk_detect_int
                     if self.numerics == "int8"
                     else _process_audio_chunk_detect)
+            # (gru, w_fc, b_fc, coef, fex_state, state, vad_state,
+            # det_state, acc, audio)
+            step = shard_map_kernels(step, self.mesh,
+                                     slot_major=range(4, 10), time_major=(),
+                                     n_state_out=5)
             (self._fex_state, self._state, self._vad_state, self._det_state,
              self._acc, out, self._last_health) = step(
                 *weights, self._fex_state, self._state, self._vad_state,
@@ -1268,6 +1424,10 @@ class StreamingKwsSession:
         else:
             step = (_process_audio_chunk_int if self.numerics == "int8"
                     else _process_audio_chunk)
+            # (gru, w_fc, b_fc, coef, fex_state, state, acc, audio)
+            step = shard_map_kernels(step, self.mesh,
+                                     slot_major=range(4, 8), time_major=(),
+                                     n_state_out=3)
             (self._fex_state, self._state, self._acc, out,
              self._last_health) = step(
                 *weights, self._fex_state, self._state, self._acc, block,
@@ -1286,9 +1446,8 @@ class StreamingKwsSession:
         if self._detector is not None:
             raise ValueError("detection mode needs raw audio (the VAD "
                              "gates on sample energy): use process_audio")
-        feats = _upload(np.asarray(feats, np.float32), self.device,
-                        torch.float32)
-        if feats.dim() == 2:
+        feats = np.asarray(feats, np.float32)
+        if feats.ndim == 2:
             feats = feats[:, None, :]                 # (F, 1, C)
         if feats.shape[0] == 0:
             raise ValueError("empty chunk: need at least one frame")
@@ -1300,35 +1459,41 @@ class StreamingKwsSession:
         elif feats.shape[-1] != self._input_dim:
             raise ValueError(f"chunk has {feats.shape[-1]} feature channels,"
                              f" session state is {self._input_dim}-wide")
+        b = self.batch // self.n_shards
+        block = self._each(lambda i: _upload(
+            feats[:, i * b:(i + 1) * b], self._dev(i), torch.float32))
         step, kw = ((_process_chunk_int, {"gfmt": self._bundle.gfmt})
                     if self.numerics == "int8" else (_process_chunk, {}))
         kw["gru_knobs"] = self._step_knobs(feats.shape[0])["gru_knobs"]
+        # (gru, w_fc, b_fc, state, acc, feats): feats time-major
+        step = shard_map_kernels(step, self.mesh, slot_major=(3, 4),
+                                 time_major=(5,), n_state_out=2)
         self._state, self._acc, out, self._last_health = step(
-            self._gru, self._w_fc, self._b_fc, self._state, self._acc, feats,
-            threshold=self.threshold, **kw)
+            *self._weights("gru", "w_fc", "b_fc"), self._state, self._acc,
+            block, threshold=self.threshold, **kw)
         self._chunks += 1
         self._maybe_heal()
         return out
 
     @property
     def state(self) -> dg.DeltaState | None:
-        return self._state
+        return self._joined(self._state)
 
     @property
     def fex_state(self) -> FExState | None:
-        return self._fex_state
+        return self._joined(self._fex_state)
 
     @property
     def vad_state(self) -> VADState | None:
-        return self._vad_state
+        return self._joined(self._vad_state)
 
     @property
     def det_state(self) -> DetectorState | None:
-        return self._det_state
+        return self._joined(self._det_state)
 
     @property
     def cas_state(self) -> CascadeState | None:
-        return self._cas_state
+        return self._joined(self._cas_state)
 
     def reset(self):
         """Forget stream state + telemetry (keeps weights)."""
@@ -1340,11 +1505,10 @@ class StreamingKwsSession:
         if self._vad_state is not None:
             self._vad_state = self._fresh_vad_state(self._input_dim)
         if self._det_state is not None:
-            self._det_state = init_detector_state(self.batch, self.n_classes,
-                                                  self.device)
+            self._det_state = self._fresh_det_state()
         if self._cas_state is not None:
             self._cas_state = self._fresh_cascade_state()
-        self._acc = _zero_accum(self.device)
+        self._acc = self._each(lambda i: _zero_accum(self._dev(i)))
         self._chunks = 0
         self._last_health = None
         self._strikes = np.zeros((self.batch,), np.int64)
@@ -1375,23 +1539,31 @@ class StreamingKwsSession:
             return
         mask = np.zeros((self.batch,), bool)
         mask[slots] = True
-        mask = _upload(mask, self.device, torch.bool)
-        if self._state is not None:
-            self._state = _reset_gru_slots(self._state, self._gru.b, mask)
-        if self._fex_state is not None:
-            self._fex_state = _reset_fex_slots(self._fex_state, mask)
-        if self._vad_state is not None:
-            self._vad_state = _reset_vad_slots(self._vad_state, mask)
-        if self._det_state is not None:
-            self._det_state = _reset_det_slots(self._det_state, mask)
-        if self._cas_state is not None:
-            self._cas_state = _reset_cascade_slots(self._cas_state,
-                                                   self._gru0.b, mask)
+        b = self.batch // self.n_shards
+        for i in range(self.n_shards):
+            block = mask[i * b:(i + 1) * b]
+            if block.any():               # a shard without a reset idles
+                with self._shard_ctx(i):
+                    self._reset_shard(i, _upload(block, self._dev(i),
+                                                 torch.bool))
         if self._audio_rem is not None and self._audio_rem.shape[1]:
             self._audio_rem[slots] = 0.0
         self._strikes[slots] = 0          # a reset slot restarts clean
         if self._flagged:
             self._flagged = self._flagged - set(slots)
+
+    def _reset_shard(self, i: int, mask):
+        """The reset wave's mask-selects on shard ``i``'s state (``mask``:
+        its block of the wave, on its device)."""
+        for name, reset, extra in (
+                ("_state", _reset_gru_slots, (self._w(i, "gru").b,)),
+                ("_fex_state", _reset_fex_slots, ()),
+                ("_vad_state", _reset_vad_slots, ()),
+                ("_det_state", _reset_det_slots, ()),
+                ("_cas_state", _reset_cascade_slots,
+                 (self._w(i, "gru0").b,) if self._cascade else ())):
+            if getattr(self, name) is not None:
+                self._put(name, i, reset(self._get(name, i), *extra, mask))
 
     # ------------------------------------------------ self-healing --
 
@@ -1497,10 +1669,18 @@ class StreamingKwsSession:
         self._slo = dict(report)
 
     def summary(self) -> StreamSummary:
-        """Fetch the device telemetry ONCE and price it with the IC model."""
+        """Fetch the device telemetry ONCE and price it with the IC model.
+
+        The fetch is the engine's only reduction across shards: each
+        shard's partial sums come back to the host and are summed there."""
+        per_shard = []
+        for i in range(self.n_shards):
+            with self._shard_ctx(i):          # the fetch waits on its stream
+                per_shard.append(torch.stack(list(self._get("_acc", i)))
+                                 .cpu().tolist())
         totals = dict(zip(_Accum._fields,
-                          torch.stack(list(self._acc)).cpu().tolist()))
-        overflow = any(v >= _COUNT_SAT for v in totals.values())
+                          [sum(v) for v in zip(*per_shard)]))
+        overflow = any(v >= _COUNT_SAT for row in per_shard for v in row)
         robust = dict(overflowed=overflow, recoveries=self._recoveries,
                       recovery_reasons=dict(self._recovery_reasons),
                       sat_events=self._sat_events, slo=dict(self._slo))
@@ -1549,7 +1729,10 @@ class StreamingKwsSession:
 class SlotScheduler:
     """Admission/eviction queue mapping live streams onto the session's
     slots (host-side bookkeeping; the only device work is the batched
-    ``reset_streams`` of each admission wave).
+    ``reset_streams`` of each admission wave).  Under a sharded session
+    the free list is kept per shard and admissions go to the least-loaded
+    shard: the step runs at the speed of its busiest shard, so balance is
+    throughput.
 
     Usage::
 
@@ -1565,7 +1748,9 @@ class SlotScheduler:
         self.n_slots = session.batch
         self.n_shards = session.n_shards
         self._queue: collections.deque = collections.deque()
-        self._free = list(range(self.n_slots - 1, -1, -1))  # pop(): low first
+        self._free: list[list[int]] = [[] for _ in range(self.n_shards)]
+        for s in range(self.n_slots - 1, -1, -1):    # pop() yields low first
+            self._free[session.shard_of_slot(s)].append(s)
         self.live: dict[int, Any] = {}               # slot -> payload
 
     def __len__(self) -> int:
@@ -1580,24 +1765,31 @@ class SlotScheduler:
         self._queue.append(payload)
 
     def occupancy(self) -> list[int]:
-        """Live streams per shard: ``[len(live)]`` on one device."""
-        return [len(self.live)]
+        """Live streams per shard (the balance ``admit`` keeps)."""
+        counts = [0] * self.n_shards
+        for slot in self.live:
+            counts[self._sess.shard_of_slot(slot)] += 1
+        return counts
 
     def admit(self) -> list[tuple[int, Any]]:
-        """Map queued requests onto free slots (the most recently freed
-        slot first, like the reference) and reset the whole wave with ONE
-        batched ``reset_streams``.  Slots the supervisor flags
+        """Map queued requests onto free slots, least-loaded shard first
+        (in a shard, the most recently freed slot first, like the
+        reference), and reset the whole wave with ONE batched
+        ``reset_streams``.  Slots the supervisor flags
         (``session.flagged_slots()``) are skipped and stay on the free
         list until it heals or clears them.  Returns the (slot, payload)
         pairs."""
         flagged = self._sess.flagged_slots()
         admitted = []
         while self._queue:
-            idx = next((i for i in range(len(self._free) - 1, -1, -1)
-                        if self._free[i] not in flagged), None)
-            if idx is None:
+            usable = [s for s in range(self.n_shards)
+                      if any(sl not in flagged for sl in self._free[s])]
+            if not usable:
                 break                     # full, or only unhealthy slots
-            slot = self._free.pop(idx)
+            free = self._free[min(usable, key=self._shard_load)]
+            idx = next(i for i in range(len(free) - 1, -1, -1)
+                       if free[i] not in flagged)
+            slot = free.pop(idx)
             payload = self._queue.popleft()
             self.live[slot] = payload
             admitted.append((slot, payload))
@@ -1605,13 +1797,20 @@ class SlotScheduler:
             self._sess.reset_streams([slot for slot, _ in admitted])
         return admitted
 
+    def _shard_load(self, shard: int) -> int:
+        return self.n_slots // self.n_shards - len(self._free[shard])
+
     def evict(self, slot: int) -> Any:
         """Free a finished stream's slot; returns its payload.  Evicting a
         slot that is not live raises ``ValueError`` naming its state."""
         if slot not in self.live:
-            state = ("already free (double evict?)" if slot in self._free
-                     else f"out of range [0, {self.n_slots})")
+            if not 0 <= slot < self.n_slots:
+                state = f"out of range [0, {self.n_slots})"
+            elif slot in self._free[self._sess.shard_of_slot(slot)]:
+                state = "already free (double evict?)"
+            else:
+                state = "never admitted"
             raise ValueError(f"cannot evict slot {slot}: {state}")
         payload = self.live.pop(slot)
-        self._free.append(slot)
+        self._free[self._sess.shard_of_slot(slot)].append(slot)
         return payload

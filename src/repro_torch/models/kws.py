@@ -110,10 +110,19 @@ def _gru_params(params, quantize_8b: bool) -> dg.DeltaGRUParams:
     return dg.DeltaGRUParams(w_x, w_h, params["b"])
 
 
-def serving_weights(params, quantize_8b: bool = False):
+def serving_weights(params, quantize_8b: bool = False, mesh=None):
     """(DeltaGRUParams, w_fc, b_fc) for a serving session (``quantize_8b``:
-    the STE weights' values, the float image of the int8 codes)."""
-    return _gru_params(params, quantize_8b), params["w_fc"], params["b_fc"]
+    the STE weights' values, the float image of the int8 codes),
+    replicated over ``mesh``: a list with one copy per shard, on its
+    device (the tuple itself when ``mesh`` is None).
+
+    Replication is the serving sharding contract: every shard reads its
+    weights from its own device's memory and admission never moves them;
+    only per-stream state is partitioned (``parallel/sharding.py``)."""
+    from repro_torch.parallel import sharding as shp
+    weights = (_gru_params(params, quantize_8b), params["w_fc"],
+               params["b_fc"])
+    return shp.put_replicated(weights, mesh)
 
 
 # The integer serving path stores ĥ on the Q0.15 grid; QAT snaps the

@@ -463,15 +463,14 @@ def tp_down_proj(h, w, shd: Sharder, eq: str, h_logical: tuple,
                  w_logical: tuple):
     """Down-projection.  Without a 'model' mesh axis it is the plain
     einsum; the tensor-parallel reduce-scatter form across cards is
-    ROADMAP.md queue 1 item 9b."""
+    ROADMAP.md queue 1 item 9c (the LM mesh)."""
     mesh = shd.mesh
     if mesh is None or "model" not in mesh.axis_names:
         return shd.act(torch.einsum(eq, h, w),
                        ("batch", "res_seq", "act_embed"))
     raise NotImplementedError(
-        "tp_down_proj across a 'model' mesh axis is ROADMAP.md queue 1 "
-        "item 9b (the slot mesh across cards), which waits for a machine "
-        "with more than one card")
+        "tp_down_proj across a 'model' mesh axis (a reduce-scatter on a "
+        "DeviceMesh) is ROADMAP.md queue 1 item 9c (the LM mesh)")
 
 
 # --------------------------------------------------------------------- mlp

@@ -14,9 +14,15 @@ for a mesh:
 ``Sharder.spec`` is pure arithmetic over axis sizes: it takes any object
 with ``axis_names`` and ``devices.shape``.  With ``mesh=None`` (one
 device) ``act``, ``sharding``, ``shard_params`` and ``param_shardings``
-are identities, as in the reference.  Placing a tensor on a real mesh is
-ROADMAP.md queue 1 item 9b (the slot mesh across cards) and raises
+are identities, as in the reference.  Placing an LM tensor on a real mesh
+is ROADMAP.md queue 1 item 9c (the LM mesh) and raises
 ``NotImplementedError`` until then.
+
+The slot axis of the sharded KWS engine (DESIGN.md §6) is ported: on a
+``launch.mesh.SlotMesh`` a sharded value is a list with one entry per
+shard.  ``put_slot_sharded`` gives shard ``i`` the contiguous block of
+rows ``[i·B/n, (i+1)·B/n)`` of every leaf on its device; ``put_replicated``
+gives every shard the copy of its device (shards on one device share it).
 """
 from __future__ import annotations
 
@@ -24,10 +30,10 @@ import dataclasses
 from typing import Any, Sequence
 
 import numpy as np
+import torch
 
-MESH_TODO = ("placing tensors on a device mesh is ROADMAP.md queue 1 item "
-             "9b (the slot mesh across cards), which waits for a machine "
-             "with more than one card")
+MESH_TODO = ("placing tensors on an LM device mesh (DTensor on a "
+             "DeviceMesh) is ROADMAP.md queue 1 item 9c (the LM mesh)")
 
 
 class PartitionSpec(tuple):
@@ -96,6 +102,93 @@ def check_slot_partition(mesh, n_slots: int) -> int:
         raise ValueError(f"{n_slots} slots do not partition over "
                          f"{shards} devices; pick a multiple")
     return shards
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, NamedTuples, tuples and
+    lists; None stays None (an empty subtree, as in a JAX pytree)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_map_leaves(fn, v) for v in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def slot_specs(tree) -> Any:
+    """Prefix PartitionSpec tree: axis 0 = slots, sharded over the mesh
+    (trailing dims unsharded, so one spec covers leaves of any rank)."""
+    return _map_leaves(lambda _: P(SLOT_AXIS), tree)
+
+
+def replicated_specs(tree) -> Any:
+    """PartitionSpec tree replicating every leaf (weights, coefficients)."""
+    return _map_leaves(lambda _: P(), tree)
+
+
+def map_tensors(fn, tree):
+    """``fn`` over the tensors of a tree of dicts, NamedTuples, tuples and
+    lists (every other leaf is kept as it is)."""
+    return _map_leaves(
+        lambda x: fn(x) if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tensors_of(tree) -> list:
+    """The tensors of a tree, as ``map_tensors`` visits them."""
+    out: list = []
+    map_tensors(out.append, tree)
+    return out
+
+
+def replicate(make, mesh) -> list:
+    """``make(device)`` once per distinct device of ``mesh``, as a list with
+    one entry per shard (shards on one device share that device's copy).
+    On a card every shard's stream waits for the copies, and their memory
+    is held until the work queued on the shard's stream is done."""
+    copies: dict = {}
+    for d in mesh.devices:
+        if d not in copies:
+            copies[d] = make(d)
+    out = [copies[d] for d in mesh.devices]
+    if mesh.is_cuda:
+        for i, tree in enumerate(out):
+            s = mesh.stream(i)
+            s.wait_stream(torch.cuda.current_stream(mesh.device(i)))
+            for leaf in tensors_of(tree):
+                leaf.record_stream(s)
+    return out
+
+
+def put_replicated(tree, mesh):
+    """Weights replicated over the mesh: one copy of ``tree`` per shard,
+    on its device (``tree`` itself without a mesh)."""
+    if mesh is None:
+        return tree
+    return replicate(lambda d: map_tensors(lambda x: x.to(d), tree), mesh)
+
+
+def put_slot_sharded(tree, mesh):
+    """Per-stream state with axis 0 partitioned over the mesh: shard ``i``
+    gets a copy of rows ``[i·B/n, (i+1)·B/n)`` of every leaf, on its device
+    and stream (``tree`` itself without a mesh)."""
+    if mesh is None:
+        return tree
+    n = mesh.size
+
+    def block(x, i):
+        b = x.shape[0] // check_slot_partition(mesh, x.shape[0])
+        if x.is_cuda and mesh.is_cuda:
+            mesh.stream(i).wait_stream(torch.cuda.current_stream(x.device))
+        with mesh.shard(i):
+            y = x[i * b:(i + 1) * b].to(mesh.device(i), copy=True)
+        if x.is_cuda and mesh.is_cuda:
+            x.record_stream(mesh.stream(i))
+        return y
+
+    return [map_tensors(lambda x: block(x, i), tree) for i in range(n)]
 
 
 # Decode overrides: serving keeps tensor parallelism on 'model' and

@@ -12,7 +12,8 @@ Port of ``repro/train/trainer.py``:
 A step's wall time includes waiting for the parameters' device (the
 counterpart of the reference's ``block_until_ready``): CUDA work is
 asynchronous, and a host clock that does not wait would time the launches.
-``reshard`` (the elastic mesh change) waits for the slot mesh across cards.
+``reshard`` (the elastic mesh change) waits for the LM mesh (ROADMAP.md
+queue 1 item 9c).
 """
 from __future__ import annotations
 
@@ -135,6 +136,6 @@ class Trainer:
         """Re-place params/opt onto new shardings (the elastic mesh change
         of the reference)."""
         raise NotImplementedError(
-            "Trainer.reshard needs the slot mesh across cards, ROADMAP.md "
-            "queue 1 item 9b, which waits for a machine with more than one "
-            "card")
+            "Trainer.reshard re-places params and optimizer state on an LM "
+            "device mesh (DTensor on a DeviceMesh), ROADMAP.md queue 1 item "
+            "9c (the LM mesh)")

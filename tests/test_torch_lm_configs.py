@@ -146,7 +146,7 @@ def test_sharder_spec_equals_the_reference(names, shape):
 
 def test_sharder_reference_cases_and_single_device_identities():
     """The reference's own FakeMesh cases, and ``mesh=None`` identities;
-    placement on a real mesh raises naming ROADMAP.md item 9b."""
+    placement on a real mesh raises naming ROADMAP.md item 9c."""
     mesh = FakeMesh(("data", "model"), (4, 2))
     s = tshard.Sharder(mesh=mesh)
     assert s.spec((8, 6), ("batch", "mlp")) == tshard.P("data", "model")
@@ -158,7 +158,7 @@ def test_sharder_reference_cases_and_single_device_identities():
                          ("shard_params", ({"w": x}, {"w": ("batch", None)})),
                          ("param_shardings", ({"w": x},
                                               {"w": ("batch", None)}))):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(NotImplementedError, match="item 9c"):
             getattr(s, method)(*args)
     one = tshard.Sharder(mesh=None)
     assert one.act(x, ("batch", None)) is x
@@ -168,7 +168,7 @@ def test_sharder_reference_cases_and_single_device_identities():
     assert one.param_shardings(p, {"a": {"w": ("batch", None)}}) == \
         {"a": {"w": None}}
     from repro_torch.models import layers as L
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         L.tp_down_proj(torch.ones(1, 2, 3), torch.ones(3, 4), s,
                        "bsf,fd->bsd", ("batch", "seq", "act_mlp"),
                        ("mlp", "embed"))

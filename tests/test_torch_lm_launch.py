@@ -69,7 +69,8 @@ def test_parsers_carry_the_reference_defaults():
     assert {"mode", "arch", "slots", "requests", "prompt_len", "max_new",
             "cache_len", "train_steps", "seed"} <= set(shared)
     assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
-    assert set(j) - set(t) == {"devices"}       # the slot mesh: item 9b
+    assert set(j) - set(t) == set()             # --devices too
+    assert t["devices"] == j["devices"] == 1
     # the reference's train parser is built inside main(): read it there
     import argparse
     seen = {}

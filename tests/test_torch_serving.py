@@ -185,7 +185,11 @@ def test_unported_session_options_raise(weights, option):
         assert sess.supervisor is option["supervisor"]
         assert sess.flagged_slots() == frozenset() and sess.heal() == []
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The slot mesh is ported: a foreign object as the mesh is refused,
+    # as the reference refuses it (its slot_shards reads axis_names).
+    with pytest.raises(AttributeError, match="axis_names"):
+        jstream.StreamingKwsSession(weights[0], J_SMOKE, **option)
+    with pytest.raises(TypeError, match="SlotMesh"):
         tstream.StreamingKwsSession(tkws.params_from_numpy(weights[1]),
                                     T_SMOKE, device="cpu", **option)
 

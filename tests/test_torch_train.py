@@ -228,7 +228,7 @@ def test_trainer_fault_recovery(tmp_path):
     assert again.maybe_restore() == 20
     assert torch.equal(again.params["w"], ref.params["w"])
     assert int(again.opt_state.step) == 20
-    with pytest.raises(NotImplementedError, match="9b"):
+    with pytest.raises(NotImplementedError, match="9c"):
         again.reshard(None)
 
 
