@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # the run the README documents
     python3 chip_smoke.py --profile  # + a torch.profiler breakdown of the
                                      #   always-on serving step
+    python3 chip_smoke.py --lm-mesh-only  # phase 13 alone (no build, no
+                                          #   final line; 4 cards: its
+                                          #   multi-rank half)
 
 Phases, each exiting non-zero on failure:
   1. the card's name and power limit; build all eight CUDA kernels, the
@@ -223,10 +226,28 @@ Phases, each exiting non-zero on failure:
      "visible" error on a one-card machine (with more cards, the checks
      and the timing again on ``make_slot_mesh(min(count, 4))``, and
      ``serve --devices`` over those cards against ``--devices 1``);
-  13. the ``kernels`` JSON line (the eight kernels and the two masked
+  13. the LM mesh (DTensor on a DeviceMesh, one process per rank; no
+     kernel of the port on its path, every launch count stays 0): a
+     world-1 NCCL group and ``make_host_mesh(model=1)`` on qwen2-0.5b at
+     full width (bf16, B = 8 × 128): 2 AdamW steps and 8 greedy tokens
+     with DTensor params against the same without a mesh, bit for bit
+     (params, moments, losses, tokens, logits), and a save →
+     ``restore(shardings=)`` round trip; ms per step of both.  With ≥ 2
+     cards, min(count, 4) NCCL ranks on ``(n/2, 2)``: 3 AdamW steps at
+     full width against one card without a mesh at the reference's
+     bounds (loss within 0.05, ≥ 97 % of the first leaf within 0.05) and
+     in float32 on the first 4 layers (lr 1e-4) within 1e-4, prefill + 32
+     greedy tokens under ``DECODE_RULES`` (float32 logits of the prefill
+     and 4 steps within 1e-4 of max|·|), the elastic restore ``(n, 1)`` →
+     ``(n/2, 2)``, a float32 loss on ``(1, n)`` (14 heads and 2 KV heads
+     replicated at model = 4); train and decode ms sharded and on one
+     card, collectives per step (``CommDebugMode``) and peak memory per
+     rank; with one card it prints that this half needs ≥ 2;
+  14. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations; the four tuned ones with their sweep; each with its
-     launches in phase 12's two-shard run, ``launches_slot_mesh``), the
-     card line, and the final ``{"ok": true, ...}`` line.
+     launches in phase 12's two-shard run, ``launches_slot_mesh``, and on
+     phase 13's path, ``launches_lm_mesh``), the card line, and the
+     final ``{"ok": true, ...}`` line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -5023,6 +5044,451 @@ def mesh_phase(torch, np, params, card, profile) -> dict:
     return {"launches": launches, "timing": timing, "fc_probe": probe}
 
 
+# ------------------------------------------------ phase 13: the LM mesh --
+# The reference's GSPMD placement as DTensor on a DeviceMesh, one process
+# per rank (NCCL takes one rank per card).  No kernel of the port lies on
+# this path: every launch count stays 0.
+LMM_ARCH = "qwen2-0.5b"
+LMM_B, LMM_S = 8, 128          # the train batch: 8 sequences × 128 tokens
+LMM_STEPS_ONE, LMM_STEPS = 2, 3
+LMM_PROMPT, LMM_NEW_ONE, LMM_NEW = 32, 8, 32
+LMM_F32_LAYERS = 4             # depth of the float32 checks
+LMM_LOSS_TOL, LMM_LEAF_TOL, LMM_LEAF_FRAC = 0.05, 0.05, 0.97   # reference's
+LMM_F32_TOL = 1e-4             # float32 loss (relative), logits (of max|·|)
+LMM_GATED_STEPS = 4            # decode steps whose logits are gated
+LMM_WITNESS = 1e-7             # the chaos witness: embedding × (1 + this)
+LMM_WITNESS_FACTOR = 4         # float32 gaps past step 1: ≤ 4 × witness
+LMM_OPT = {"lr": 1e-2, "warmup_steps": 0, "weight_decay": 0.0}
+# float32 at lr 1e-4: at 1e-2 Adam's first step is lr·sign(g), a
+# gradient component at float32 noise level (sharded sums in another
+# order, ~1e-6 of max|g|) flips to a full ±lr step, and the randomly
+# initialised stack (chaotic: PERF.md §6) parts past 1e-4 by step 3
+# (qwen2-0.5b smoke on 4 CPU ranks: 5e-3 at lr 1e-2, 1.6e-3 with eps
+# 1e-3, 2.6e-5 at lr 1e-4).
+LMM_F32_OPT = {**LMM_OPT, "lr": 1e-4}
+LMM_MAX_RANKS = 4
+
+
+def _lmm_cfg(full: bool, dtype=None, layers=None):
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_config(LMM_ARCH) if full else get_smoke_config(LMM_ARCH)
+    kw = {"dtype": dtype} if dtype is not None else {}
+    if layers is not None:
+        kw["num_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
+def _lmm_tokens(torch, np, cfg, B, S, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))
+                            .astype(np.int32))
+
+
+def _lmm_sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _lmm_init(torch, cfg, shd, dev, perturb=False):
+    """The seeded init (the same values on every rank), placed by ``shd``:
+    (params, logical axes).  ``perturb``: the embedding scaled by
+    1 + LMM_WITNESS (the chaos witness)."""
+    from repro_torch.models import get_api
+    gen = torch.Generator(device=dev if dev == "cpu" else
+                          f"cuda:{torch.cuda.current_device()}")
+    params, axes = get_api(cfg, shd, dev).init(gen.manual_seed(0))
+    if perturb:
+        params["embed"]["table"] = params["embed"]["table"] * (
+            1 + LMM_WITNESS)
+    return shd.shard_params(params, axes), axes
+
+
+def _lmm_train(torch, np, cfg, shd, dev, steps_n, count=False,
+               perturb=False):
+    """``steps_n`` AdamW steps (the reference's test settings; float32 at
+    LMM_F32_OPT) from the seeded init on LMM_B × LMM_S tokens: (losses,
+    params, opt state, axes, ms per step, collectives of the last step by
+    op)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import inputs, steps
+    from repro_torch.train import optimizer as opt
+    opt_kw = LMM_F32_OPT if cfg.dtype == torch.float32 else LMM_OPT
+    params, axes = _lmm_init(torch, cfg, shd, dev, perturb)
+    state = opt.init(params)
+    fn, _ = steps.build_train_step(
+        cfg, ShapeConfig("lm_mesh", seq_len=LMM_S, global_batch=LMM_B,
+                         kind="train"), shd,
+        opt_cfg=opt.AdamWConfig(**opt_kw))
+    toks = _lmm_tokens(torch, np, cfg, LMM_B, LMM_S).to(dev)
+    batch = inputs.place_batch({"tokens": toks[:, :LMM_S],
+                                "labels": toks[:, 1:]}, shd)
+    losses, ms, comm = [], [], {}
+    for i in range(steps_n):
+        _lmm_sync(torch, dev)
+        t = time.perf_counter()
+        if count and i == steps_n - 1:
+            from torch.distributed.tensor.debug import CommDebugMode
+            with CommDebugMode() as cm:
+                params, state, m = fn(params, state, batch)
+            comm = {str(k).split(".")[-1]: v
+                    for k, v in cm.get_comm_counts().items()}
+        else:
+            params, state, m = fn(params, state, batch)
+        _lmm_sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, params, state, axes, ms, comm
+
+
+def _lmm_full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _lmm_greedy(torch, np, cfg, shd, dev, params, new, count=False):
+    """Prefill of LMM_PROMPT tokens and ``new`` greedy tokens with the
+    serving Sharder ``shd``: (tokens (B, new), logits (new, B, V) float32
+    on the CPU, ms per decode step, collectives of the last step)."""
+    from repro_torch.launch import inputs
+    from repro_torch.models import get_api
+    api = get_api(cfg, shd, dev)
+    prompt = _lmm_tokens(torch, np, cfg, LMM_B, LMM_PROMPT, seed=2)[
+        :, :LMM_PROMPT].to(dev)
+    cache = api.init_cache(LMM_B, LMM_PROMPT + new)
+    cache, logits = api.prefill(
+        params, inputs.place_batch({"tokens": prompt}, shd)["tokens"], cache)
+    toks, outs, ms, comm = [], [], [], {}
+    for i in range(new):
+        lg = _lmm_full(logits)[:, -1].float()
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        toks.append(nxt.cpu())
+        outs.append(lg.cpu())
+        if i == new - 1:
+            break
+        step_in = inputs.place_batch({"tokens": nxt}, shd)["tokens"]
+        _lmm_sync(torch, dev)
+        t = time.perf_counter()
+        if count and i == new - 2:
+            from torch.distributed.tensor.debug import CommDebugMode
+            with CommDebugMode() as cm:
+                logits, cache = api.decode_step(params, cache, step_in)
+            comm = {str(k).split(".")[-1]: v
+                    for k, v in cm.get_comm_counts().items()}
+        else:
+            logits, cache = api.decode_step(params, cache, step_in)
+        _lmm_sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return torch.cat(toks, dim=1), torch.stack(outs), ms, comm
+
+
+def _lmm_decode_params(torch, cfg, mesh, dev, perturb=False):
+    """(serving Sharder with DECODE_RULES, params placed by it)."""
+    from repro_torch.parallel.sharding import DECODE_RULES, Sharder
+    shd = Sharder(mesh=mesh, rules=DECODE_RULES if mesh is not None
+                  else None)
+    return shd, _lmm_init(torch, cfg, shd, dev, perturb)[0]
+
+
+def _lmm_peak_gb(torch, dev) -> float:
+    return (torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda"
+            else 0.0)
+
+
+def _lmm_baseline(torch, np, full, dev, new) -> dict:
+    """The one-device runs the meshes are held to (no mesh): bf16 and
+    float32 (first LMM_F32_LAYERS layers) training, greedy decode in
+    both, and the float32 chaos witness (the same runs with the embedding
+    scaled by 1 + LMM_WITNESS); every tensor kept is on the CPU."""
+    from repro_torch.parallel.sharding import Sharder, tree_leaves
+    one = Sharder(mesh=None)
+    out = {}
+    for tag, cfg, perturb in (
+            ("bf16", _lmm_cfg(full), False),
+            ("f32", _lmm_cfg(full, torch.float32, LMM_F32_LAYERS), False),
+            ("f32_witness", _lmm_cfg(full, torch.float32, LMM_F32_LAYERS),
+             True)):
+        losses, params, _, _, ms, _ = _lmm_train(torch, np, cfg, one, dev,
+                                                 LMM_STEPS, perturb=perturb)
+        leaf = tree_leaves(params)[0].float().cpu()
+        del params
+        dshd, dparams = _lmm_decode_params(torch, cfg, None, dev, perturb)
+        toks, logits, dms, _ = _lmm_greedy(torch, np, cfg, dshd, dev,
+                                           dparams, new)
+        del dparams
+        out[tag] = {"losses": losses, "leaf": leaf, "train_ms": ms,
+                    "tokens": toks, "logits": logits, "decode_ms": dms}
+    out["peak_gb"] = _lmm_peak_gb(torch, dev)
+    return out
+
+
+def _lmm_rank(rank, n, full, dev, workdir):
+    """One rank of the multi-rank half (``launch.mesh.run_ranks``): the
+    sharded runs on ``(n/2, 2)``, the elastic restore ``(n, 1)`` →
+    ``(n/2, 2)`` and a float32 loss on ``(1, n)``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import Sharder, tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    res = {}
+    mesh = make_host_mesh(model=2, device=dev)
+    shd = Sharder(mesh=mesh)
+    for tag, cfg in (("bf16", _lmm_cfg(full)),
+                     ("f32", _lmm_cfg(full, torch.float32, LMM_F32_LAYERS))):
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        losses, params, state, axes, ms, comm = _lmm_train(
+            torch, np, cfg, shd, dev, LMM_STEPS, count=True)
+        leaf = _lmm_full(tree_leaves(params)[0]).float().cpu()
+        res[tag] = {"losses": losses, "leaf": leaf, "train_ms": ms,
+                    "train_comm": comm,
+                    "train_peak_gb": _lmm_peak_gb(torch, dev)}
+        del params, state
+        dshd, dparams = _lmm_decode_params(torch, cfg, mesh, dev)
+        toks, logits, dms, dcomm = _lmm_greedy(
+            torch, np, cfg, dshd, dev, dparams, LMM_NEW, count=True)
+        res[tag].update({"tokens": toks, "logits": logits,
+                         "decode_ms": dms, "decode_comm": dcomm})
+        del dparams
+    # The elastic restore: params saved from (n, 1), restored onto (n/2, 2).
+    cfg = _lmm_cfg(full, torch.float32, LMM_F32_LAYERS)
+    wide = Sharder(mesh=make_host_mesh(model=1, device=dev))
+    params, axes = _lmm_init(torch, cfg, wide, dev)
+    ckpt.save(workdir, 7, {"params": params})
+    back = ckpt.restore(workdir, 7, {"params": params}, shardings={
+        "params": shd.param_shardings(params, axes)})["params"]
+    want = shd.param_shardings(params, axes)
+    same = all(torch.equal(_lmm_full(a), _lmm_full(b)) for a, b in
+               zip(tree_leaves(params), tree_leaves(back)))
+    placed = all(b.device_mesh == mesh and tuple(b.placements)
+                 == w.placements for b, w in
+                 zip(tree_leaves(back), tree_leaves(want)))
+    res["elastic"] = {"equal": same, "placed": placed}
+    del params, back
+    # (1, n): 14 heads and 2 KV heads fall back to replicated at model = n.
+    tall = Sharder(mesh=make_host_mesh(model=n, device=dev))
+    losses = _lmm_train(torch, np, cfg, tall, dev, 1)[0]
+    res["tall"] = {"loss": losses[0],
+                   "heads_spec": str(tall.spec((cfg.d_model, cfg.n_heads,
+                                                cfg.d_head),
+                                               ("embed", "heads",
+                                                "head_dim"))),
+                   "kv_spec": str(tall.spec((cfg.d_model, cfg.n_kv_heads,
+                                             cfg.d_head),
+                                            ("embed", "kv_heads",
+                                             "head_dim")))}
+    launched = {k: v for k, v in read_launches(kernel_wrappers()).items()
+                if v}
+    res["launched"] = launched
+    return res
+
+
+def _lmm_world1(torch, np, full, dev, workdir, bad) -> dict:
+    """A world-1 process group and ``make_host_mesh(model=1)``: 2 train
+    steps and LMM_NEW_ONE greedy tokens with DTensor params against the
+    same without a mesh, bit for bit; a save → restore(shardings=) round
+    trip of the meshed params."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import Sharder, tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    kw = {"device_id": torch.device("cuda", torch.cuda.current_device())} \
+        if dev == "cuda" else {}
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            init_method=f"file://{workdir}/store", rank=0,
+                            world_size=1, **kw)
+    try:
+        mesh = make_host_mesh(model=1, device=dev)
+        cfg = _lmm_cfg(full)
+        runs = {}
+        for tag, shd in (("plain", Sharder(mesh=None)),
+                         ("mesh", Sharder(mesh=mesh))):
+            losses, params, state, axes, ms, _ = _lmm_train(
+                torch, np, cfg, shd, dev, LMM_STEPS_ONE)
+            leaves = [_lmm_full(x) for x in tree_leaves(
+                {"params": params, "opt": state})]
+            dshd, dparams = _lmm_decode_params(
+                torch, cfg, mesh if tag == "mesh" else None, dev)
+            toks, logits, dms, _ = _lmm_greedy(torch, np, cfg, dshd, dev,
+                                               dparams, LMM_NEW_ONE)
+            runs[tag] = (losses, leaves, ms, toks, logits, dms)
+            if tag == "mesh":
+                ckpt.save(workdir, 1, {"params": params})
+                back = ckpt.restore(workdir, 1, {"params": params},
+                                    shardings={"params": shd.param_shardings(
+                                        params, axes)})["params"]
+                round_trip = all(
+                    torch.equal(a.to_local(), b.to_local())
+                    and b.placements == a.placements
+                    for a, b in zip(tree_leaves(params), tree_leaves(back)))
+                del back
+            del params, state, dparams, leaves
+        (l0, p0, ms0, t0, g0, d0), (l1, p1, ms1, t1, g1, d1) = \
+            runs["plain"], runs["mesh"]
+        same_train = l0 == l1 and all(torch.equal(a, b)
+                                      for a, b in zip(p0, p1))
+        same_decode = torch.equal(t0, t1) and torch.equal(g0, g1)
+        print(f"[lm-mesh] world 1, make_host_mesh(model=1), {LMM_ARCH} "
+              f"full width bf16, B = {LMM_B} × {LMM_S}: {LMM_STEPS_ONE} "
+              f"AdamW steps with DTensor params "
+              f"{'equal' if same_train else 'DIFFER'} bit for bit "
+              f"(losses {l1}), {LMM_NEW_ONE} greedy tokens "
+              f"{'equal' if same_decode else 'DIFFER'}; ms per train step "
+              f"{ms1[-1]:.1f} meshed / {ms0[-1]:.1f} plain (first "
+              f"{ms1[0]:.1f} / {ms0[0]:.1f}); ms per decode step "
+              f"{statistics.median(d1):.2f} / {statistics.median(d0):.2f}; "
+              f"save → restore(shardings=) "
+              f"{'equal' if round_trip else 'DIFFERS'}")
+        bad.check(same_train, "world-1 mesh training differs from the plain")
+        bad.check(same_decode, "world-1 mesh decode differs from the plain")
+        bad.check(round_trip, "world-1 save → restore(shardings=) differs")
+        return {"train_ms": ms1[-1], "train_ms_plain": ms0[-1],
+                "decode_ms": statistics.median(d1),
+                "decode_ms_plain": statistics.median(d0),
+                "losses": l1, "equal": same_train and same_decode}
+    finally:
+        dist.destroy_process_group()
+
+
+def _lmm_multi(torch, np, full, dev, n, workdir, bad) -> dict:
+    """``n`` ranks on ``(n/2, 2)`` against one device without a mesh."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    base = _lmm_baseline(torch, np, full, dev, LMM_NEW)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(_lmm_rank, n, full, dev, str(workdir / "ckpt"),
+                      device=dev, workdir=workdir / "ranks")
+    t2 = time.perf_counter()
+    r0 = ranks[0]
+    out = {"ranks": n, "mesh": [n // 2, 2], "baseline_s": t1 - t0,
+           "ranks_s": t2 - t1}
+    b, s = base["bf16"], r0["bf16"]
+    gap = abs(b["losses"][-1] - s["losses"][-1])
+    frac = float((b["leaf"] - s["leaf"]).abs().lt(LMM_LEAF_TOL).float()
+                 .mean())
+    agree = float((b["tokens"] == s["tokens"]).float().mean())
+    bad.check(gap < LMM_LOSS_TOL, f"sharded bf16 loss {s['losses']} vs "
+              f"one device {b['losses']}")
+    bad.check(frac >= LMM_LEAF_FRAC, f"first leaf within {LMM_LEAF_TOL}: "
+              f"{frac:.4f} < {LMM_LEAF_FRAC}")
+    fb, fs, fw = base["f32"], r0["f32"], base["f32_witness"]
+
+    def loss_rel(got):
+        return [abs(x - y) / abs(x) for x, y in zip(fb["losses"], got)]
+
+    def logit_gap(got, k):
+        want = fb["logits"][:k]
+        return float((want - got[:k]).abs().max() / want.abs().max())
+
+    # The first loss is a forward pass on equal weights: gated at 1e-4.
+    # Later steps and the logits are gated against the chaos witness:
+    # the one-card run itself, with its embedding scaled by 1 + 1e-7,
+    # moves by as much as a change of summation order does (the seed's
+    # init makes the stack chaotic: PERF.md §6).
+    rels, wit = loss_rel(fs["losses"]), loss_rel(fw["losses"])
+    rel = max(rels)
+    k = LMM_GATED_STEPS + 1
+    lg, lg_wit = logit_gap(fs["logits"], k), logit_gap(fw["logits"], k)
+    lg_all = logit_gap(fs["logits"], LMM_NEW)
+    f32_tokens = float((fb["tokens"] == fs["tokens"]).float().mean())
+    bad.check(rels[0] < LMM_F32_TOL, f"sharded float32 first loss "
+              f"{fs['losses'][0]} vs {fb['losses'][0]} (rel {rels[0]:.2e})")
+    bad.check(rel <= max(LMM_F32_TOL, LMM_WITNESS_FACTOR * max(wit)),
+              f"sharded float32 losses {fs['losses']} vs {fb['losses']} "
+              f"(rel {rel:.2e}; the witness moves {max(wit):.2e})")
+    bad.check(lg <= max(LMM_F32_TOL, LMM_WITNESS_FACTOR * lg_wit),
+              f"sharded float32 decode logits {lg:.2e} of max|·| over the "
+              f"prefill and {LMM_GATED_STEPS} steps (the witness moves "
+              f"{lg_wit:.2e})")
+    tall_rel = abs(r0["tall"]["loss"] - fb["losses"][0]) / abs(
+        fb["losses"][0])
+    bad.check(tall_rel < LMM_F32_TOL, f"(1, {n}) float32 loss "
+              f"{r0['tall']['loss']} vs {fb['losses'][0]}")
+    bad.check(r0["elastic"]["equal"] and r0["elastic"]["placed"],
+              f"elastic restore ({n}, 1) → ({n // 2}, 2): {r0['elastic']}")
+    launched = [r["launched"] for r in ranks if r["launched"]]
+    bad.check(not launched, f"the LM mesh ranks launched kernels: "
+              f"{launched}")
+    out.update({
+        "bf16": {"loss_one": b["losses"], "loss_sharded": s["losses"],
+                 "loss_gap": gap, "leaf_frac_within": frac,
+                 "greedy_token_agreement": agree,
+                 "train_ms_one": b["train_ms"][-1],
+                 "train_ms_sharded": s["train_ms"][-1],
+                 "decode_ms_one": statistics.median(b["decode_ms"]),
+                 "decode_ms_sharded": statistics.median(s["decode_ms"]),
+                 "train_collectives": s["train_comm"],
+                 "decode_collectives": s["decode_comm"],
+                 "peak_gb_rank": [r["bf16"]["train_peak_gb"]
+                                  for r in ranks],
+                 "peak_gb_one": base["peak_gb"]},
+        "f32": {"layers": LMM_F32_LAYERS, "loss_one": fb["losses"],
+                "loss_sharded": fs["losses"], "loss_rel": rel,
+                "loss_rel_by_step": rels, "witness_loss_rel_by_step": wit,
+                "logits_rel": lg, "witness_logits_rel": lg_wit,
+                "logits_rel_all_steps": lg_all,
+                "greedy_token_agreement": f32_tokens,
+                "train_collectives": fs["train_comm"]},
+        "elastic": r0["elastic"],
+        "tall": {**r0["tall"], "loss_rel": tall_rel}})
+    print(f"[lm-mesh] {n} ranks on ({n // 2}, 2), {LMM_ARCH} "
+          f"{'full width' if full else 'smoke'}: bf16 loss {s['losses']} "
+          f"vs one device {b['losses']} (gap {gap:.4f}), first leaf "
+          f"{frac:.4f} within {LMM_LEAF_TOL}, greedy tokens {agree:.3f} "
+          f"equal; float32 × {LMM_F32_LAYERS} layers loss rel "
+          f"{rel:.2e} (witness {max(wit):.2e}), decode logits {lg:.2e} of "
+          f"max|·| (witness {lg_wit:.2e}; prefill + "
+          f"{LMM_GATED_STEPS} steps; {lg_all:.2e} over {LMM_NEW}, tokens "
+          f"{f32_tokens:.3f} equal); ms per train step "
+          f"{s['train_ms'][-1]:.1f} sharded / {b['train_ms'][-1]:.1f} one "
+          f"device, per decode step "
+          f"{statistics.median(s['decode_ms']):.2f} / "
+          f"{statistics.median(b['decode_ms']):.2f}; collectives per "
+          f"train step {s['train_comm']}, per decode step "
+          f"{s['decode_comm']}; peak GiB per rank "
+          f"{[round(r['bf16']['train_peak_gb'], 2) for r in ranks]} "
+          f"(one device {base['peak_gb']:.2f}); elastic {r0['elastic']}; "
+          f"(1, {n}) heads {r0['tall']['heads_spec']} kv "
+          f"{r0['tall']['kv_spec']}, loss rel {tall_rel:.2e}")
+    return out
+
+
+def lm_mesh_phase(torch, np, card, dev: str = "cuda", full: bool = True,
+                  ranks: int | None = None) -> dict:
+    """Phase 13: the LM mesh (DTensor on a DeviceMesh).  One device: a
+    world-1 mesh bit for bit against no mesh.  With ≥ 2 (``ranks``, by
+    default min(cards, LMM_MAX_RANKS)): the sharded runs against one
+    device."""
+    import tempfile
+    bad = Failures("LM mesh phase")
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    n = ranks if ranks is not None else min(torch.cuda.device_count(),
+                                            LMM_MAX_RANKS)
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_") as tmp:
+        tmp = pathlib.Path(tmp)
+        one = _lmm_world1(torch, np, full, dev, tmp, bad)
+        multi = None
+        if n >= 2:
+            multi = _lmm_multi(torch, np, full, dev, n - n % 2, tmp, bad)
+        else:
+            print(f"[lm-mesh] {card}: the multi-rank half needs ≥ 2 cards "
+                  f"(NCCL refuses two ranks on one card); this machine has "
+                  f"{torch.cuda.device_count() if dev == 'cuda' else 0}")
+    launched = {k: v for k, v in read_launches(wrappers).items() if v}
+    bad.check(not launched, f"the LM mesh path launched kernels: {launched}")
+    secs = time.perf_counter() - t0
+    print(f"[lm-mesh] phase {secs:.1f} s; kernel launches on the LM mesh "
+          f"path: 0")
+    print("[lm-mesh] " + json.dumps({"card": card, "world1": one,
+                                     "multi": multi}))
+    bad.raise_any()
+    return {"seconds": secs, "world1": one, "multi": multi,
+            "launches": read_launches(wrappers)}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -5031,6 +5497,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the always-on serving steps")
+    ap.add_argument("--lm-mesh-only", action="store_true",
+                    help="run only phase 13, the LM mesh (no kernel build; "
+                         "no final line)")
     args = ap.parse_args()
     # No autotune cache of the machine may change a phase's launches: the
     # run keeps its own, removed at exit.
@@ -5056,6 +5525,10 @@ def main() -> int:
     dev = resolve_device(None)
     print(f"[card] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {dev}")
+    if args.lm_mesh_only:
+        lm_mesh_phase(torch, np, card)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
     build_kernels()
 
     x, fex, params = make_inputs(torch, np)
@@ -5115,6 +5588,7 @@ def main() -> int:
     tune_res = tuning_phase(torch, np, fex, params, bundle, card, tune_cache)
     lm_phase(torch, np, card)
     mesh_res = mesh_phase(torch, np, params, card, args.profile)
+    lm_mesh_launch = lm_mesh_phase(torch, np, card)["launches"]
     mesh_launch = {}
     for (kind, numerics), counts in mesh_res["launches"].items():
         for name, v in counts.items():
@@ -5263,6 +5737,8 @@ def main() -> int:
         "launch_floor_ms": wk["floor"], "ms_b256": wk256["ms"],
         "plain_ms_b256": wk256["plain"], "bound_ms_b256": wk256["bound"],
         "launch_floor_ms_b256": wk256["floor"]})
+    for k in kernels:
+        k["launches_lm_mesh"] = lm_mesh_launch[k["name"]]
     if len(kernels) != 10:
         fail(f"the kernels line lists {len(kernels)} kernels, not 10")
     print(json.dumps({"kernels": kernels}))

@@ -47,6 +47,8 @@ SERVE_LM_CMD = ("PYTHONPATH=src python -m repro_torch.launch.serve "
 TRAIN_LM_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
                 "--arch qwen2-0.5b --full-config --steps 4 --batch 8 "
                 "--seq 128")
+LM_TRAIN_EXAMPLE_CMD = ("PYTHONPATH=src python examples/torch_lm_train.py "
+                        "--arch qwen2-0.5b --steps 60")
 
 # Train → deploy ------------------------------------------------------------
 TRAIN_PROMOTE_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
@@ -78,4 +80,5 @@ ALL_COMMANDS = {
     "lm_tests": LM_TESTS_CMD,
     "serve_lm": SERVE_LM_CMD,
     "train_lm": TRAIN_LM_CMD,
+    "lm_train_example": LM_TRAIN_EXAMPLE_CMD,
 }

@@ -1,24 +1,42 @@
 """Input stand-ins for every (arch × shape) cell.
 
 Port of ``repro/launch/inputs.py``: ``meta``-device tensors of the right
-shapes and dtypes (no allocation), the counterpart of the reference's
-``ShapeDtypeStruct``s.  Modality frontends are stubs: vlm / audio cells
-receive precomputed patch / frame embeddings as inputs.
+shapes and dtypes (no allocation) whose ``sharding`` attribute is their
+placement on the Sharder's mesh (None without one), the counterpart of
+the reference's ``ShapeDtypeStruct``s.  ``place_batch`` puts a host
+batch on the mesh by the same logical axes.  Modality frontends are
+stubs: vlm / audio cells receive precomputed patch / frame embeddings as
+inputs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.parallel.sharding import Sharder
+from repro_torch.parallel.sharding import Sharder, place
+
+# Logical axes of every batch entry (tokens, labels, positions and
+# embeds of the train, prefill and decode steps).
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "positions": ("batch", "seq"),
+              "embeds": ("batch", "seq", "act_embed")}
 
 
 def _tok(shd: Sharder, batch: int, seq: int):
-    return torch.empty((batch, seq), dtype=torch.int32, device="meta")
+    return shd.spec_tensor((batch, seq), BATCH_AXES["tokens"], torch.int32)
 
 
 def _emb(shd: Sharder, batch: int, seq: int, d: int):
-    return torch.empty((batch, seq, d), dtype=torch.bfloat16, device="meta")
+    return shd.spec_tensor((batch, seq, d), BATCH_AXES["embeds"],
+                           torch.bfloat16)
+
+
+def place_batch(batch: dict, shd: Sharder) -> dict:
+    """A host batch (the same whole tensors on every rank) placed by
+    ``BATCH_AXES``: tokens, labels, positions and embeds become DTensors
+    on the mesh (the batch as it is without a mesh)."""
+    return {k: place(v, shd.sharding(v.shape, BATCH_AXES[k]))
+            for k, v in batch.items()}
 
 
 def train_batch_specs(cfg: ArchConfig, shape: ShapeConfig, shd: Sharder

@@ -158,27 +158,29 @@ def _shapes(cfg, batch, seq):
             (batch, cfg.frontend_tokens, cfg.d_model))
 
 
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+MEMORY_AXES = ("batch", None, None)
+
+
 def init_cache(cfg, batch: int, seq: int, shd: Sharder, device="cpu"
                ) -> EncDecCache:
     kv, mem = _shapes(cfg, batch, seq)
-    if shd.mesh is not None:
-        shd.sharding(kv, ("layers", "batch", "kv_seq", "kv_heads",
-                          "head_dim"))
-    return EncDecCache(k=torch.zeros(kv, dtype=cfg.dtype, device=device),
-                       v=torch.zeros(kv, dtype=cfg.dtype, device=device),
-                       memory=torch.zeros(mem, dtype=cfg.dtype,
-                                          device=device), index=0)
+    return EncDecCache(k=shd.zeros(kv, KV_AXES, cfg.dtype, device),
+                       v=shd.zeros(kv, KV_AXES, cfg.dtype, device),
+                       memory=shd.zeros(mem, MEMORY_AXES, cfg.dtype, device),
+                       index=0)
 
 
 def cache_specs(cfg, batch: int, seq: int, shd: Sharder) -> EncDecCache:
     kv, mem = _shapes(cfg, batch, seq)
-    e = functools.partial(torch.empty, dtype=cfg.dtype, device="meta")
-    return EncDecCache(k=e(kv), v=e(kv), memory=e(mem),
+    return EncDecCache(k=shd.spec_tensor(kv, KV_AXES, cfg.dtype),
+                       v=shd.spec_tensor(kv, KV_AXES, cfg.dtype),
+                       memory=shd.spec_tensor(mem, MEMORY_AXES, cfg.dtype),
                        index=torch.empty((), dtype=torch.int32,
                                          device="meta"))
 
 
-@torch.inference_mode()
+@L.serving
 def prefill(params, cfg, shd, tokens, cache: EncDecCache, embeds=None):
     """Encoder pass over frames + decoder prefill over prompt tokens."""
     memory = (encode(params, cfg, shd, embeds, remat=False)
@@ -195,7 +197,7 @@ def prefill(params, cfg, shd, tokens, cache: EncDecCache, embeds=None):
     return new_cache, shd.act(logits, ("batch", None, "act_vocab"))
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params, cfg, shd, cache: EncDecCache, tokens):
     x = L.embed_tokens(params["embed"], tokens, shd)
     idx = int(cache.index)

@@ -114,27 +114,27 @@ class HybridCache(NamedTuple):
     index: int
 
 
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
+
 def init_cache(cfg, batch: int, seq: int, shd: Sharder, device="cpu"
                ) -> HybridCache:
     shape = (_n_groups(cfg), batch, seq, cfg.n_kv_heads, cfg.d_head)
-    if shd.mesh is not None:
-        shd.sharding(shape, ("layers", "batch", "kv_seq", "kv_heads",
-                             "head_dim"))
     return HybridCache(
         mamba=M.init_mamba_cache(cfg, batch, shd, device=device),
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device), index=0)
+        k=shd.zeros(shape, KV_AXES, cfg.dtype, device),
+        v=shd.zeros(shape, KV_AXES, cfg.dtype, device), index=0)
 
 
 def cache_specs(cfg, batch: int, seq: int, shd: Sharder) -> HybridCache:
     shape = (_n_groups(cfg), batch, seq, cfg.n_kv_heads, cfg.d_head)
-    kv = torch.empty(shape, dtype=cfg.dtype, device="meta")
+    kv = shd.spec_tensor(shape, KV_AXES, cfg.dtype)
     return HybridCache(mamba=M.mamba_cache_specs(cfg, batch, shd), k=kv,
                        v=kv, index=torch.empty((), dtype=torch.int32,
                                                device="meta"))
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params, cfg, shd, cache: HybridCache, tokens):
     x0 = L.embed_tokens(params["embed"], tokens, shd)[:, 0]     # (B,D)
     idx = int(cache.index)
@@ -157,7 +157,7 @@ def decode_step(params, cfg, shd, cache: HybridCache, tokens):
                                v=cache.v, index=idx + 1)
 
 
-@torch.inference_mode()
+@L.serving
 def prefill(params, cfg, shd, tokens, cache: HybridCache, embeds=None):
     """Process a full prompt → (cache, last-token logits)."""
     x0 = L.embed_tokens(params["embed"], tokens, shd)

@@ -14,18 +14,29 @@ one-token query or fewer than ``FLASH_MIN_KV`` keys, else the q/kv-tiled
 online-softmax ``flash_attention`` whose backward recomputes the scores
 per tile (an ``autograd.Function``).  Both are plain PyTorch, as the
 reference's are plain JAX: no Pallas kernel lies on this path.
+
+On a ``DeviceMesh`` the same functions run on DTensors (the reference's
+GSPMD partitioning): DTensor propagates each op's sharding, the
+``shd.act`` constraints redistribute, attention (direct or the tiled
+``flash_attention``) runs per shard through ``local_map`` (its batch and
+KV-head blocks are independent), a KV cache sharded on its sequence
+writes only the positions its rank holds, and ``tp_down_proj`` is the
+reference's Megatron-SP ``shard_map``: a local partial product
+reduce-scattered over ``'model'`` onto the sequence dim.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.sharding import AxTree, Sharder
+from repro_torch.parallel.sharding import (AxTree, Sharder, is_dtensor,
+                                          local_bounds)
 
 BIG_WINDOW = 1 << 30
 FLASH_MIN_KV = 4096
@@ -104,6 +115,19 @@ def remat(fn, *args, context_fn=None):
     if context_fn is None:
         return checkpoint(fn, *args, use_reentrant=False)
     return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def serving(fn):
+    """Run ``fn(params, cfg, shd, ...)`` (a prefill or decode step) without
+    autograd: ``torch.inference_mode()``, or ``torch.no_grad()`` on a
+    mesh (a DTensor made outside inference mode cannot be viewed inside
+    it)."""
+    @functools.wraps(fn)
+    def run(params, cfg, shd, *args, **kwargs):
+        ctx = torch.inference_mode() if shd.mesh is None else torch.no_grad()
+        with ctx:
+            return fn(params, cfg, shd, *args, **kwargs)
+    return run
 
 
 def layer_slice(tree, i: int):
@@ -207,10 +231,27 @@ def _causal_mask(qpos, kpos, window):
 def _write_cache(cache, new, cache_index: int):
     """Write ``new`` (B, S, …) into ``cache`` (B, S_max, …) at
     ``cache_index`` along dim 1, in place, with the start clamped so the
-    update fits (``jax.lax.dynamic_update_slice_in_dim`` semantics)."""
+    update fits (``jax.lax.dynamic_update_slice_in_dim`` semantics).
+
+    A DTensor cache (sharded on its sequence by the ``kv_seq`` rule) is
+    written shard by shard: ``new`` is brought to the cache's placements
+    with the sequence whole, and each rank writes the positions of its
+    own block."""
     S, S_max = new.shape[1], cache.shape[1]
     start = min(max(int(cache_index), 0), S_max - S)
-    cache[:, start:start + S] = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache[:, start:start + S] = new.to(cache.dtype)
+        return cache
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in cache.placements)
+    new = new.redistribute(mesh, pl)
+    lo, hi = local_bounds(cache, 1)
+    a, b = max(start, lo), min(start + S, hi)
+    if a < b:
+        cache.to_local()[:, a - lo:b - lo] = \
+            new.to_local()[:, a - start:b - start].to(cache.dtype)
     return cache
 
 
@@ -237,14 +278,19 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
     if S > 1:
         x = shd.act(x, ("batch", "seq", "act_embed"))
 
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    # On a mesh the projections are reduced onto their head split before
+    # anything is added to them (a contraction over a split embed, as
+    # DECODE_RULES give, leaves a partial sum).
+    q = shd.act(torch.einsum("bsd,dhe->bshe", x, p["wq"]),
+                ("batch", "seq", "act_heads", None))
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = _rms_head(q, p["q_norm"])
     if cross_kv is None:
-        k = torch.einsum("bsd,dke->bske", x, p["wk"])
-        v = torch.einsum("bsd,dke->bske", x, p["wv"])
+        kv_axes = ("batch", "seq", "kv_heads", None)
+        k = shd.act(torch.einsum("bsd,dke->bske", x, p["wk"]), kv_axes)
+        v = shd.act(torch.einsum("bsd,dke->bske", x, p["wv"]), kv_axes)
         if cfg.qkv_bias:
             k = k + p["bk"]
             v = v + p["bv"]
@@ -281,6 +327,14 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
         causal_mask = causal
         new_cache = None
 
+    if is_dtensor(q):
+        # A head split the KV heads do not divide cannot survive the
+        # (H) → (K, G) view: gather it first.
+        from torch.distributed.tensor import Replicate, Shard
+        q = q.redistribute(q.device_mesh, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == 2
+            and K % q.device_mesh.size(m) else p
+            for m, p in enumerate(q.placements)))
     qg = q.reshape(B, S, K, G, Dh)
     # Train/prefill causal path: qpos is structurally arange(S) → pass None
     # so _attend can skip above-diagonal KV tiles statically.
@@ -304,6 +358,8 @@ def _attend(qg, k, v, mask_qpos, qpos=None, window=None, causal=True):
     recomputed per tile in backward — S×T never materializes in either
     pass); a one-token query or a short T takes the direct path.
     """
+    if is_dtensor(qg):
+        return _attend_blocks(qg, k, v, mask_qpos, qpos, window, causal)
     B, S, K, G, Dh = qg.shape
     T = k.shape[1]
     scale = float(1.0 / np.sqrt(Dh))
@@ -328,6 +384,44 @@ def _attend(qg, k, v, mask_qpos, qpos=None, window=None, causal=True):
     win = BIG_WINDOW if window is None else int(window)
     return flash_attention(qg, k, v, qpos.to(torch.int64), win, causal,
                            static_diag)
+
+
+def _attend_blocks(qg, k, v, mask_qpos, qpos, window, causal):
+    """``_attend`` on DTensors, one block at a time: attention over a
+    batch row and a KV-head group is independent of the others, so each
+    rank runs the plain path, direct or tiled, on its block of the batch
+    (dim 0) and the KV heads (dim 2); the sequences are gathered whole
+    (the counterpart of the reference's partitioned attention)."""
+    return local_blocks(
+        lambda q_, k_, v_: _attend(q_, k_, v_, mask_qpos, qpos, window,
+                                   causal), (qg, k, v), split_dims=(0, 2))
+
+
+def local_blocks(fn, blocked, whole=(), split_dims=(0,), n_out=1):
+    """``fn(*blocked, *whole)`` (DTensors on one mesh) on their local
+    tensors, once per rank, through ``local_map``.  A mesh dim keeps its
+    split where every tensor of ``blocked`` is split on the same dim of
+    ``split_dims`` (their blocks are independent there); every other
+    placement is gathered.  ``whole``
+    tensors are gathered on every mesh dim, and their gradients are
+    partial sums where the blocks are split.  Each of the ``n_out``
+    outputs takes the blocks' placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = blocked[0].device_mesh
+    pl = tuple(ps[0] if isinstance(ps[0], Shard) and ps[0].dim in split_dims
+               and all(p == ps[0] for p in ps) else Replicate()
+               for ps in zip(*(t.placements for t in blocked)))
+    rep = (Replicate(),) * mesh.ndim
+    grad_whole = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                       for p in pl)
+    fn = local_map(fn, out_placements=list(pl) if n_out == 1
+                   else (pl,) * n_out,
+                   in_placements=(pl,) * len(blocked) + (rep,) * len(whole),
+                   in_grad_placements=(pl,) * len(blocked)
+                   + (grad_whole,) * len(whole), device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in blocked),
+              *(t.redistribute(mesh, rep) for t in whole))
 
 
 def _tile_mask(qp, kp, window: int, causal: bool):
@@ -461,16 +555,68 @@ def flash_attention(qg, k, v, qpos, window, causal: bool,
 # ------------------------------------------------- TP collective matmul
 def tp_down_proj(h, w, shd: Sharder, eq: str, h_logical: tuple,
                  w_logical: tuple):
-    """Down-projection.  Without a 'model' mesh axis it is the plain
-    einsum; the tensor-parallel reduce-scatter form across cards is
-    ROADMAP.md queue 1 item 9c (the LM mesh)."""
+    """Tensor-parallel down-projection with sequence-parallel output.
+
+    The reference's ``shard_map`` (Megatron-SP): each rank contracts its
+    local blocks, the weight's FSDP axes all-gathered first, into a
+    partial sum over ``'model'``; that DTensor (``Partial()`` on
+    ``'model'``) is redistributed to ``Shard(1)``, one reduce-scatter
+    in the activations' dtype onto the sequence dim, whose backward is an
+    all-gather.  For a one-token step or a sequence ``'model'`` does not
+    divide, the partial sum is reduced to the reference's fallback
+    constraint (``res_seq``: an all-reduce); without a ``'model'`` axis,
+    or with a contraction not sharded on it, it is the plain einsum and
+    that constraint."""
     mesh = shd.mesh
-    if mesh is None or "model" not in mesh.axis_names:
-        return shd.act(torch.einsum(eq, h, w),
-                       ("batch", "res_seq", "act_embed"))
-    raise NotImplementedError(
-        "tp_down_proj across a 'model' mesh axis (a reduce-scatter on a "
-        "DeviceMesh) is ROADMAP.md queue 1 item 9c (the LM mesh)")
+    S = h.shape[1]
+    res = ("batch", "res_seq", "act_embed")
+    if mesh is None or shd._axis_sizes.get("model", 1) <= 1:
+        return shd.act(torch.einsum(eq, h, w), res)
+    h_spec = shd.spec(h.shape, h_logical)
+    w_spec = shd.spec(w.shape, w_logical)
+    contract_ok = (any(_spec_uses((ax,), "model") for ax in h_spec[2:] if ax)
+                   and _spec_uses(w_spec, "model"))
+    if not contract_ok:
+        return shd.act(torch.einsum(eq, h, w), res)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    names = mesh.mesh_dim_names
+    h = shd.act(h, h_logical)
+    w = gather_fsdp(shd.act(w, w_logical))              # FSDP all-gather
+    # Where the batch is split and the weight whole, each rank's weight
+    # gradient is a partial sum over the batch blocks.
+    w_grad_pl = tuple(Partial() if isinstance(hp, Shard)
+                      and not isinstance(wp, Shard) else wp
+                      for hp, wp in zip(h.placements, w.placements))
+    partial = torch.einsum(eq, h.to_local(),
+                           w.to_local(grad_placements=w_grad_pl))
+    out = DTensor.from_local(partial, mesh, tuple(
+        Partial() if n == "model" else p
+        for n, p in zip(names, h.placements)), run_check=False)
+    if S == 1 or S % shd._axis_sizes["model"]:
+        return shd.act(out, res)
+    return out.redistribute(mesh, tuple(
+        Shard(1) if n == "model" else p
+        for n, p in zip(names, h.placements)))
+
+
+def gather_fsdp(w):
+    """``w`` with its FSDP mesh axes (``pod``, ``data``) gathered and its
+    other placements kept (``w`` itself off a mesh): the per-layer weight
+    all-gather GSPMD issues before a product over sharded weights."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    return w.redistribute(mesh, tuple(
+        Replicate() if n in ("pod", "data") else p
+        for n, p in zip(mesh.mesh_dim_names, w.placements)))
+
+
+def _spec_uses(spec, axis):
+    for e in spec:
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return True
+    return False
 
 
 # --------------------------------------------------------------------- mlp
@@ -525,12 +671,29 @@ def init_embedding(key, vocab_padded: int, d: int, dtype):
 
 
 def embed_tokens(p, tokens, shd: Sharder):
-    x = p["table"][tokens.to(torch.int64)]
+    """Rows of the table, by ``F.embedding``.  On a mesh the tokens become
+    a batch-sharded DTensor, the table's FSDP axes are gathered (its
+    vocab split stays), and the masked partial sum DTensor makes of a
+    vocab-split lookup is reduced before the constraint."""
+    table = p["table"]
+    if not is_dtensor(table):
+        return shd.act(F.embedding(tokens.to(torch.int64), table),
+                       ("batch", "res_seq", "act_embed"))
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tokens = shd.act(tokens, ("batch", "seq"))
+    table = table.redistribute(mesh, tuple(
+        q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+        for q in table.placements))
+    x = F.embedding(tokens.to(torch.int64), table)
+    x = x.redistribute(mesh, tuple(Replicate() if isinstance(q, Partial)
+                                   else q for q in x.placements))
     return shd.act(x, ("batch", "res_seq", "act_embed"))
 
 
-def _chunk_loss(xc, lc, head, vocab_size):
+def _chunk_loss(xc, lc, head, vocab_size, shd):
     logits = torch.einsum("bsd,dv->bsv", xc, head).to(torch.float32)
+    logits = shd.act(logits, ("batch", "seq", "act_vocab"))
     V = head.shape[-1]
     if vocab_size is not None and vocab_size < V:
         pad = torch.arange(V, device=logits.device) >= vocab_size
@@ -538,7 +701,13 @@ def _chunk_loss(xc, lc, head, vocab_size):
                              torch.full((), NEG, device=logits.device),
                              logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
+    if is_dtensor(logits):
+        # The gold logit as a one-hot product: on vocab-sharded logits
+        # DTensor gathers no (B, S, V) copy (the values are the gather's).
+        gold = torch.sum(logits * F.one_hot(lc.to(torch.int64), V).to(
+            logits.dtype), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -556,6 +725,6 @@ def chunked_softmax_xent(x, head, labels, shd: Sharder, n_chunks: int = 8,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         sl = slice(i * c, (i + 1) * c)
-        total = total + remat(_chunk_loss, x[:, sl], labels[:, sl], head,
-                              vocab_size)
+        total = total + remat(functools.partial(_chunk_loss, shd=shd),
+                              x[:, sl], labels[:, sl], head, vocab_size)
     return total / (B * S)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.delta_gru import delta_encode
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import AxTree, Sharder
+from repro_torch.parallel.sharding import AxTree, Sharder, is_dtensor
 
 CHUNK = 256
 
@@ -103,8 +103,14 @@ def ssd_chunked(x, dt, a, Bm, Cm, chunk: int = CHUNK):
     """SSD scan in chunked matmul form.
 
     x: (B,S,H,P)  dt: (B,S,H)  a: (H,) (negative)  Bm/Cm: (B,S,G,N)
-    Returns (y (B,S,H,P), last state (B,H,P,N)).
+    Returns (y (B,S,H,P), last state (B,H,P,N)).  On a mesh each rank
+    scans its block of the batch (``L.local_blocks``).
     """
+    if is_dtensor(x):
+        return L.local_blocks(
+            lambda x_, dt_, b_, c_, a_: ssd_chunked(x_, dt_, a_, b_, c_,
+                                                    chunk),
+            (x, dt, Bm, Cm), whole=(a,), n_out=2)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[-2], Bm.shape[-1]
     c = min(chunk, S)
@@ -214,18 +220,18 @@ def mamba_cache_axes():
 
 def init_mamba_cache(cfg, batch: int, shd: Sharder, layers=None,
                      device="cpu") -> MambaCache:
+    """Zero recurrent cache; on a mesh each buffer is placed per
+    ``mamba_cache_axes``."""
     nl = layers if layers is not None else cfg.num_layers
-    if shd.mesh is not None:
-        shd.sharding((nl, batch), ("layers", "batch"))
-    return MambaCache(*[torch.zeros(s, dtype=d, device=device)
-                        for s, d in _cache_shapes(cfg, batch, nl)])
+    return MambaCache(*[shd.zeros(s, ax, d, device) for (s, d), ax in zip(
+        _cache_shapes(cfg, batch, nl), mamba_cache_axes())])
 
 
 def mamba_cache_specs(cfg, batch: int, shd: Sharder, layers=None
                       ) -> MambaCache:
     nl = layers if layers is not None else cfg.num_layers
-    return MambaCache(*[torch.empty(s, dtype=d, device="meta")
-                        for s, d in _cache_shapes(cfg, batch, nl)])
+    return MambaCache(*[shd.spec_tensor(s, ax, d) for (s, d), ax in zip(
+        _cache_shapes(cfg, batch, nl), mamba_cache_axes())])
 
 
 def apply_mamba_decode(p, cfg, x, cache: tuple, shd: Sharder,
@@ -341,7 +347,7 @@ def stack_cache(slices) -> MambaCache:
     return MambaCache(*[torch.stack(list(f)) for f in zip(*slices)])
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params, cfg, shd, cache: MambaCache, tokens):
     """tokens (B,1) → (logits (B,1,V), cache)."""
     x = L.embed_tokens(params["embed"], tokens, shd)[:, 0]       # (B,D)
@@ -352,7 +358,7 @@ def decode_step(params, cfg, shd, cache: MambaCache, tokens):
     return logits, stack_cache(new)
 
 
-@torch.inference_mode()
+@L.serving
 def prefill(params, cfg, shd, tokens, cache: MambaCache, embeds=None):
     """Process a full prompt, producing the recurrent cache + last logits."""
     x = L.embed_tokens(params["embed"], tokens, shd)

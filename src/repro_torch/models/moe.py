@@ -11,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init, st_axes, stacked
+from repro_torch.models.layers import _init, gather_fsdp, st_axes, stacked
 from repro_torch.parallel.sharding import AxTree, Sharder
 
 
@@ -98,13 +98,15 @@ def apply_moe(p, cfg, x, shd: Sharder, capacity_factor: float = 1.25):
     comb = shd.act(comb, ("batch", "seq", "expert", None))
     disp = (comb > 0).to(x.dtype)
 
-    # Dispatch → expert FFN (swiglu) → combine.
+    # Dispatch → expert FFN (swiglu) → combine.  On a mesh the expert
+    # weights' FSDP axes are gathered first (DTensor would otherwise set
+    # the batch's and the weight's 'data' splits against each other).
     xe = torch.einsum("bsec,bsd->becd", disp, x)                 # (B,E,C,D)
     xe = shd.act(xe, ("batch", "expert", None, "act_embed"))
-    h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"]))
-    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"])
+    h = F.silu(torch.einsum("becd,edf->becf", xe, gather_fsdp(p["w_gate"])))
+    h = h * torch.einsum("becd,edf->becf", xe, gather_fsdp(p["w_up"]))
     h = shd.act(h, ("batch", "expert", None, "act_mlp"))
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"])
+    ye = torch.einsum("becf,efd->becd", h, gather_fsdp(p["w_down"]))
     out = torch.einsum("bsec,becd->bsd", comb, ye)
 
     if cfg.n_shared_experts:

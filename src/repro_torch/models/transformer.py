@@ -16,8 +16,9 @@ loop over that dim.  For training each layer is recomputed in backward
 (``torch.utils.checkpoint``); ``remat_policy="save_mlp"`` keeps the two
 MLP up/gate products instead of recomputing them.  MoE layers add their
 load-balance loss.  Prefill and decode run under
-``torch.inference_mode()`` and write the KV cache's buffers in place (the
-reference donates them); the cache ``index`` is a Python int.
+``torch.inference_mode()`` (``torch.no_grad()`` on a mesh) and write
+the KV cache's buffers in place (the reference donates them); the cache
+``index`` is a Python int.
 """
 from __future__ import annotations
 
@@ -140,19 +141,20 @@ def _kv_shape(cfg, nl, batch, seq):
     return (nl, batch, seq, cfg.n_kv_heads, cfg.d_head)
 
 
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
+
 def init_cache(cfg, batch: int, seq: int, shd: Sharder, device) -> dict:
+    """Zero KV cache; on a mesh each buffer is placed per ``KV_AXES``."""
     shape = _kv_shape(cfg, cfg.num_layers, batch, seq)
-    if shd.mesh is not None:
-        shd.sharding(shape, ("layers", "batch", "kv_seq", "kv_heads",
-                             "head_dim"))
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+    return {"k": shd.zeros(shape, KV_AXES, cfg.dtype, device),
+            "v": shd.zeros(shape, KV_AXES, cfg.dtype, device),
             "index": 0}
 
 
 def cache_specs(cfg, batch: int, seq: int, shd: Sharder) -> dict:
     shape = _kv_shape(cfg, cfg.num_layers, batch, seq)
-    kv = torch.empty(shape, dtype=cfg.dtype, device="meta")
+    kv = shd.spec_tensor(shape, KV_AXES, cfg.dtype)
     return {"k": kv, "v": kv,
             "index": torch.empty((), dtype=torch.int32, device="meta")}
 
@@ -162,7 +164,7 @@ def lm_logits(x, head):
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
-@torch.inference_mode()
+@L.serving
 def _decode_forward(params, cfg, shd, tokens, cache: dict, embeds=None):
     """Shared by prefill (S>1, index=0) and decode (S=1, index=pos)."""
     x = L.embed_tokens(params["embed"], tokens, shd)

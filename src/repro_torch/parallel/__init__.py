@@ -1,2 +1,2 @@
-"""Logical-axis sharding rules and the slot axis of the sharded KWS
-engine (placing LM tensors on a mesh is ROADMAP.md queue 1 item 9c)."""
+"""Logical-axis sharding rules: the LM mesh (DTensor placements on a
+``DeviceMesh``) and the slot axis of the sharded KWS engine."""

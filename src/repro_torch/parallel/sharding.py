@@ -1,9 +1,8 @@
 """Logical-axis sharding rules (MaxText-style) with divisibility fallback.
 
-Port of ``repro/parallel/sharding.py``, its single-device half.  Every
-tensor carries *logical* dimension names ("batch", "embed", "mlp",
-"heads", ...).  A :class:`Sharder` resolves them to a ``PartitionSpec``
-for a mesh:
+Port of ``repro/parallel/sharding.py``.  Every tensor carries *logical*
+dimension names ("batch", "embed", "mlp", "heads", ...).  A
+:class:`Sharder` resolves them to a ``PartitionSpec`` for a mesh:
 
   * each logical name has an ordered list of candidate mesh-axis tuples;
   * a candidate is accepted only if all its axes exist in the mesh, none is
@@ -11,12 +10,24 @@ for a mesh:
     evenly divisible by the product of the axis sizes;
   * otherwise the next candidate is tried, ending at ``None`` (replicated).
 
-``Sharder.spec`` is pure arithmetic over axis sizes: it takes any object
-with ``axis_names`` and ``devices.shape``.  With ``mesh=None`` (one
-device) ``act``, ``sharding``, ``shard_params`` and ``param_shardings``
-are identities, as in the reference.  Placing an LM tensor on a real mesh
-is ROADMAP.md queue 1 item 9c (the LM mesh) and raises
-``NotImplementedError`` until then.
+``Sharder.spec`` is pure arithmetic over axis sizes: it takes a
+``torch.distributed.DeviceMesh`` (``mesh_dim_names`` / ``mesh.shape``) or
+any object with ``axis_names`` and ``devices.shape``.  With ``mesh=None``
+(one device) ``act``, ``sharding``, ``shard_params`` and
+``param_shardings`` are identities, as in the reference.
+
+On a ``DeviceMesh`` (one process per rank) the reference's GSPMD
+placement is DTensor's: a spec becomes one placement per mesh dim,
+``Shard(d)`` where the mesh axis names tensor dim ``d`` and
+``Replicate()`` elsewhere.  A joint entry such as ``("pod", "data")``
+shards dim ``d`` on both mesh dims in mesh-dim order, so rank
+``(pod=i, data=j)`` holds block ``i·n_data + j``: the reference's
+major-to-minor order.  ``act`` is a differentiable ``redistribute`` (the
+counterpart of ``with_sharding_constraint``), ``shard_params`` cuts every
+leaf out of the same whole tensor on every rank (no communication), and
+``sharding`` / ``param_shardings`` give :class:`NamedSharding`s.  Model
+code runs under ``Sharder.scope()``: plain tensors made inside it (a
+position ``arange``, a causal mask) are read as replicated.
 
 The slot axis of the sharded KWS engine (DESIGN.md §6) is ported: on a
 ``launch.mesh.SlotMesh`` a sharded value is a list with one entry per
@@ -26,14 +37,13 @@ gives every shard the copy of its device (shards on one device share it).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
-
-MESH_TODO = ("placing tensors on an LM device mesh (DTensor on a "
-             "DeviceMesh) is ROADMAP.md queue 1 item 9c (the LM mesh)")
 
 
 class PartitionSpec(tuple):
@@ -42,6 +52,9 @@ class PartitionSpec(tuple):
 
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
+
+    def __getnewargs__(self):            # pickles as P(*parts)
+        return tuple(self)
 
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
@@ -198,6 +211,79 @@ DECODE_RULES: dict[str, list[Any]] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's placement on a ``DeviceMesh``: the mesh, the
+    PartitionSpec it came from and the DTensor placements, one per mesh
+    dim (the counterpart of ``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+    placements: tuple
+
+
+def _mesh_axes(mesh) -> tuple[tuple, tuple]:
+    """(axis names, axis sizes) of a ``DeviceMesh`` or of an object with
+    ``axis_names`` and ``devices.shape``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return tuple(names), tuple(int(n) for n in mesh.shape)
+    return tuple(mesh.axis_names), tuple(mesh.devices.shape)
+
+
+def spec_placements(mesh, spec: PartitionSpec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
+    ``Shard(d)`` if that axis names tensor dim ``d`` (alone or in a joint
+    entry), else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in _mesh_axes(mesh)[0]:
+        dims = [d for d, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place(x, sharding: NamedSharding | None):
+    """``x`` with ``sharding``'s placements: a DTensor is redistributed
+    (through its whole value when it lies on another mesh); a plain tensor,
+    the same whole value on every rank, is cut locally on the mesh's
+    device (no communication).  ``None`` leaves ``x`` as it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if sharding is None:
+        return x
+    mesh = sharding.mesh
+    if isinstance(x, DTensor):
+        if x.device_mesh == mesh:
+            return x.redistribute(mesh, sharding.placements)
+        x = x.full_tensor()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return distribute_tensor(x.detach().to(dev), mesh, sharding.placements,
+                             src_data_rank=None)
+
+
+def local_bounds(x, dim: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's block of DTensor ``x`` along ``dim`` (the
+    whole dim for a plain tensor); blocks are even, as ``Sharder.spec``
+    shards only dims its axes divide."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return 0, x.shape[dim]
+    mesh, size, lo = x.device_mesh, x.shape[dim], 0
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size //= mesh.size(m)
+            lo += coord[m] * size
+    return lo, lo + size
+
+
 @dataclasses.dataclass
 class Sharder:
     """Resolves logical axis names to PartitionSpecs for one mesh.
@@ -213,8 +299,7 @@ class Sharder:
         merged.update(self.rules or {})
         self.rules = merged
         if self.mesh is not None:
-            self._axis_sizes = dict(zip(self.mesh.axis_names,
-                                        self.mesh.devices.shape))
+            self._axis_sizes = dict(zip(*_mesh_axes(self.mesh)))
         else:
             self._axis_sizes = {}
 
@@ -242,28 +327,85 @@ class Sharder:
             return axes if len(axes) > 1 else axes[0]
         return None
 
-    def sharding(self, shape, logical):
+    def sharding(self, shape, logical) -> NamedSharding | None:
         if self.mesh is None:
             return None
-        raise NotImplementedError(f"Sharder.sharding: {MESH_TODO}")
+        spec = self.spec(shape, logical)
+        return NamedSharding(self.mesh, spec,
+                             spec_placements(self.mesh, spec))
 
     def act(self, x, logical: Sequence[str | None]):
-        """A sharding constraint on an activation (identity without a
-        mesh)."""
+        """A sharding constraint on an activation: a differentiable
+        ``redistribute`` to the spec's placements (identity without a
+        mesh).  A plain tensor is read as replicated."""
         if self.mesh is None:
             return x
-        raise NotImplementedError(f"Sharder.act: {MESH_TODO}")
+        from torch.distributed.tensor import DTensor, Replicate
+        tgt = spec_placements(self.mesh, self.spec(x.shape, logical))
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, self.mesh,
+                                   (Replicate(),) * self.mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(self.mesh, tgt)
 
     def shard_params(self, params, axes_tree):
+        """Every leaf of ``params`` (the same whole tensors on every rank)
+        placed per its logical axes."""
         if self.mesh is None:
             return params
-        raise NotImplementedError(f"Sharder.shard_params: {MESH_TODO}")
+        return tree_map(lambda p, ax: place(p, self.sharding(p.shape, ax)),
+                        params, axes_tree)
 
     def param_shardings(self, shapes_tree, axes_tree):
-        """None for every leaf of ``shapes_tree`` without a mesh."""
+        """The NamedSharding of every leaf of ``shapes_tree`` (anything
+        with a ``shape``); None for every leaf without a mesh."""
         if self.mesh is None:
             return tree_map(lambda s: None, shapes_tree)
-        raise NotImplementedError(f"Sharder.param_shardings: {MESH_TODO}")
+        return tree_map(lambda s, ax: self.sharding(s.shape, ax),
+                        shapes_tree, axes_tree)
+
+    def zeros(self, shape, logical, dtype, device):
+        """A zero tensor placed per its logical axes: a DTensor on the
+        mesh's device (each rank allocates only its block), or a plain
+        tensor on ``device`` without a mesh."""
+        sh = self.sharding(shape, logical)
+        if sh is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        from torch.distributed import tensor as dt
+        return dt.zeros(tuple(shape), dtype=dtype, device_mesh=self.mesh,
+                        placements=sh.placements)
+
+    def spec_tensor(self, shape, logical, dtype):
+        """A ``meta`` tensor (shape and dtype, no allocation) whose
+        ``sharding`` attribute is its NamedSharding (None without a mesh):
+        the counterpart of a ``ShapeDtypeStruct`` with a sharding."""
+        t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+        t.sharding = self.sharding(shape, logical)
+        return t
+
+    def scope(self):
+        """Context for model code on a mesh: plain tensors made inside it
+        (positions, masks, zeros) combine with DTensors as replicated
+        values; nothing without a mesh.  Scopes nest (only the outermost
+        switches DTensor's thread-local flag, which ``implicit_replication``
+        clears on exit); a backward started inside one runs under it."""
+        if self.mesh is None or getattr(_SCOPE, "depth", 0):
+            return contextlib.nullcontext()
+        return _outer_scope()
+
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def _outer_scope():
+    from torch.distributed.tensor.experimental import implicit_replication
+    _SCOPE.depth = 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _SCOPE.depth = 0
 
 
 def tree_map(fn, tree, *rest):

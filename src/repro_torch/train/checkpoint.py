@@ -14,6 +14,13 @@ other: ``{"params": ..., "opt": AdamWState}`` flattens to ``params/w_x``,
 directory or a step directory without ``meta.json``; ``latest_step``
 ignores both.  bfloat16 leaves are stored as float32 (npz has no
 bfloat16) and cast back on restore.
+
+On an LM mesh every rank calls ``save``: each DTensor leaf's whole value
+is gathered, rank 0 writes, the mesh's shape and axes go into
+``meta.json``, and the ranks meet at a barrier.  ``restore(...,
+shardings=)`` places each leaf per its target NamedSharding, on any mesh
+(the elastic rescale); a DTensor like-leaf without a target keeps its
+own placement.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import NamedSharding, is_dtensor, place
 
 
 def _flatten(tree, prefix=""):
@@ -67,20 +76,36 @@ def save(ckpt_dir: str | pathlib.Path, step: int, tree,
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     final = ckpt_dir / f"step_{step:08d}"
+    flat, mesh = {}, None
+    for k, v in _flatten(tree).items():
+        if is_dtensor(v):                     # a collective: every rank
+            mesh = mesh or v.device_mesh
+            v = v.full_tensor()
+        flat[k] = v
+    if mesh is None or torch.distributed.get_rank() == 0:
+        _write(tmp, final, step, flat, extra, mesh)
+    if mesh is not None:
+        torch.distributed.barrier()
+    return final
+
+
+def _write(tmp, final, step, flat, extra, mesh):
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
     arrays, dtypes = {}, {}
-    for k, v in _flatten(tree).items():
+    for k, v in flat.items():
         arrays[k], dtypes[k] = _to_numpy(v)
     np.savez(tmp / "arrays.npz", **arrays)
     meta = {"step": step, "keys": sorted(arrays.keys()), "dtypes": dtypes,
-            "extra": extra or {}}
+            "extra": extra or {},
+            "mesh": None if mesh is None else {
+                "shape": [int(n) for n in mesh.shape],
+                "axes": list(mesh.mesh_dim_names)}}
     (tmp / "meta.json").write_text(json.dumps(meta))
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)                                    # atomic commit
-    return final
 
 
 def latest_step(ckpt_dir: str | pathlib.Path) -> int | None:
@@ -96,18 +121,26 @@ def latest_step(ckpt_dir: str | pathlib.Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str | pathlib.Path, step: int, like_tree):
+def restore(ckpt_dir: str | pathlib.Path, step: int, like_tree,
+            shardings=None):
     """Restore step ``step`` into the structure of ``like_tree``: each
     leaf takes its like-leaf's dtype and device (a non-tensor leaf comes
-    back as a CPU tensor of its numpy dtype)."""
+    back as a CPU tensor of its numpy dtype).  ``shardings``, a tree like
+    ``like_tree`` of NamedShardings (or None leaves), re-places each leaf
+    on its target mesh: the elastic-rescale path."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:08d}" / "arrays.npz"
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     restored = {}
     with np.load(path) as data:
         for k, leaf in _flatten(like_tree).items():
             t = torch.from_numpy(np.array(data[k]))
             if not isinstance(leaf, torch.Tensor):
                 leaf = torch.from_numpy(np.asarray(leaf))
-            restored[k] = t.to(dtype=leaf.dtype, device=leaf.device)
+            sh = flat_sh.get(k)
+            if sh is None and is_dtensor(leaf):
+                sh = NamedSharding(leaf.device_mesh, None, leaf.placements)
+            restored[k] = (place(t.to(leaf.dtype), sh) if sh is not None
+                           else t.to(dtype=leaf.dtype, device=leaf.device))
     return _unflatten_like(like_tree, restored)
 
 

@@ -9,7 +9,9 @@ in both packages.  The step counter, the learning rate and the clip factor
 stay tensors on the parameters' device: an update reads nothing back to
 the host.  The parameters may be a flat dict (the KWS model) or nested
 dicts whose leaves mix dtypes (the LM stacks: bf16 weights, an f32 MoE
-router and norm scales); the state mirrors their structure.
+router and norm scales); the state mirrors their structure.  On an LM
+mesh the leaves are DTensors: master, m and v keep their parameter's
+placements, and the clip norm is one plain scalar.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.parallel.sharding import tree_leaves, tree_map
+from repro_torch.parallel.sharding import is_dtensor, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +70,17 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _sq_sum(x) -> torch.Tensor:
+    """Σ x² in float32; a DTensor's partial sums are reduced to one plain
+    scalar, the same on every rank."""
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    """√Σ x² over every leaf: one plain scalar, whatever the leaves'
+    placements."""
+    return torch.sqrt(sum(_sq_sum(x) for x in tree_leaves(tree)))
 
 
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict

@@ -12,8 +12,8 @@ Port of ``repro/train/trainer.py``:
 A step's wall time includes waiting for the parameters' device (the
 counterpart of the reference's ``block_until_ready``): CUDA work is
 asynchronous, and a host clock that does not wait would time the launches.
-``reshard`` (the elastic mesh change) waits for the LM mesh (ROADMAP.md
-queue 1 item 9c).
+``reshard`` (the elastic mesh change) restores the newest checkpoint
+onto new shardings, on any LM mesh (``checkpoint.restore(shardings=)``).
 """
 from __future__ import annotations
 
@@ -133,9 +133,18 @@ class Trainer:
 
     # ------------------------------------------------------------- elastic
     def reshard(self, shardings_tree):
-        """Re-place params/opt onto new shardings (the elastic mesh change
-        of the reference)."""
-        raise NotImplementedError(
-            "Trainer.reshard re-places params and optimizer state on an LM "
-            "device mesh (DTensor on a DeviceMesh), ROADMAP.md queue 1 item "
-            "9c (the LM mesh)")
+        """Re-place params/opt from the newest checkpoint onto new
+        shardings (``{"params": ..., "opt": ...}`` of NamedShardings, on
+        any mesh): the elastic mesh change of the reference.  Returns the
+        step it resumes from."""
+        last = ckpt_lib.latest_step(self.cfg.ckpt_dir)
+        if last is None:
+            raise RuntimeError("need a checkpoint to reshard from")
+        state = ckpt_lib.restore(self.cfg.ckpt_dir, last,
+                                 {"params": self.params,
+                                  "opt": self.opt_state},
+                                 shardings=shardings_tree)
+        self.params = state["params"]
+        self.opt_state = state["opt"]
+        self.step = last
+        return self.step

@@ -24,7 +24,7 @@ from repro_torch import commands
 REPO = pathlib.Path(__file__).parent.parent
 README = REPO / "README.md"
 EXAMPLES = ("torch_quickstart.py", "torch_serve_streaming_kws.py",
-            "torch_train_kws_e2e.py")
+            "torch_train_kws_e2e.py", "torch_lm_train.py")
 
 
 def _code_blocks(text: str) -> str:
@@ -150,3 +150,23 @@ def test_quickstart_runs_on_the_cpu():
     for cmd in (commands.STREAM_EXAMPLE_CMD, commands.SERVE_CMD,
                 commands.TUNE_CMD):
         assert cmd in out
+
+
+def test_lm_train_example_runs_on_the_cpu_and_its_loss_falls():
+    """``examples/torch_lm_train.py`` (the command the registry and the
+    README show) at small flags on the CPU: the loss falls, as the
+    reference's example asserts, and it prints its command."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_train", REPO / "examples" / "torch_lm_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    flags = _flags(commands.LM_TRAIN_EXAMPLE_CMD.replace(
+        "python examples/torch_lm_train.py", "python -m x"), "x")
+    assert mod.build_parser().parse_args(flags).arch == "qwen2-0.5b"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(["--steps", "12", "--batch", "4", "--seq", "32",
+                       "--device", "cpu"])
+    out = buf.getvalue()
+    assert rc == 0, out
+    assert "qwen2-0.5b: loss" in out and commands.LM_TRAIN_EXAMPLE_CMD in out

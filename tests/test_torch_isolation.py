@@ -159,7 +159,7 @@ for mod, names in ((autotune, ("SCHEMA_VERSION", "ENV_CACHE", "ENV_ENABLE",
         assert hasattr(mod, name), (mod.__name__, name)
 import importlib.util, pathlib
 for name in ("torch_quickstart", "torch_serve_streaming_kws",
-             "torch_train_kws_e2e"):
+             "torch_train_kws_e2e", "torch_lm_train"):
     spec = importlib.util.spec_from_file_location(
         name, pathlib.Path({examples!r}) / f"{{name}}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -201,6 +201,12 @@ from repro_torch.parallel.sharding import (AxTree, Sharder, DEFAULT_RULES,
                                            DECODE_RULES, slot_shards,
                                            check_slot_partition)
 from repro_torch.train.optimizer import opt_axes
+from repro_torch.parallel.sharding import (NamedSharding, place,
+                                           spec_placements, local_bounds)
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     run_ranks)
+from repro_torch.models.layers import local_blocks, gather_fsdp, tp_down_proj
+from repro_torch.launch.inputs import place_batch
 for arch in ARCH_IDS:
     get_api(get_config(arch)).init(None)      # meta tensors: no allocation
     get_smoke_config(arch)
@@ -223,7 +229,8 @@ def test_lm_modules_import_with_jax_blocked():
 
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_serve_streaming_kws.py",
-                                  "torch_train_kws_e2e.py", "chip_smoke.py"])
+                                  "torch_train_kws_e2e.py",
+                                  "torch_lm_train.py", "chip_smoke.py"])
 def test_examples_and_chip_smoke_import_nothing_of_jax(name):
     root = PKG.parent.parent
     path = root / "examples" / name if name.startswith("torch_") \

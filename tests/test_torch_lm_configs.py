@@ -146,20 +146,41 @@ def test_sharder_spec_equals_the_reference(names, shape):
 
 def test_sharder_reference_cases_and_single_device_identities():
     """The reference's own FakeMesh cases, and ``mesh=None`` identities;
-    placement on a real mesh raises naming ROADMAP.md item 9c."""
+    on a ``DeviceMesh`` (a fake process group of 8 ranks, (4, 2)) the
+    placement methods give DTensors and NamedShardings per the spec, and
+    ``tp_down_proj`` runs."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    import _torch_lm_mesh as H
     mesh = FakeMesh(("data", "model"), (4, 2))
     s = tshard.Sharder(mesh=mesh)
     assert s.spec((8, 6), ("batch", "mlp")) == tshard.P("data", "model")
     assert s.spec((7, 5), ("batch", "mlp")) == tshard.P(None, None)
     assert s.spec((8, 8), ("batch", "kv_seq")) == tshard.P("data", "model")
-    x = torch.ones(2, 3)
-    for method, args in (("act", (x, ("batch", None))),
-                         ("sharding", ((2, 3), ("batch", None))),
-                         ("shard_params", ({"w": x}, {"w": ("batch", None)})),
-                         ("param_shardings", ({"w": x},
-                                              {"w": ("batch", None)}))):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            getattr(s, method)(*args)
+    x = torch.ones(8, 6)
+    with H.fake_world(8):
+        dm = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+        s = tshard.Sharder(mesh=dm)
+        assert s.spec((8, 6), ("batch", "mlp")) == tshard.P("data", "model")
+        sh = s.sharding((8, 6), ("batch", "mlp"))
+        assert sh.spec == tshard.P("data", "model")
+        assert sh.placements == (Shard(0), Shard(1)) and sh.mesh is dm
+        y = s.act(x, ("batch", None))
+        assert isinstance(y, DTensor)
+        assert tuple(y.placements) == (Shard(0), Replicate())
+        assert tuple(y.to_local().shape) == (2, 6)
+        p = s.shard_params({"a": {"w": x}}, {"a": {"w": ("batch", "mlp")}})
+        assert tuple(p["a"]["w"].placements) == (Shard(0), Shard(1))
+        assert torch.equal(p["a"]["w"].to_local(), x[:2, :3])
+        got = s.param_shardings({"a": {"w": x}}, {"a": {"w": ("batch",
+                                                             "mlp")}})
+        assert got == {"a": {"w": sh}}
+        from repro_torch.models import layers as L
+        with s.scope():
+            out = L.tp_down_proj(torch.ones(1, 2, 3), torch.ones(3, 4), s,
+                                 "bsf,fd->bsd", ("batch", "seq", "act_mlp"),
+                                 ("mlp", "embed"))
+        assert isinstance(out, DTensor) and tuple(out.shape) == (1, 2, 4)
     one = tshard.Sharder(mesh=None)
     assert one.act(x, ("batch", None)) is x
     assert one.sharding((2, 3), ("batch", None)) is None
@@ -167,11 +188,6 @@ def test_sharder_reference_cases_and_single_device_identities():
     assert one.shard_params(p, {"a": {"w": ("batch", None)}}) is p
     assert one.param_shardings(p, {"a": {"w": ("batch", None)}}) == \
         {"a": {"w": None}}
-    from repro_torch.models import layers as L
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        L.tp_down_proj(torch.ones(1, 2, 3), torch.ones(3, 4), s,
-                       "bsf,fd->bsd", ("batch", "seq", "act_mlp"),
-                       ("mlp", "embed"))
     t = tshard.AxTree()
     t.add("w", x, ("embed", "mlp"))
     with pytest.raises(ValueError):

@@ -228,8 +228,19 @@ def test_trainer_fault_recovery(tmp_path):
     assert again.maybe_restore() == 20
     assert torch.equal(again.params["w"], ref.params["w"])
     assert int(again.opt_state.step) == 20
-    with pytest.raises(NotImplementedError, match="9c"):
-        again.reshard(None)
+    # reshard: the newest checkpoint re-placed onto a (1, 1) DeviceMesh
+    # (a fake process group of one rank).
+    import _torch_lm_mesh as H
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.parallel.sharding import Sharder
+    with H.fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        sh = Sharder(mesh=mesh).sharding((2,), ("mlp",))
+        assert again.reshard({"params": {"w": sh}}) == 20
+        assert again.params["w"].device_mesh is mesh
+        assert torch.equal(again.params["w"].to_local(), ref.params["w"])
+        assert int(again.opt_state.step) == 20
 
 
 def test_trainer_gives_up_after_max_retries(tmp_path):
