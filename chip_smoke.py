@@ -7,6 +7,8 @@
     python3 chip_smoke.py --lm-mesh-only  # phase 13 alone (no build, no
                                           #   final line; 4 cards: its
                                           #   multi-rank half)
+    python3 chip_smoke.py --dryrun-only   # phase 14 alone (no build, no
+                                          #   final line)
 
 Phases, each exiting non-zero on failure:
   1. the card's name and power limit; build all eight CUDA kernels, the
@@ -243,11 +245,18 @@ Phases, each exiting non-zero on failure:
      replicated at model = 4); train and decode ms sharded and on one
      card, collectives per step (``CommDebugMode``) and peak memory per
      rank; with one card it prints that this half needs ≥ 2;
-  14. the ``kernels`` JSON line (the eight kernels and the two masked
+  14. the LM dry-run (``repro_torch.launch.dryrun.run_cell`` on the
+     card): one full-size cell per family (DRYRUN_CELLS), each traced on
+     fake tensors on the 256- and 512-rank production meshes, one process
+     per cell, all started together; a line per record with the card
+     line; the run fails unless every record is ``ok`` with its memory,
+     FLOPs and collectives filled, and no kernel launches;
+  15. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations; the four tuned ones with their sweep; each with its
-     launches in phase 12's two-shard run, ``launches_slot_mesh``, and on
-     phase 13's path, ``launches_lm_mesh``), the card line, and the
-     final ``{"ok": true, ...}`` line.
+     launches in phase 12's two-shard run, ``launches_slot_mesh``, on
+     phase 13's path, ``launches_lm_mesh``, and in phase 14,
+     ``launches_dryrun``), the card line, and the final
+     ``{"ok": true, ...}`` line.
 
 Needs one CUDA GPU and nvcc; imports nothing of JAX or of ``repro``.
 """
@@ -5489,6 +5498,96 @@ def lm_mesh_phase(torch, np, card, dev: str = "cuda", full: bool = True,
             "launches": read_launches(wrappers)}
 
 
+# Phase 14: the LM dry-run.  One full-size cell per family, each on both
+# production meshes, in a process of its own (all started together).
+DRYRUN_CELLS = (("qwen3-32b", "decode_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
+                ("mamba2-370m", "long_500k"), ("zamba2-2.7b", "prefill_32k"),
+                ("seamless-m4t-large-v2", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_cell(arch: str, shape: str, out: str) -> int:
+    """One phase-14 worker: ``run_cell`` on the card for ``arch`` ×
+    ``shape`` on both meshes, with every kernel wrapper's launch count
+    zeroed before and read after; writes {records, launches} to ``out``."""
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+    wrappers = kernel_wrappers()
+    zero_launches(wrappers)
+    recs = [run_cell(arch, shape, mesh, device="cuda")
+            for mesh in ("single", "multi")]
+    pathlib.Path(out).write_text(json.dumps(
+        {"records": recs, "launches": read_launches(wrappers),
+         "torch": torch.__version__}))
+    return 0
+
+
+def dryrun_phase(torch, card) -> dict:
+    """Phase 14: the LM dry-run (``repro_torch.launch.dryrun``) on the card:
+    the fake-tensor trace of each DRYRUN_CELLS cell's sharded step on the
+    256- and 512-rank production meshes.  Every record must end ``ok`` with
+    its fields filled; no kernel launches (fake tensors run nothing)."""
+    import tempfile
+    bad = Failures("dry-run phase")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        procs = []
+        for arch, shape in DRYRUN_CELLS:
+            out = pathlib.Path(tmp) / f"{arch}__{shape}.json"
+            log = open(pathlib.Path(tmp) / f"{arch}__{shape}.log", "w")
+            procs.append((arch, shape, out, log, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cell",
+                 arch, shape, str(out)], stdout=log, stderr=subprocess.STDOUT)))
+        try:
+            for arch, shape, out, log, proc in procs:
+                rc = proc.wait(timeout=max(
+                    1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+                log.close()
+                if rc:
+                    tail = pathlib.Path(log.name).read_text()[-3000:]
+                    fail(f"dry-run of {arch} {shape} exited {rc}:\n{tail}")
+        finally:
+            for *_, log, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        results = [json.loads(out.read_text()) for *_, out, _, _ in procs]
+    launches = {}
+    for res in results:
+        for name, n in res["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        for rec in res["records"]:
+            key = f"{rec['arch']}|{rec['shape']}|{rec['mesh']}"
+            mem, roof = rec["memory"], rec["roofline"]
+            bad.check(rec["status"] == "ok", f"{key}: {rec['status']}")
+            bad.check(rec["chips"] == (512 if rec["mesh"] == "multi"
+                                       else 256), f"{key}: {rec['chips']}")
+            bad.check(mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0,
+                      f"{key}: memory {mem}")
+            bad.check(rec["cost_analysis_flops"] > 0
+                      and rec["collectives"]["count"] > 0,
+                      f"{key}: no FLOPs or no collectives recorded")
+            print(f"[dryrun] {card} | {key} ok micro={rec['microbatches']} "
+                  f"GB/dev={mem['per_device_total_gb']:.2f} "
+                  f"fits={mem['fits_hbm']} "
+                  f"flops/dev={rec['cost_analysis_flops']:.4g} "
+                  f"hlo_flops/chips={rec['hlo_flops'] / rec['chips']:.4g} "
+                  f"calls={json.dumps(rec['collective_calls'])} "
+                  f"compute={roof['compute_s']:.4g}s "
+                  f"memory={roof['memory_s']:.4g}s "
+                  f"coll={roof['collective_s']:.4g}s "
+                  f"dominant={roof['dominant']} trace={rec['compile_s']}s")
+    launched = {k: v for k, v in launches.items() if v}
+    bad.check(not launched, f"the dry-run launched kernels: {launched}")
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] phase {secs:.1f} s ({len(DRYRUN_CELLS)} processes, "
+          f"torch {results[0]['torch']}); kernel launches: 0")
+    bad.raise_any()
+    return {"seconds": secs, "launches": launches,
+            "records": [r for res in results for r in res["records"]]}
+
+
 def bits_view(torch, t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
@@ -5500,7 +5599,14 @@ def main() -> int:
     ap.add_argument("--lm-mesh-only", action="store_true",
                     help="run only phase 13, the LM mesh (no kernel build; "
                          "no final line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run only phase 14, the LM dry-run (no kernel "
+                         "build; no final line)")
+    ap.add_argument("--dryrun-cell", nargs=3,
+                    metavar=("ARCH", "SHAPE", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_cell:
+        return dryrun_cell(*args.dryrun_cell)
     # No autotune cache of the machine may change a phase's launches: the
     # run keeps its own, removed at exit.
     import atexit
@@ -5527,6 +5633,10 @@ def main() -> int:
           f"{torch.version.cuda} | {dev}")
     if args.lm_mesh_only:
         lm_mesh_phase(torch, np, card)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.dryrun_only:
+        dryrun_phase(torch, card)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return 0
     build_kernels()
@@ -5589,6 +5699,7 @@ def main() -> int:
     lm_phase(torch, np, card)
     mesh_res = mesh_phase(torch, np, params, card, args.profile)
     lm_mesh_launch = lm_mesh_phase(torch, np, card)["launches"]
+    dryrun_launch = dryrun_phase(torch, card)["launches"]
     mesh_launch = {}
     for (kind, numerics), counts in mesh_res["launches"].items():
         for name, v in counts.items():
@@ -5739,6 +5850,7 @@ def main() -> int:
         "launch_floor_ms_b256": wk256["floor"]})
     for k in kernels:
         k["launches_lm_mesh"] = lm_mesh_launch[k["name"]]
+        k["launches_dryrun"] = dryrun_launch[k["name"]]
     if len(kernels) != 10:
         fail(f"the kernels line lists {len(kernels)} kernels, not 10")
     print(json.dumps({"kernels": kernels}))

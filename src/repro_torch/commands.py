@@ -50,6 +50,13 @@ TRAIN_LM_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
 LM_TRAIN_EXAMPLE_CMD = ("PYTHONPATH=src python examples/torch_lm_train.py "
                         "--arch qwen2-0.5b --steps 60")
 
+# LM dry-run: every (arch × shape) cell's sharded step on the 256- and
+# 512-rank production meshes, traced on fake tensors (the card by default).
+DRYRUN_CMD = ("PYTHONPATH=src python -m repro_torch.launch.dryrun "
+              "--all --mesh both --jobs 7")
+DRYRUN_CPU_CMD = ("PYTHONPATH=src python -m repro_torch.launch.dryrun "
+                  "--all --mesh both --device cpu --jobs 6")
+
 # Train → deploy ------------------------------------------------------------
 TRAIN_PROMOTE_CMD = ("PYTHONPATH=src python -m repro_torch.launch.train "
                      "--arch deltakws --steps 100 --batch 64 "
@@ -81,4 +88,6 @@ ALL_COMMANDS = {
     "serve_lm": SERVE_LM_CMD,
     "train_lm": TRAIN_LM_CMD,
     "lm_train_example": LM_TRAIN_EXAMPLE_CMD,
+    "dryrun": DRYRUN_CMD,
+    "dryrun_cpu": DRYRUN_CPU_CMD,
 }

@@ -90,9 +90,9 @@ def encode(params, cfg, shd: Sharder, embeds, remat=True):
     return L.apply_norm(params["enc_nf"], x, cfg.norm_type)
 
 
-def _cross_kv(p_xattn, cfg, memory):
-    k = torch.einsum("bsd,dke->bske", memory, p_xattn["wk"])
-    v = torch.einsum("bsd,dke->bske", memory, p_xattn["wv"])
+def _cross_kv(p_xattn, cfg, memory, shd: Sharder):
+    k = L.project_heads(memory, p_xattn["wk"], shd, "kv_heads")
+    v = L.project_heads(memory, p_xattn["wv"], shd, "kv_heads")
     if cfg.qkv_bias:
         k = k + p_xattn["bk"]
         v = v + p_xattn["bv"]
@@ -107,7 +107,7 @@ def _dec_block(cfg, shd, positions, memory, cache_index, x, lp,
                                   cache_index=cache_index)
     x = x + h
     h = L.apply_norm(lp["n2"], x, cfg.norm_type)
-    ckv = _cross_kv(lp["xattn"], cfg, memory)
+    ckv = _cross_kv(lp["xattn"], cfg, memory, shd)
     h, _ = L.apply_attention(lp["xattn"], cfg, h, shd, positions=positions,
                              cross_kv=ckv)
     x = x + h

@@ -82,6 +82,17 @@ def _mamba_residual(cfg, shd, x, lp):
     return x + M.apply_mamba_train(lp["mamba"], cfg, h, shd)
 
 
+def _mix_in(x, x0, w, shd: Sharder):
+    """The shared block's input, ``[x | x0] · w_cat``.  On a mesh the
+    input is gathered whole on the sequence first, as for the MLP's
+    up-projection, and the product is placed so too, which places its
+    gradient: a batch- and sequence-split operand would flatten into one
+    strided split in the product or in its backward."""
+    tok = ("batch", "seq", "act_embed")
+    xx = shd.act(torch.cat([x, x0], dim=-1), tok)
+    return shd.act(torch.einsum("bsd,dk->bsk", xx, w), tok)
+
+
 def forward(params, cfg, shd: Sharder, tokens, remat=True):
     x0 = L.embed_tokens(params["embed"], tokens, shd)
     S = x0.shape[1]
@@ -92,8 +103,7 @@ def forward(params, cfg, shd: Sharder, tokens, remat=True):
         for i in _group_layers(cfg, g):
             lp = M._layer(params, i)
             x = L.remat(body, x, lp) if remat else body(x, lp)
-        xin = torch.einsum("bsd,dk->bsk", torch.cat([x, x0], dim=-1),
-                           params["w_cat"]["w"][g])
+        xin = _mix_in(x, x0, params["w_cat"]["w"][g], shd)
         out, _ = _shared_block(params, cfg, shd, xin, positions)
         x = shd.act(x + out, ("batch", "res_seq", "act_embed"))
     return L.apply_norm(params["norm_f"], x, cfg.norm_type)
@@ -174,8 +184,7 @@ def prefill(params, cfg, shd, tokens, cache: HybridCache, embeds=None):
             x = x + h
             conv.append(conv_tail)
             ssm.append(s)
-        xin = torch.einsum("bsd,dk->bsk", torch.cat([x, x0], dim=-1),
-                           params["w_cat"]["w"][g])
+        xin = _mix_in(x, x0, params["w_cat"]["w"][g], shd)
         out, _ = _shared_block(params, cfg, shd, xin, positions,
                                kv_cache=(cache.k[g], cache.v[g]),
                                cache_index=idx)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.parallel.sharding import (AxTree, Sharder, is_dtensor,
                                           local_bounds)
@@ -275,22 +276,15 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
     G = H // K
     if attend_local is None:
         attend_local = S > 1
-    if S > 1:
-        x = shd.act(x, ("batch", "seq", "act_embed"))
 
-    # On a mesh the projections are reduced onto their head split before
-    # anything is added to them (a contraction over a split embed, as
-    # DECODE_RULES give, leaves a partial sum).
-    q = shd.act(torch.einsum("bsd,dhe->bshe", x, p["wq"]),
-                ("batch", "seq", "act_heads", None))
+    q = project_heads(x, p["wq"], shd, "act_heads")
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = _rms_head(q, p["q_norm"])
     if cross_kv is None:
-        kv_axes = ("batch", "seq", "kv_heads", None)
-        k = shd.act(torch.einsum("bsd,dke->bske", x, p["wk"]), kv_axes)
-        v = shd.act(torch.einsum("bsd,dke->bske", x, p["wv"]), kv_axes)
+        k = project_heads(x, p["wk"], shd, "kv_heads")
+        v = project_heads(x, p["wv"], shd, "kv_heads")
         if cfg.qkv_bias:
             k = k + p["bk"]
             v = v + p["bv"]
@@ -327,27 +321,146 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
         causal_mask = causal
         new_cache = None
 
-    if is_dtensor(q):
-        # A head split the KV heads do not divide cannot survive the
-        # (H) → (K, G) view: gather it first.
-        from torch.distributed.tensor import Replicate, Shard
-        q = q.redistribute(q.device_mesh, tuple(
-            Replicate() if isinstance(p, Shard) and p.dim == 2
-            and K % q.device_mesh.size(m) else p
-            for m, p in enumerate(q.placements)))
-    qg = q.reshape(B, S, K, G, Dh)
     # Train/prefill causal path: qpos is structurally arange(S) → pass None
     # so _attend can skip above-diagonal KV tiles statically.
     qpos_arg = None if (kv_cache is None and cross_kv is None) else qpos
     mask_qpos = qpos if causal_mask else None
-    out = _attend(qg, k, v, mask_qpos, qpos=qpos_arg, window=window,
-                  causal=causal_mask).reshape(B, S, H, Dh)
+    m = _group_head_split(q, K, G)
+    if m is not None:
+        out = _attend_head_blocks(q, k, v, m, G, mask_qpos, qpos_arg,
+                                  window, causal_mask)
+    else:
+        if is_dtensor(q):
+            # A head split the KV heads do not divide, and whose blocks
+            # straddle KV groups, cannot survive the (H) → (K, G) view:
+            # gather it first.
+            from torch.distributed.tensor import Replicate, Shard
+            q = q.redistribute(q.device_mesh, tuple(
+                Replicate() if isinstance(p, Shard) and p.dim == 2
+                and K % q.device_mesh.size(i) else p
+                for i, p in enumerate(q.placements)))
+        out = _attend(q.reshape(B, S, K, G, Dh), k, v, mask_qpos,
+                      qpos=qpos_arg, window=window,
+                      causal=causal_mask).reshape(B, S, H, Dh)
     out = out.to(x.dtype)
     out = shd.act(out, ("batch", "seq", "act_heads", None))
     out = tp_down_proj(out, p["wo"], shd, "bshe,hed->bsd",
                        ("batch", "seq", "act_heads", None),
                        ("heads", "head_dim", "embed"))
     return out, new_cache
+
+
+def project_heads(x, w, shd: Sharder, heads: str):
+    """``x`` (B, S, D) · ``w`` (D, N, Dh) → (B, S, N, Dh), placed by
+    ``("batch", "seq", heads, None)``.
+
+    On a mesh the product runs on each rank's local blocks (the weight's
+    FSDP axes gathered first, the sequence whole): where the weight is
+    split on its heads the output is, where it is split on the
+    contraction (DECODE_RULES' embed) the output is a partial sum, and
+    elsewhere the output keeps x's batch split.  DTensor's own einsum
+    flattens N·Dh into one product column and may split that column on
+    any axis, a split that cannot be viewed back into heads that the axis
+    does not divide; here no flat column exists.  The output is then
+    placed by its logical axes, which also reduces a partial sum before
+    anything is added to the heads."""
+    logical = ("batch", "seq", heads, None)
+    if not is_dtensor(w):
+        return shd.act(torch.einsum("bsd,dhe->bshe", x, w), logical)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    w = gather_fsdp(w)
+    x = shd.act(x, ("batch", "seq", "act_embed"))
+    x_pl, x_grad, w_grad, out_pl = [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(wp, Shard) and wp.dim == 0:        # split contraction
+            x_pl.append(Shard(2))
+            x_grad.append(Shard(2))
+            w_grad.append(wp)
+            out_pl.append(Partial())
+        elif isinstance(wp, Shard):                      # split heads
+            x_pl.append(Replicate())
+            x_grad.append(Partial())
+            w_grad.append(wp)
+            out_pl.append(Shard(wp.dim + 1))
+        else:
+            keep = xp if isinstance(xp, Shard) and xp.dim < 2 else Replicate()
+            x_pl.append(keep)
+            x_grad.append(keep)
+            w_grad.append(Partial() if isinstance(keep, Shard)
+                          else Replicate())
+            out_pl.append(keep)
+    x = x.redistribute(mesh, tuple(x_pl))
+    y = torch.einsum("bsd,dhe->bshe", x.to_local(grad_placements=x_grad),
+                     w.to_local(grad_placements=w_grad))
+    return shd.act(DTensor.from_local(y, mesh, tuple(out_pl),
+                                      run_check=False), logical)
+
+
+def merge_heads(y, shd: Sharder, heads: str = "act_heads"):
+    """(B, S, N, Dh) → (B, S, N·Dh).  On a mesh the flat result is placed
+    by the spec of its head axis (split on 'model' where 'model' divides
+    N, whole where it does not), and so is its gradient: the backward of a
+    merge views the gradient back into heads, which a flat split the axis
+    does not divide into N cannot survive."""
+    B, S, N, Dh = y.shape
+    out = y.reshape(B, S, N * Dh)
+    if not is_dtensor(out):
+        return out
+    from repro_torch.parallel.sharding import P, spec_placements
+    spec = shd.spec((B, S, N, Dh), ("batch", "seq", heads, None))
+    return out.redistribute(out.device_mesh, spec_placements(
+        out.device_mesh, P(*spec[:3])))
+
+
+def _group_head_split(q, K: int, G: int):
+    """The mesh dim that splits the query heads of DTensor ``q`` (B, S, H,
+    Dh) into blocks that each lie inside one KV group, where that dim does
+    not divide the K KV heads (None otherwise: no such split, or the
+    split carries over to the KV heads through the (H) → (K, G) view)."""
+    if not is_dtensor(q):
+        return None
+    from torch.distributed.tensor import Shard
+    for m, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 2:
+            n = q.device_mesh.size(m)
+            hl = q.shape[2] // n
+            return m if K % n and G % hl == 0 else None
+    return None
+
+
+def _attend_head_blocks(q, k, v, m, G, mask_qpos, qpos, window, causal):
+    """Attention with mesh dim ``m`` splitting the query heads but not the
+    KV heads, each rank's query heads inside one KV group: each rank
+    attends with its own query heads against the one KV head they share,
+    sliced from its whole copy, so the query heads keep the split the
+    Sharder gives them and no rank computes another's heads.  The batch
+    keeps its split where q, k and v share it; the KV gradients are
+    partial sums over ``m``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    batch = [p if isinstance(p, Shard) and p.dim == 0 and p == kp == vp
+             else Replicate()
+             for p, kp, vp in zip(q.placements, k.placements, v.placements)]
+    q_pl = tuple(Shard(2) if i == m else b for i, b in enumerate(batch))
+    kv_pl = tuple(Replicate() if i == m else b for i, b in enumerate(batch))
+    kv_grad = tuple(Partial() if i == m else b for i, b in enumerate(batch))
+    rank = mesh.get_local_rank(m)
+
+    def blocks(ql, kl, vl):
+        B, S, hl, Dh = ql.shape
+        kv = rank * hl // G
+        out = _attend(ql.reshape(B, S, 1, hl, Dh), kl[:, :, kv:kv + 1],
+                      vl[:, :, kv:kv + 1], mask_qpos, qpos, window, causal)
+        return out.reshape(B, S, hl, Dh)
+
+    fn = local_map(blocks, out_placements=list(q_pl),
+                   in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, kv_grad, kv_grad),
+                   device_mesh=mesh)
+    return fn(q.redistribute(mesh, q_pl), k.redistribute(mesh, kv_pl),
+              v.redistribute(mesh, kv_pl))
 
 
 def _attend(qg, k, v, mask_qpos, qpos=None, window=None, causal=True):
@@ -526,11 +639,65 @@ def _flash_bwd_impl(qg, k, v, qpos, window, causal, static_diag, out, lse,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The tiled passes are single operators (``torch.library.custom_op``): the
+# eager kernels are the loops above, and their fake kernels give the
+# outputs' shapes alone, so that a trace on fake tensors (the dry-run)
+# takes one op per call instead of a few dozen per tile; their FLOPs are
+# registered with ``FlopCounterMode`` (the tiles each pass visits).
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def flash_fwd(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              qpos: torch.Tensor, window: int, causal: bool,
+              static_diag: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_impl(qg, k, v, qpos, window, causal, static_diag)
+
+
+@flash_fwd.register_fake
+def _(qg, k, v, qpos, window, causal, static_diag):
+    B, S, K, G, Dh = qg.shape
+    return (qg.new_empty(qg.shape, dtype=v.dtype),
+            qg.new_empty((B, K, G, S), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def flash_bwd(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              qpos: torch.Tensor, window: int, causal: bool,
+              static_diag: bool, out: torch.Tensor, lse: torch.Tensor,
+              dout: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _flash_bwd_impl(qg, k, v, qpos, window, causal, static_diag,
+                           out, lse, dout)
+
+
+@flash_bwd.register_fake
+def _(qg, k, v, qpos, window, causal, static_diag, out, lse, dout):
+    return qg.new_empty(qg.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def flash_tile_products(qg_shape, k_shape, static_diag) -> int:
+    """Multiply-adds of one (cq × ck × Dh) score or value product, summed
+    over the tiles a pass visits: 2·B·K·G·cq·ck·Dh per product."""
+    B, S, K, G, Dh = qg_shape
+    T = k_shape[1]
+    cq, ck = _pick_chunks(S, T)
+    nq, nk = S // cq, T // ck
+    tiles = sum(_n_kv(i, nq, nk, cq, ck, static_diag) for i in range(nq))
+    return 2 * B * K * G * cq * ck * Dh * tiles
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flops(qg, k, v, qpos, window, causal, static_diag, *a, **kw):
+    return 2 * flash_tile_products(qg, k, static_diag)       # s, p·v
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flops(qg, k, v, qpos, window, causal, static_diag, *a, **kw):
+    return 5 * flash_tile_products(qg, k, static_diag)  # s, dv, dp, dq, dk
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qg, k, v, qpos, window, causal, static_diag):
-        out, lse = _flash_fwd_impl(qg, k, v, qpos, window, causal,
-                                   static_diag)
+        out, lse = flash_fwd(qg, k, v, qpos, window, causal, static_diag)
         ctx.save_for_backward(qg, k, v, qpos, out, lse)
         ctx.window, ctx.causal, ctx.static_diag = window, causal, static_diag
         return out
@@ -538,8 +705,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qg, k, v, qpos, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd_impl(qg, k, v, qpos, ctx.window, ctx.causal,
-                                     ctx.static_diag, out, lse, dout)
+        dq, dk, dv = flash_bwd(qg, k, v, qpos, ctx.window, ctx.causal,
+                               ctx.static_diag, out, lse, dout.contiguous())
         return dq, dk, dv, None, None, None, None
 
 

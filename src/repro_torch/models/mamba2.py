@@ -155,6 +155,11 @@ def apply_mamba_train(p, cfg, x, shd: Sharder, return_state=False):
     """x: (B,S,D) → (B,S,D).  Training/prefill path (chunked SSD)."""
     B, S, D = x.shape
     d_in, H, P, G, N, conv_dim, _ = _dims(cfg)
+    # On a mesh the sequence is gathered whole first, as for the MLP's
+    # up-projection: the product of a batch- and sequence-split x flattens
+    # (B, S) into one strided split, whose propagation reads index values
+    # on the host.
+    x = shd.act(x, ("batch", "seq", "act_embed"))
     zxbcdt = torch.einsum("bsd,dk->bsk", x, p["w_in"])
     zxbcdt = shd.act(zxbcdt, ("batch", "seq", "act_mlp"))
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
@@ -168,7 +173,7 @@ def apply_mamba_train(p, cfg, x, shd: Sharder, return_state=False):
     f32 = torch.float32
     y, h_last = ssd_chunked(xs.to(f32), dt, a, Bm.to(f32), Cm.to(f32))
     y = y + p["d_skip"][None, None, :, None] * xs.to(f32)
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = L.merge_heads(y, shd).to(x.dtype)
     y = _gated_norm(y, z, p["norm_scale"])
     out = torch.einsum("bsk,kd->bsd", y, p["w_out"])
     out = shd.act(out, ("batch", "res_seq", "act_embed"))
@@ -180,7 +185,12 @@ def apply_mamba_train(p, cfg, x, shd: Sharder, return_state=False):
 
 
 def _causal_conv(xbc, w, b):
-    """Depthwise causal conv1d, kernel K: xbc (B,S,C), w (K,C)."""
+    """Depthwise causal conv1d, kernel K: xbc (B,S,C), w (K,C).  On a mesh
+    it runs on each rank's batch block (``local_blocks``, the weights
+    whole): some torch releases (2.11) fail to redistribute DTensor's
+    ``F.pad``."""
+    if is_dtensor(xbc):
+        return L.local_blocks(_causal_conv, (xbc,), whole=(w, b))
     K = w.shape[0]
     S = xbc.shape[1]
     pad = F.pad(xbc, (0, 0, K - 1, 0))
@@ -276,12 +286,29 @@ def apply_mamba_decode(p, cfg, x, cache: tuple, shd: Sharder,
     new_ssm = (ssm_st * decay[..., None, None]
                + xf[..., :, None] * Bh.to(f32)[..., None, :]
                * dt[..., None, None])
-    y = torch.einsum("bhpn,bhn->bhp", new_ssm, Ch.to(f32))
+    y = _ssm_readout(new_ssm, Ch.to(f32))
     y = y + p["d_skip"][None, :, None] * xf
     y = y.reshape(B, d_in).to(x.dtype)
     y = _gated_norm(y, z, p["norm_scale"])
     out = torch.einsum("bk,kd->bd", y, p["w_out"])
     return out, (new_conv, new_ssm, x_hat, m_acc), nnz
+
+
+def _ssm_readout(ssm, c):
+    """y = C·h for each (batch, head): ``einsum("bhpn,bhn->bhp")``.  On a
+    mesh it runs on each rank's (batch, head) block, C placed as the state
+    is: DTensor's own einsum flattens a split batch and a split head dim
+    into one strided split, whose propagation reads a value on the host."""
+    def readout(s, cc):
+        return torch.einsum("bhpn,bhn->bhp", s, cc)
+    if not is_dtensor(ssm):
+        return readout(ssm, c)
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+               for p in ssm.placements)
+    return L.local_blocks(readout, (ssm.redistribute(ssm.device_mesh, pl),
+                                    c.redistribute(ssm.device_mesh, pl)),
+                          split_dims=(0, 1))
 
 
 # --------------------------------------------------------------- full model

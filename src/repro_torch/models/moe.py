@@ -47,16 +47,22 @@ def moe_group_size(top_k: int) -> int:
     return 4096 if top_k <= 4 else 2048
 
 
-def route(p, cfg, x, capacity_factor: float = 1.25):
+def route(p, cfg, x, capacity_factor: float = 1.25,
+          shd: Sharder | None = None):
     """The routing decisions of one group-batch x (B, S, D): (probs
     (B,S,E), gate_vals (B,S,K) renormalised and zeroed where dropped,
     gate_idx (B,S,K), pos (B,S,K) slot in the expert's buffer, keep
-    (B,S,K), capacity C)."""
+    (B,S,K), capacity C).  On a mesh (``shd``) the router logits are
+    placed by their batch, and so is their gradient, which the softmax
+    and top-k would otherwise hand back split on the sequence (a split
+    the product's backward flattens into a strided one)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = int(np.ceil(K * S * capacity_factor / E))
     C = max(4, min(C, S))
     logits = torch.einsum("bsd,de->bse", x.to(torch.float32), p["router"])
+    if shd is not None:
+        logits = shd.act(logits, ("batch", "seq", None))
     probs = torch.softmax(logits, dim=-1)                        # (B,S,E)
     gate_vals, gate_idx = torch.topk(probs, K, dim=-1)           # (B,S,K)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
@@ -74,15 +80,22 @@ def apply_moe(p, cfg, x, shd: Sharder, capacity_factor: float = 1.25):
     slice of one: capacity scales with group size, so a long sequence is
     re-grouped into ``moe_group_size`` groups)."""
     B, S, D = x.shape
+    # On a mesh the sequence is gathered whole (a batch- and sequence-split
+    # x would flatten into one strided split in the router's product).
+    x = shd.act(x, ("batch", "seq", "act_embed"))
     grp = moe_group_size(cfg.top_k)
     if S > grp and S % grp == 0:
         n = S // grp
         out, aux = apply_moe(p, cfg, x.reshape(B * n, grp, D), shd,
                              capacity_factor)
-        return out.reshape(B, S, D), aux
+        # The groups merge back into whole sequences: a sequence split
+        # cannot be flattened with the group dim (torch 2.11 refuses it).
+        out = shd.act(out, ("batch", "seq", "act_embed"))
+        return shd.act(out.reshape(B, S, D),
+                       ("batch", "res_seq", "act_embed")), aux
     E = cfg.n_experts
     probs, gate_vals, gate_idx, onehot, pos, keep, C = route(
-        p, cfg, x, capacity_factor)
+        p, cfg, x, capacity_factor, shd)
 
     # Load-balancing auxiliary loss (Switch §2.2).
     me = torch.mean(probs, dim=(0, 1))                           # (E,)
@@ -107,13 +120,22 @@ def apply_moe(p, cfg, x, shd: Sharder, capacity_factor: float = 1.25):
     h = h * torch.einsum("becd,edf->becf", xe, gather_fsdp(p["w_up"]))
     h = shd.act(h, ("batch", "expert", None, "act_mlp"))
     ye = torch.einsum("becf,efd->becd", h, gather_fsdp(p["w_down"]))
-    out = torch.einsum("bsec,becd->bsd", comb, ye)
+    # The expert outputs are reduced onto the experts' own split (DTensor
+    # would otherwise scatter the partial sum unevenly over the experts,
+    # which the combine cannot flatten), and the products that feed the
+    # output are placed by the batch, and so are their gradients: the
+    # output's sequence split would otherwise reach them and be flattened
+    # into a strided split in their backward.
+    ye = shd.act(ye, ("batch", "expert", None, "act_embed"))
+    tok = ("batch", "seq", "act_embed")
+    out = shd.act(torch.einsum("bsec,becd->bsd", comb, ye), tok)
 
     if cfg.n_shared_experts:
         hs = F.silu(torch.einsum("bsd,df->bsf", x, p["ws_gate"]))
         hs = hs * torch.einsum("bsd,df->bsf", x, p["ws_up"])
-        ys = torch.einsum("bsf,fd->bsd", hs, p["ws_down"])
-        sg = torch.sigmoid(torch.einsum("bsd,do->bso", x, p["ws_sgate"]))
+        ys = shd.act(torch.einsum("bsf,fd->bsd", hs, p["ws_down"]), tok)
+        sg = torch.sigmoid(shd.act(torch.einsum(
+            "bsd,do->bso", x, p["ws_sgate"]), ("batch", "seq", None)))
         out = out + sg * ys
 
     return shd.act(out, ("batch", "res_seq", "act_embed")), aux

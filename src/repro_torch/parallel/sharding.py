@@ -346,7 +346,8 @@ class Sharder:
             x = DTensor.from_local(x, self.mesh,
                                    (Replicate(),) * self.mesh.ndim,
                                    run_check=False)
-        return x.redistribute(self.mesh, tgt)
+        return _Contiguous.apply(_Contiguous.apply(x).redistribute(
+            self.mesh, tgt))
 
     def shard_params(self, params, axes_tree):
         """Every leaf of ``params`` (the same whole tensors on every rank)
@@ -392,6 +393,25 @@ class Sharder:
         if self.mesh is None or getattr(_SCOPE, "depth", 0):
             return contextlib.nullcontext()
         return _outer_scope()
+
+
+class _Contiguous(torch.autograd.Function):
+    """``x.contiguous()``, and its gradient made contiguous too.
+
+    A redistribution that gathers builds a contiguous local block, while
+    the DTensor keeps the global strides of its input; a permuted input
+    (an einsum's output) then carries a block whose layout its strides do
+    not describe, and a later view of it fails on the block.  ``act``
+    passes its value through this on both sides of the redistribution, so
+    that the gradient's redistribution sees a contiguous tensor too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 _SCOPE = threading.local()

@@ -22,6 +22,10 @@ B, S, PREFILL, DECODE_STEPS, CACHE = 8, 32, 8, 4, 16
 # another order across ranks, flips to a full ±lr step.
 OPT = {"lr": 1e-2, "warmup_steps": 0, "weight_decay": 0.0}
 OPT_F32 = {**OPT, "eps": 1e-3}
+# qwen2-0.5b smoke with fewer heads or KV heads than a 4-wide 'model'
+# axis: 2 heads and 1 KV head (no head split), and its own 4 heads over 2
+# KV heads (a head split the KV heads do not divide).
+FEW_HEADS = {"h2_kv1": {"n_heads": 2, "n_kv_heads": 1}, "h4_kv2": {}}
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-370m", "zamba2-2.7b",
                 "seamless-m4t-large-v2")
 
@@ -83,15 +87,14 @@ def train_losses(cfg, shd, host_params, tokens, opt_kw, steps=3,
 def qwen2_rank(rank, n, ref, workdir):
     """The reference's three distributed cases at 4 ranks and qwen2-0.5b
     smoke on ``(2, 2)``: 3 AdamW steps in bf16 and float32, prefill + 4
-    decode steps under DECODE_RULES."""
+    decode steps under DECODE_RULES; and the FEW_HEADS configs on
+    ``(1, 4)``."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.debug import CommDebugMode
-    from repro_torch.launch import inputs, steps as steps_lib
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import get_api, params_from_numpy
+    from repro_torch.models import get_api
     from repro_torch.parallel.sharding import (
-        DECODE_RULES, P, NamedSharding, Sharder, place, spec_placements,
-        tree_leaves, tree_map)
+        P, NamedSharding, Sharder, place, spec_placements, tree_leaves)
     from repro_torch.train import checkpoint as ckpt
     out = {}
     mesh = make_host_mesh(model=2, device="cpu")
@@ -119,27 +122,23 @@ def qwen2_rank(rank, n, ref, workdir):
             tree_leaves(shd.param_shardings(params, get_api(
                 torch_cfg("qwen2-0.5b", torch.float32), shd).init(None)[1]))))
     # Prefill + decode steps under DECODE_RULES (build_serve_step's).
-    cfg = torch_cfg("qwen2-0.5b", torch.float32)
-    from repro_torch.configs.base import ShapeConfig
-    serve, (p_specs, c_specs, _) = steps_lib.build_serve_step(
-        cfg, ShapeConfig("d", seq_len=CACHE, global_batch=B, kind="decode"),
-        shd, device="cpu")
-    p_sh = tree_map(lambda s: s.sharding, p_specs)
-    dparams = tree_map(place, params_from_numpy(ref["params_f32"]), p_sh)
-    dshd = Sharder(mesh=mesh, rules=DECODE_RULES)
-    api = get_api(cfg, dshd, "cpu")
-    tok = torch.from_numpy(ref["tokens"])
-    cache = api.init_cache(B, CACHE)
-    cache, lp = api.prefill(dparams, inputs.place_batch(
-        {"tokens": tok[:, :PREFILL]}, dshd)["tokens"], cache)
-    logits = [full(lp)]
-    for t in range(PREFILL, PREFILL + DECODE_STEPS):
-        lg, cache = serve(dparams, cache, inputs.place_batch(
-            {"tokens": tok[:, t:t + 1]}, dshd))
-        logits.append(full(lg))
-    out["decode"] = [x.numpy() for x in logits]
+    logits, c_specs, cache = decode_logits(
+        torch_cfg("qwen2-0.5b", torch.float32), mesh, ref["params_f32"],
+        ref["tokens"])
+    out["decode"] = logits
     out["cache_sharding"] = (str(c_specs["k"].sharding.spec),
                              str(tuple(cache["k"].placements)))
+    # Heads the 'model' axis does not divide, on (1, 4): 3 float32 steps
+    # and the decode logits of each FEW_HEADS config.
+    mesh14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    for name, kw in FEW_HEADS.items():
+        cfg = dataclasses.replace(torch_cfg("qwen2-0.5b", torch.float32),
+                                  **kw)
+        host = ref["few_heads"][name]
+        losses, _, _ = train_losses(cfg, Sharder(mesh=mesh14), host,
+                                    ref["tokens"], OPT_F32)
+        out[f"few_heads_{name}"] = (losses, decode_logits(
+            cfg, mesh14, host, ref["tokens"])[0])
     # 2. elastic restore (the reference's ELASTIC_RESHARD): (4,) → (2, 2).
     mesh4 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
     x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
@@ -170,6 +169,34 @@ def qwen2_rank(rank, n, ref, workdir):
         g = place(g, s3.sharding((16, 16), ("embed", "mlp")))
     out["multipod"] = (spec, comm_counts(cm), full(g).float().numpy())
     return out
+
+
+def decode_logits(cfg, mesh, host_params, tokens):
+    """Prefill PREFILL tokens, then DECODE_STEPS steps of
+    ``build_serve_step`` (DECODE_RULES) on ``mesh``: (the logits of each
+    step as numpy, the cache specs, the last cache)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import inputs, steps as steps_lib
+    from repro_torch.models import get_api, params_from_numpy
+    from repro_torch.parallel.sharding import (DECODE_RULES, Sharder, place,
+                                              tree_map)
+    serve, (p_specs, c_specs, _) = steps_lib.build_serve_step(
+        cfg, ShapeConfig("d", seq_len=CACHE, global_batch=B, kind="decode"),
+        Sharder(mesh=mesh), device="cpu")
+    p_sh = tree_map(lambda s: s.sharding, p_specs)
+    dparams = tree_map(place, params_from_numpy(host_params), p_sh)
+    dshd = Sharder(mesh=mesh, rules=DECODE_RULES)
+    api = get_api(cfg, dshd, "cpu")
+    tok = torch.from_numpy(tokens)
+    cache = api.init_cache(B, CACHE)
+    cache, lp = api.prefill(dparams, inputs.place_batch(
+        {"tokens": tok[:, :PREFILL]}, dshd)["tokens"], cache)
+    logits = [full(lp)]
+    for t in range(PREFILL, PREFILL + DECODE_STEPS):
+        lg, cache = serve(dparams, cache, inputs.place_batch(
+            {"tokens": tok[:, t:t + 1]}, dshd))
+        logits.append(full(lg))
+    return [x.numpy() for x in logits], c_specs, cache
 
 
 # ---------------------------------- group 2: one loss of each family

@@ -100,6 +100,18 @@ def test_train_command_parses_and_feeds_the_bundle_command():
     assert words[words.index("--bundle") + 1] == args.promote
 
 
+def test_dryrun_commands_parse_against_the_port_cli():
+    from repro_torch.launch import dryrun
+    parser = dryrun.build_parser()
+    card = parser.parse_args(_flags(commands.DRYRUN_CMD,
+                                    "repro_torch.launch.dryrun"))
+    cpu = parser.parse_args(_flags(commands.DRYRUN_CPU_CMD,
+                                   "repro_torch.launch.dryrun"))
+    assert (card.all, card.mesh, card.device) == (True, "both", "cuda")
+    assert (cpu.all, cpu.mesh, cpu.device) == (True, "both", "cpu")
+    assert card.out == cpu.out == "results/torch_dryrun.json"
+
+
 def test_tune_command_parses():
     from repro_torch.kernels import autotune
     args = autotune.build_parser().parse_args(

@@ -227,6 +227,37 @@ def test_lm_modules_import_with_jax_blocked():
     assert out.stdout.split()[-1] == "ok"
 
 
+_IMPORT_DRYRUN = """
+import pkgutil, sys
+sys.modules["jax"] = None                     # any `import jax` now fails
+import repro_torch
+mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")}
+need = {"repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis"}
+assert need <= mods, sorted(need - mods)
+from repro_torch.launch.dryrun import (build_parser, fake_inputs, main,
+                                       run_cell, trace_step)
+from repro_torch.launch.hlo_analysis import (CollectiveOp,
+                                             CollectiveRecorder,
+                                             collective_summary, grouped,
+                                             shape_bytes)
+bad = sorted(k for k, v in sys.modules.items() if v is not None
+             and (k == "repro" or k.startswith(("repro.", "jax"))))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_dryrun_modules_import_with_jax_blocked():
+    """The dry-run and its collective inventory import neither jax nor
+    repro."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_DRYRUN],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_serve_streaming_kws.py",
                                   "torch_train_kws_e2e.py",

@@ -126,6 +126,22 @@ def test_tp_down_proj_reduce_scatter_and_fallbacks():
             assert tuple(out.shape) == (B, S, 8)
 
 
+# --------------------------------- the 256-rank production mesh
+@pytest.mark.parametrize("arch", ["qwen3-32b", "mamba2-370m"])
+def test_train_step_traces_on_the_production_mesh(arch):
+    """Faults of the steps on (16, 16), traced on fake tensors (the
+    dry-run's core): qwen3-32b's smoke config, whose 4 heads and 2 KV
+    heads the 16-wide 'model' axis does not divide, failed at the view of
+    its q/k/v products into heads; mamba2-370m's at its input projection,
+    whose batch- and sequence-split input flattened into a strided split
+    whose propagation read a value on the host."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, "train_4k", "single", device="cpu",
+                          smoke=True)
+    assert rec["status"] == "ok" and rec["chips"] == 256
+    assert rec["collectives"]["count"] > 0
+
+
 # ------------------------------- the other families on 4 gloo ranks
 def test_family_losses_sharded_against_jax(tmp_path):
     """The MoE, mamba2, zamba2 hybrid and seamless enc-dec smoke configs:

@@ -13,8 +13,12 @@ instead of its 8 virtual devices: the sharded equivalence on ``(2, 2)``
 ``(2, 2, 2)``; the spec ``P(("pod", "data"), "model")`` resolves the
 same).  Tolerances: bf16 at the reference's bounds (loss within 0.05,
 ≥ 97 % of the first leaf within 0.05); float32 losses at each step
-within 1e-4 relative; decode logits within 1e-4 of max|·|.
+within 1e-4 relative; decode logits within 1e-4 of max|·|.  The same
+bounds hold qwen2-0.5b smoke with fewer heads or KV heads than a 4-wide
+'model' axis, on (1, 4).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,13 +97,22 @@ def runs(tmp_path_factory):
                "f32": _jax_train(cfg32, p32, tokens, H.OPT_F32),
                "decode": _jax_decode(cfg32, p32, tokens),
                "multipod": _jax_multipod_grad()}
+        few = {}
+        for name, kw in H.FEW_HEADS.items():
+            cfg = dataclasses.replace(cfg32, **kw)
+            few[name] = jax.tree.map(np.asarray,
+                                     get_api(cfg, Sharder()).init(key)[0])
+            ref[f"few_heads_{name}"] = (
+                _jax_train(cfg, few[name], tokens, H.OPT_F32)[0],
+                _jax_decode(cfg, few[name], tokens))
     finally:
         jax.config.update("jax_disable_most_optimizations", prev)
         jax.clear_caches()
     tmp = tmp_path_factory.mktemp("lm_mesh_ranks")
     ranks = run_ranks(H.qwen2_rank, 4, {"params_bf16": p16,
                                         "params_f32": p32,
-                                        "tokens": tokens},
+                                        "tokens": tokens,
+                                        "few_heads": few},
                       str(tmp / "ckpt"), device="cpu", workdir=tmp)
     return ref, ranks
 
@@ -150,6 +163,22 @@ def test_decode_under_decode_rules(runs):
     spec, placements = ranks[0]["cache_sharding"]
     assert spec == "PartitionSpec(None, 'data', 'model', None, None)"
     assert placements == "(Shard(dim=1), Shard(dim=2))"
+
+
+@pytest.mark.parametrize("name", sorted(H.FEW_HEADS))
+def test_heads_fewer_than_the_model_axis(runs, name):
+    """qwen2-0.5b smoke on (1, 4) with 2 heads over 1 KV head (no head
+    split) and with its 4 heads over 2 KV heads (a head split the KV heads
+    do not divide): float32 losses of 3 steps within 1e-4 relative and
+    decode logits within 1e-4 of max|·| of JAX's, unsharded."""
+    ref, ranks = runs
+    want_losses, want_logits = ref[f"few_heads_{name}"]
+    for r in ranks:
+        losses, logits = r[f"few_heads_{name}"]
+        np.testing.assert_allclose(losses, want_losses, rtol=F32_TOL)
+        for got, want in zip(logits, want_logits):
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
 
 
 def test_elastic_restore_onto_another_mesh(runs):
