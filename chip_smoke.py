@@ -9,6 +9,9 @@
                                           #   multi-rank half)
     python3 chip_smoke.py --dryrun-only   # phase 14 alone (no build, no
                                           #   final line)
+    python3 chip_smoke.py --dryrun-table RECORDS [TRACE_DIR]
+        # a dry-run campaign's records beside the reference's, as a
+        # markdown table (reads JSON only: no card, no build)
 
 Phases, each exiting non-zero on failure:
   1. the card's name and power limit; build all eight CUDA kernels, the
@@ -240,7 +243,9 @@ Phases, each exiting non-zero on failure:
      bounds (loss within 0.05, ≥ 97 % of the first leaf within 0.05) and
      in float32 on the first 4 layers (lr 1e-4) within 1e-4, prefill + 32
      greedy tokens under ``DECODE_RULES`` (float32 logits of the prefill
-     and 4 steps within 1e-4 of max|·|), the elastic restore ``(n, 1)`` →
+     and 4 steps within 1e-4 of max|·|; the KV cache must be split on its
+     sequence over 'model', so each decode step combines the ranks'
+     softmax partials over NCCL), the elastic restore ``(n, 1)`` →
      ``(n/2, 2)``, a float32 loss on ``(1, n)`` (14 heads and 2 KV heads
      replicated at model = 4); train and decode ms sharded and on one
      card, collectives per step (``CommDebugMode``) and peak memory per
@@ -249,8 +254,18 @@ Phases, each exiting non-zero on failure:
      card): one full-size cell per family (DRYRUN_CELLS), each traced on
      fake tensors on the 256- and 512-rank production meshes, one process
      per cell, all started together; a line per record with the card
-     line; the run fails unless every record is ``ok`` with its memory,
-     FLOPs and collectives filled, and no kernel launches;
+     line, and a line holding it against the reference's record of the
+     cell (``tests/fixtures/reference_dryrun.json``, written by the JAX
+     package's own dry-run and read as JSON): peak GB a rank and
+     collective GB of both, with their ratios, and where the port's peak
+     was reached; the run fails unless every record is ``ok`` with its
+     memory, FLOPs and collectives filled, no kernel launches, the three
+     ``decode_32k`` cells move at most 2× the reference's collective
+     bytes, no record moves more than the larger of 2× the reference's and
+     its bytes before the sequence-split cache was attended in place
+     (DRYRUN_BEFORE_GB), and zamba2-2.7b ``prefill_32k`` fits the card at
+     no more than a quarter of its earlier peak without an all-gather in
+     ``_split_proj`` / ``_split_xbc``;
   15. the ``kernels`` JSON line (the eight kernels and the two masked
      instantiations; the four tuned ones with their sweep; each with its
      launches in phase 12's two-shard run, ``launches_slot_mesh``, on
@@ -5156,7 +5171,8 @@ def _lmm_full(x):
 def _lmm_greedy(torch, np, cfg, shd, dev, params, new, count=False):
     """Prefill of LMM_PROMPT tokens and ``new`` greedy tokens with the
     serving Sharder ``shd``: (tokens (B, new), logits (new, B, V) float32
-    on the CPU, ms per decode step, collectives of the last step)."""
+    on the CPU, ms per decode step, collectives of the last step, the KV
+    cache's placements, None without a mesh)."""
     from repro_torch.launch import inputs
     from repro_torch.models import get_api
     api = get_api(cfg, shd, dev)
@@ -5186,7 +5202,9 @@ def _lmm_greedy(torch, np, cfg, shd, dev, params, new, count=False):
             logits, cache = api.decode_step(params, cache, step_in)
         _lmm_sync(torch, dev)
         ms.append((time.perf_counter() - t) * 1e3)
-    return torch.cat(toks, dim=1), torch.stack(outs), ms, comm
+    kv = cache["k"]
+    placed = str(tuple(kv.placements)) if hasattr(kv, "placements") else None
+    return torch.cat(toks, dim=1), torch.stack(outs), ms, comm, placed
 
 
 def _lmm_decode_params(torch, cfg, mesh, dev, perturb=False):
@@ -5220,8 +5238,8 @@ def _lmm_baseline(torch, np, full, dev, new) -> dict:
         leaf = tree_leaves(params)[0].float().cpu()
         del params
         dshd, dparams = _lmm_decode_params(torch, cfg, None, dev, perturb)
-        toks, logits, dms, _ = _lmm_greedy(torch, np, cfg, dshd, dev,
-                                           dparams, new)
+        toks, logits, dms, _, _ = _lmm_greedy(torch, np, cfg, dshd, dev,
+                                              dparams, new)
         del dparams
         out[tag] = {"losses": losses, "leaf": leaf, "train_ms": ms,
                     "tokens": toks, "logits": logits, "decode_ms": dms}
@@ -5253,10 +5271,11 @@ def _lmm_rank(rank, n, full, dev, workdir):
                     "train_peak_gb": _lmm_peak_gb(torch, dev)}
         del params, state
         dshd, dparams = _lmm_decode_params(torch, cfg, mesh, dev)
-        toks, logits, dms, dcomm = _lmm_greedy(
+        toks, logits, dms, dcomm, placed = _lmm_greedy(
             torch, np, cfg, dshd, dev, dparams, LMM_NEW, count=True)
         res[tag].update({"tokens": toks, "logits": logits,
-                         "decode_ms": dms, "decode_comm": dcomm})
+                         "decode_ms": dms, "decode_comm": dcomm,
+                         "cache_placements": placed})
         del dparams
     # The elastic restore: params saved from (n, 1), restored onto (n/2, 2).
     cfg = _lmm_cfg(full, torch.float32, LMM_F32_LAYERS)
@@ -5317,8 +5336,8 @@ def _lmm_world1(torch, np, full, dev, workdir, bad) -> dict:
                 {"params": params, "opt": state})]
             dshd, dparams = _lmm_decode_params(
                 torch, cfg, mesh if tag == "mesh" else None, dev)
-            toks, logits, dms, _ = _lmm_greedy(torch, np, cfg, dshd, dev,
-                                               dparams, LMM_NEW_ONE)
+            toks, logits, dms, _, _ = _lmm_greedy(torch, np, cfg, dshd,
+                                                  dev, dparams, LMM_NEW_ONE)
             runs[tag] = (losses, leaves, ms, toks, logits, dms)
             if tag == "mesh":
                 ckpt.save(workdir, 1, {"params": params})
@@ -5419,6 +5438,15 @@ def _lmm_multi(torch, np, full, dev, n, workdir, bad) -> dict:
     launched = [r["launched"] for r in ranks if r["launched"]]
     bad.check(not launched, f"the LM mesh ranks launched kernels: "
               f"{launched}")
+    # The KV cache (layers, batch, seq, kv heads, head dim) must be split
+    # on its sequence (dim 2) over 'model' ((n/2, 2): the second mesh
+    # dim), so that every decode step above attends it where it lies and
+    # combines the ranks' softmax partials over NCCL.
+    seq_split = {t: r0[t]["cache_placements"] for t in ("bf16", "f32")}
+    bad.check(all(p == "(Shard(dim=1), Shard(dim=2))"
+                  for p in seq_split.values()),
+              f"the decode cache is not split on its sequence over "
+              f"'model': {seq_split}")
     out.update({
         "bf16": {"loss_one": b["losses"], "loss_sharded": s["losses"],
                  "loss_gap": gap, "leaf_frac_within": frac,
@@ -5429,6 +5457,7 @@ def _lmm_multi(torch, np, full, dev, n, workdir, bad) -> dict:
                  "decode_ms_sharded": statistics.median(s["decode_ms"]),
                  "train_collectives": s["train_comm"],
                  "decode_collectives": s["decode_comm"],
+                 "decode_cache_placements": s["cache_placements"],
                  "peak_gb_rank": [r["bf16"]["train_peak_gb"]
                                   for r in ranks],
                  "peak_gb_one": base["peak_gb"]},
@@ -5455,7 +5484,9 @@ def _lmm_multi(torch, np, full, dev, n, workdir, bad) -> dict:
           f"{statistics.median(s['decode_ms']):.2f} / "
           f"{statistics.median(b['decode_ms']):.2f}; collectives per "
           f"train step {s['train_comm']}, per decode step "
-          f"{s['decode_comm']}; peak GiB per rank "
+          f"{s['decode_comm']}; the decode cache placed "
+          f"{s['cache_placements']} (batch over 'data', sequence over "
+          f"'model': each step attends it where it lies); peak GiB per rank "
           f"{[round(r['bf16']['train_peak_gb'], 2) for r in ranks]} "
           f"(one device {base['peak_gb']:.2f}); elastic {r0['elastic']}; "
           f"(1, {n}) heads {r0['tall']['heads_spec']} kv "
@@ -5498,38 +5529,119 @@ def lm_mesh_phase(torch, np, card, dev: str = "cuda", full: bool = True,
             "launches": read_launches(wrappers)}
 
 
-# Phase 14: the LM dry-run.  One full-size cell per family, each on both
-# production meshes, in a process of its own (all started together).
+# Phase 14: the LM dry-run, held against the reference's.  One full-size
+# cell per family, each on both production meshes, in a process of its
+# own (all started together); each record beside the reference's record
+# of the same cell, committed from the unchanged JAX package's own
+# dry-run (`python -m repro.launch.dryrun --all --mesh both`, read here as
+# plain JSON).
 DRYRUN_CELLS = (("qwen3-32b", "decode_32k"), ("qwen2-moe-a2.7b", "decode_32k"),
                 ("mamba2-370m", "long_500k"), ("zamba2-2.7b", "prefill_32k"),
                 ("seamless-m4t-large-v2", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
+DRYRUN_REFERENCE = "tests/fixtures/reference_dryrun.json"
+# Collective bytes (GB) of each record as the port moved them before it
+# attended the split KV cache where it lies and kept Mamba2's projection
+# split (PERF.md §6: the card's records, torch 2.11.0+cu128, collective
+# seconds × chips × 50 GB/s): no record may rise above the larger of its
+# figure here and 2× the reference's.
+DRYRUN_BEFORE_GB = {
+    "qwen3-32b|decode_32k": (1102.08, 550.4),
+    "qwen2-moe-a2.7b|decode_32k": (839.68, 422.4),
+    "mamba2-370m|long_500k": (0.034944, 0.035072),
+    "zamba2-2.7b|prefill_32k": (23936.0, 2088.96),
+    "seamless-m4t-large-v2|decode_32k": (207.36, 103.936)}
+DRYRUN_BYTES_X = 2.0           # decode cells: collective bytes ≤ 2× GSPMD's
+DRYRUN_ZAMBA_PEAK_GB = {"single": 37.3, "multi": 13.3}   # ¼ of the above
+DRYRUN_SPLIT_FNS = ("models/mamba2.py:_split_proj", "models/mamba2.py:_split_xbc")
 
 
 def dryrun_cell(arch: str, shape: str, out: str) -> int:
     """One phase-14 worker: ``run_cell`` on the card for ``arch`` ×
-    ``shape`` on both meshes, with every kernel wrapper's launch count
-    zeroed before and read after; writes {records, launches} to ``out``."""
+    ``shape`` on both meshes (with ``--trace-dir``'s collectives by
+    computation and the peak's holders), with every kernel wrapper's
+    launch count zeroed before and read after; writes {records, traces,
+    launches} to ``out``."""
+    import tempfile
     import torch
     from repro_torch.launch.dryrun import run_cell
     wrappers = kernel_wrappers()
     zero_launches(wrappers)
-    recs = [run_cell(arch, shape, mesh, device="cuda")
-            for mesh in ("single", "multi")]
+    recs, traces = [], []
+    with tempfile.TemporaryDirectory(prefix="dryrun_trace_") as tmp:
+        for mesh in ("single", "multi"):
+            recs.append(run_cell(arch, shape, mesh, tmp, device="cuda"))
+            cell = pathlib.Path(tmp) / f"{arch}__{shape}__{mesh}"
+            traces.append({
+                "calls": json.loads(pathlib.Path(f"{cell}.json").read_text()),
+                "peak": json.loads(pathlib.Path(f"{cell}.peak.json")
+                                   .read_text())})
     pathlib.Path(out).write_text(json.dumps(
-        {"records": recs, "launches": read_launches(wrappers),
-         "torch": torch.__version__}))
+        {"records": recs, "traces": traces,
+         "launches": read_launches(wrappers), "torch": torch.__version__}))
     return 0
+
+
+def _dryrun_against_reference(rec, trace, ref, bad) -> dict:
+    """One record beside the reference's record of its cell: peak GB per
+    rank and collective GB, with their ratios, and the gates."""
+    cell = f"{rec['arch']}|{rec['shape']}"
+    key = f"{cell}|{rec['mesh']}"
+    r = ref.get(key)
+    bad.check(r is not None and r.get("status") == "ok",
+              f"{key}: no ok record in {DRYRUN_REFERENCE}")
+    if r is None:
+        return {}
+    multi = rec["mesh"] == "multi"
+    peak, ref_peak = (rec["memory"]["per_device_total_gb"],
+                      r["memory"]["per_device_total_gb"])
+    coll, ref_coll = (rec["collectives"]["total_bytes"] / 1e9,
+                      r["collectives"]["total_bytes"] / 1e9)
+    before = DRYRUN_BEFORE_GB[cell][multi]
+    limit = max(before, DRYRUN_BYTES_X * ref_coll)
+    bad.check(coll <= limit, f"{key}: {coll:.4g} GB of collectives, above "
+              f"max(before {before:.4g}, {DRYRUN_BYTES_X:g}× the "
+              f"reference's {ref_coll:.4g}) GB")
+    if rec["shape"] == "decode_32k" and rec["arch"] != "mamba2-370m":
+        bad.check(coll <= DRYRUN_BYTES_X * ref_coll,
+                  f"{key}: {coll:.4g} GB of collectives, above "
+                  f"{DRYRUN_BYTES_X:g}× the reference's {ref_coll:.4g} GB")
+    gathers = [c for c in trace["calls"] if c["kind"] == "all-gather"
+               and c["computation"].endswith(DRYRUN_SPLIT_FNS)]
+    if cell == "zamba2-2.7b|prefill_32k":
+        cap = DRYRUN_ZAMBA_PEAK_GB[rec["mesh"]]
+        bad.check(rec["memory"]["fits_hbm"] and peak <= cap,
+                  f"{key}: peak {peak:.2f} GB a rank (≤ {cap} GB, fits "
+                  f"{rec['memory']['fits_hbm']})")
+        bad.check(not gathers, f"{key}: all-gathers splitting the Mamba2 "
+                  f"projection: {gathers}")
+    holder = trace["peak"]["largest"][0] if trace["peak"]["largest"] else {}
+    print(f"[dryrun] against the reference | {key}: peak GB/rank "
+          f"{peak:.3f} vs {ref_peak:.3f} ({peak / ref_peak:.2f}×); "
+          f"collective GB {coll:.4g} vs {ref_coll:.4g} "
+          f"({coll / ref_coll:.3g}×; before {before:.4g}); peak at "
+          f"{trace['peak']['computation']}, largest {holder.get('bytes')} B "
+          f"{holder.get('shape')} from {holder.get('computation')}")
+    return {"cell": key, "peak_gb": peak, "ref_peak_gb": ref_peak,
+            "coll_gb": coll, "ref_coll_gb": ref_coll, "before_gb": before,
+            "peak_at": trace["peak"]["computation"]}
 
 
 def dryrun_phase(torch, card) -> dict:
     """Phase 14: the LM dry-run (``repro_torch.launch.dryrun``) on the card:
     the fake-tensor trace of each DRYRUN_CELLS cell's sharded step on the
     256- and 512-rank production meshes.  Every record must end ``ok`` with
-    its fields filled; no kernel launches (fake tensors run nothing)."""
+    its fields filled, no kernel launches (fake tensors run nothing), and
+    each is held against the reference's record of its cell
+    (DRYRUN_REFERENCE): collective bytes and peak per rank side by side,
+    the decode cells at most DRYRUN_BYTES_X× the reference's bytes, no
+    record above its bytes before this check existed or that bound, and
+    zamba2-2.7b's prefill within a quarter of its earlier peak, without
+    gathering its Mamba2 projection to split it."""
     import tempfile
     bad = Failures("dry-run phase")
     t0 = time.perf_counter()
+    ref = json.loads((ROOT / DRYRUN_REFERENCE).read_text())
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
         procs = []
         for arch, shape in DRYRUN_CELLS:
@@ -5553,11 +5665,11 @@ def dryrun_phase(torch, card) -> dict:
                     proc.wait()
                 log.close()
         results = [json.loads(out.read_text()) for *_, out, _, _ in procs]
-    launches = {}
+    launches, compared = {}, []
     for res in results:
         for name, n in res["launches"].items():
             launches[name] = launches.get(name, 0) + n
-        for rec in res["records"]:
+        for rec, trace in zip(res["records"], res["traces"]):
             key = f"{rec['arch']}|{rec['shape']}|{rec['mesh']}"
             mem, roof = rec["memory"], rec["roofline"]
             bad.check(rec["status"] == "ok", f"{key}: {rec['status']}")
@@ -5578,14 +5690,84 @@ def dryrun_phase(torch, card) -> dict:
                   f"memory={roof['memory_s']:.4g}s "
                   f"coll={roof['collective_s']:.4g}s "
                   f"dominant={roof['dominant']} trace={rec['compile_s']}s")
+            compared.append(_dryrun_against_reference(rec, trace, ref, bad))
     launched = {k: v for k, v in launches.items() if v}
     bad.check(not launched, f"the dry-run launched kernels: {launched}")
     secs = time.perf_counter() - t0
     print(f"[dryrun] phase {secs:.1f} s ({len(DRYRUN_CELLS)} processes, "
-          f"torch {results[0]['torch']}); kernel launches: 0")
+          f"torch {results[0]['torch']}); kernel launches: 0; "
+          f"{len(compared)} records held against {DRYRUN_REFERENCE}")
     bad.raise_any()
-    return {"seconds": secs, "launches": launches,
+    return {"seconds": secs, "launches": launches, "compared": compared,
             "records": [r for res in results for r in res["records"]]}
+
+
+def dryrun_table(records: str, trace_dir: str | None = None) -> int:
+    """Print every record of a dry-run campaign (``python -m
+    repro_torch.launch.dryrun --all --mesh both --out RECORDS``) beside
+    the reference's record of its cell (DRYRUN_REFERENCE), one markdown
+    row per cell, single ; multi: microbatches, peak GB a rank, collective
+    GB and their ratios to the reference's.  A record above 2× the
+    reference's collective bytes or 4× its peak names its holder from
+    the campaign's ``--trace-dir``: the function at the peak with the
+    largest storage live then, or the function that moved the most
+    collective bytes."""
+    port = json.loads(pathlib.Path(records).read_text())
+    ref = json.loads((ROOT / DRYRUN_REFERENCE).read_text())
+    print("| Cell | µb | peak GB/rank | × ref | collective GB | × ref | "
+          "holder |")
+    print("| --- | --- | --- | --- | --- | --- | --- |")
+    cells = sorted({k.rsplit("|", 1)[0] for k in ref})
+    n_ok = 0
+    for cell in cells:
+        cols = {c: [] for c in ("mb", "peak", "xp", "coll", "xc")}
+        holders = []
+        for mesh in ("single", "multi"):
+            p, r = port.get(f"{cell}|{mesh}"), ref[f"{cell}|{mesh}"]
+            if p is None or p.get("status") != "ok":
+                for v in cols.values():
+                    v.append("—")
+                holders.append(f"{mesh}: {p and p.get('error')}")
+                continue
+            n_ok += 1
+            pk, rk = (p["memory"]["per_device_total_gb"],
+                      r["memory"]["per_device_total_gb"])
+            pc, rc = (p["collectives"]["total_bytes"] / 1e9,
+                      r["collectives"]["total_bytes"] / 1e9)
+            cols["mb"].append(f"{p['microbatches']} ({r['microbatches']})")
+            cols["peak"].append(f"{pk:.2f} ({rk:.2f})")
+            cols["xp"].append(f"{pk / rk:.2f}")
+            cols["coll"].append(f"{pc:.4g} ({rc:.4g})")
+            cols["xc"].append(f"{pc / rc:.3g}")
+            if trace_dir and (pc > 2 * rc or pk > 4 * rk):
+                stem = pathlib.Path(trace_dir) / (
+                    cell.replace("|", "__") + f"__{mesh}")
+                if pk > 4 * rk:
+                    pj = json.loads(pathlib.Path(f"{stem}.peak.json")
+                                    .read_text())
+                    big = pj["largest"][0]
+                    holders.append(
+                        f"{mesh} peak: at {pj['computation']}, largest "
+                        f"{big['bytes'] / 1e9:.2f} GB {big['shape']} from "
+                        f"{big['computation']}")
+                if pc > 2 * rc:
+                    by: dict = {}
+                    for c in json.loads(pathlib.Path(f"{stem}.json")
+                                        .read_text()):
+                        k = f"{c['kind']} in {c['computation']}"
+                        by[k] = by.get(k, 0) + (
+                            (2 if c["kind"] == "all-reduce" else 1)
+                            * c["bytes_per_device"] * c["participants"]
+                            * c["calls"])
+                    top = max(by, key=by.get)
+                    holders.append(f"{mesh} bytes: {top} "
+                                   f"({by[top] / 1e9:.4g} GB)")
+        print(f"| {cell.replace('|', ' ')} | " + " | ".join(
+            " ; ".join(cols[c]) for c in cols) + " | "
+            + "; ".join(holders) + " |")
+    print(f"{n_ok} / {len(ref)} records ok, held against "
+          f"{DRYRUN_REFERENCE}")
+    return 0 if n_ok == len(ref) else 1
 
 
 def bits_view(torch, t):
@@ -5604,9 +5786,15 @@ def main() -> int:
                          "build; no final line)")
     ap.add_argument("--dryrun-cell", nargs=3,
                     metavar=("ARCH", "SHAPE", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-table", nargs="+",
+                    metavar=("RECORDS", "TRACE_DIR"),
+                    help="print a dry-run campaign's records beside the "
+                         "reference's (no card needed) and exit")
     args = ap.parse_args()
     if args.dryrun_cell:
         return dryrun_cell(*args.dryrun_cell)
+    if args.dryrun_table:
+        return dryrun_table(*args.dryrun_table[:2])
     # No autotune cache of the machine may change a phase's launches: the
     # run keeps its own, removed at exit.
     import atexit

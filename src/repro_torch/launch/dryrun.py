@@ -33,7 +33,16 @@ Per cell the record holds every key of the reference's:
     calls (one record per call), with ``collective_calls`` by kind;
   * ``model_flops`` / ``hlo_flops`` / ``hbm_bytes`` / ``tokens``:
     ``costmodel.step_costs``;
-  * ``roofline``: the reference's formulas on the H100's figures below.
+  * ``roofline``: the reference's formulas on the H100's figures below;
+  * ``device`` and ``torch``: where the fake tensors lived and the torch
+    release that traced them (DTensor's choice of collectives, and so
+    the records, change between releases).
+
+``--trace-dir`` writes each cell's collectives grouped by computation
+(``<cell>.json``) and the holders of its peak (``<cell>.peak.json``:
+the computation running when ``LiveBytes`` reached its peak, and the ten
+largest storages live then with their shapes, dtypes and the
+computations that made them).
 
 Results accumulate in a JSON file (cells already ``ok`` are skipped), so
 the campaign is resumable.  ``--device`` is where the fake tensors live:
@@ -54,6 +63,7 @@ import weakref
 
 import torch
 
+from repro_torch.launch import hlo_analysis
 from repro_torch.launch.hlo_analysis import LocalOpMode
 from repro_torch.models import layers as L    # registers the flash ops
 
@@ -91,26 +101,49 @@ def fake_world(world: int):
 class LiveBytes(LocalOpMode):
     """The live bytes of this rank's storages: each storage counts once,
     from the op that makes it until it is freed (``peak`` is the most at
-    any time).  A collective's wait returns its input, as in eager."""
+    any time).  A collective's wait returns its input, as in eager.
 
-    def __init__(self):
+    ``holders=True`` also logs each storage's birth (its bytes, the shape
+    and dtype of the tensor that made it, the computation that ran) and
+    death, so that ``peak_holders`` can replay the log to the peak: the
+    counterpart of the buffer assignment in the reference's HLO dump."""
+
+    def __init__(self, holders: bool = False):
         super().__init__()
         from torch.utils.weak import WeakIdKeyDictionary
         self.live = self.peak = 0
         self._seen = WeakIdKeyDictionary()
+        self._log = [] if holders else None
+        self._peak_at = (0, None)        # (log length, computation)
 
-    def track(self, st):
-        """Count storage ``st`` once, until it is freed."""
+    def track(self, st, made_by=None):
+        """Count storage ``st`` once, until it is freed (``made_by``: the
+        tensor whose op made it, for the log)."""
         if st in self._seen:
             return
         n = st.nbytes()
         self._seen[st] = n
-        weakref.finalize(st, self._free, n)
+        key = id(st)
+        weakref.finalize(st, self._free, key, n)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        where = None
+        if self._log is not None:
+            where = ("argument" if made_by is None
+                     else hlo_analysis.computation())
+            self._log.append((key, n, None if made_by is None else (
+                tuple(made_by.shape), str(made_by.dtype)), where))
+        self._raise_peak(self.live, where)
 
-    def _free(self, n):
+    def _raise_peak(self, total, where):
+        if total > self.peak:
+            self.peak = total
+            if self._log is not None:
+                self._peak_at = (len(self._log), where)
+
+    def _free(self, key, n):
         self.live -= n
+        if self._log is not None:
+            self._log.append((key, -n, None, None))
 
     def record(self, func, args, kwargs, out):
         if func is torch.ops._c10d_functional.wait_tensor.default:
@@ -118,10 +151,32 @@ class LiveBytes(LocalOpMode):
         if func in _FLASH_TILES:
             # A flash pass's fake kernel makes only its outputs; its f32
             # tile buffers are live while it runs.
-            self.peak = max(self.peak, self.live + _flash_scratch(func, args))
+            scratch = _flash_scratch(func, args)
+            where = None if self._log is None else (
+                f"{hlo_analysis.computation()} (+{scratch} B of flash "
+                f"tiles)")
+            self._raise_peak(self.live + scratch, where)
         for t in (out if isinstance(out, (list, tuple)) else [out]):
             if isinstance(t, torch.Tensor):
-                self.track(t.untyped_storage())
+                self.track(t.untyped_storage(), t)
+
+    def peak_holders(self, k: int = 10) -> dict:
+        """The computation at which the peak was reached and the ``k``
+        largest storages live then: bytes, shape, dtype and the
+        computation that made them (``argument``: a step input)."""
+        n_log, where = self._peak_at
+        live: dict = {}
+        for key, n, made, at in self._log[:n_log]:
+            if n < 0:
+                live.pop(key, None)
+            else:
+                live[key] = (n, made, at)
+        top = sorted(live.values(), key=lambda v: -v[0])[:k]
+        return {"peak_bytes": self.peak, "computation": where,
+                "live_storages": len(live),
+                "largest": [{"bytes": n, "shape": made and list(made[0]),
+                             "dtype": made and made[1], "computation": at}
+                            for n, made, at in top]}
 
 
 # (B, K, G, cq, ck) f32 tiles a flash pass holds at once: scores and
@@ -192,13 +247,14 @@ def _cache_at(cache, index: int):
     return cache
 
 
-def trace_step(fn, specs, shape, mesh, device) -> dict:
+def trace_step(fn, specs, shape, mesh, device, holders=False) -> dict:
     """Run ``fn`` once on fake inputs under ``FlopCounterMode``, the
-    collective recorder and the live-bytes tracker."""
+    collective recorder and the live-bytes tracker (``holders``: with
+    the peak's holders, ``"peak"``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch.hlo_analysis import CollectiveRecorder
-    rec, mem = CollectiveRecorder(), LiveBytes()
+    rec, mem = CollectiveRecorder(), LiveBytes(holders)
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = list(fake_inputs(specs, mesh, device))
         if shape.kind != "train":
@@ -220,7 +276,8 @@ def trace_step(fn, specs, shape, mesh, device) -> dict:
     return {"ops": rec.ops, "flops": fc.get_total_flops(),
             "argument_bytes": arg_bytes, "output_bytes": out_bytes,
             "alias_bytes": alias, "peak_bytes": mem.peak,
-            "trace_s": trace_s}
+            "trace_s": trace_s,
+            "peak": mem.peak_holders() if holders else None}
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -228,7 +285,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
              smoke: bool = False) -> dict:
     """One cell's record (``smoke``: the arch's smoke config, for tests)."""
     from repro_torch.configs import LM_SHAPES, get_config, get_smoke_config
-    from repro_torch.launch import costmodel, hlo_analysis
+    from repro_torch.launch import costmodel
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_step
     from repro_torch.parallel.sharding import Sharder
@@ -251,14 +308,18 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             t0 = time.time()
             fn, specs = build_step(cfg, shape, shd, microbatches=micro)
             t_build = time.time() - t0
-            tr = trace_step(fn, specs, shape, mesh, dev)
+            tr = trace_step(fn, specs, shape, mesh, dev,
+                            holders=trace_dir is not None)
             if tr["peak_bytes"] < HBM_BYTES or micro == micro_options[-1]:
                 break
     if trace_dir:
         p = pathlib.Path(trace_dir)
         p.mkdir(parents=True, exist_ok=True)
-        (p / f"{arch}__{shape_name}__{mesh_kind}.json").write_text(
+        cell = f"{arch}__{shape_name}__{mesh_kind}"
+        (p / f"{cell}.json").write_text(
             json.dumps(hlo_analysis.grouped(tr["ops"]), indent=1))
+        (p / f"{cell}.peak.json").write_text(json.dumps(tr["peak"],
+                                                        indent=1))
     csum = hlo_analysis.collective_summary(tr["ops"])
     calls: dict = {}
     for op in tr["ops"]:
@@ -276,6 +337,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": chips,
         "status": "ok", "microbatches": micro, "device": device,
+        "torch": torch.__version__,
         "lower_s": round(t_build, 2), "compile_s": round(tr["trace_s"], 2),
         "memory": {
             "argument_bytes": tr["argument_bytes"],
@@ -338,7 +400,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/torch_dryrun.json")
     ap.add_argument("--trace-dir", default=None,
-                    help="write each cell's recorded collectives here")
+                    help="write each cell's recorded collectives here, "
+                    "and beside them (<cell>.peak.json) the computation "
+                    "at the peak and the ten largest storages live then")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--jobs", type=int, default=1,

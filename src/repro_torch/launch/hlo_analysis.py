@@ -186,14 +186,21 @@ def _group_size(args, kwargs) -> int:
     return _resolve_process_group(name).size()
 
 
-def _computation() -> str:
+# The port's files that are not a step's computation: placement helpers
+# and the dry-run's own instruments.
+_NOT_COMPUTATIONS = ("/parallel/", "/launch/hlo_analysis.py",
+                     "/launch/dryrun.py")
+
+
+def computation() -> str:
     """The innermost function of the port's models or launch code on the
     stack (``bwd`` in front inside the backward)."""
-    f = sys._getframe(3)
+    f = sys._getframe(1)
     where = "?"
     while f is not None:
         fn = f.f_code.co_filename.replace("\\", "/")
-        if "/repro_torch/" in fn and "/parallel/" not in fn:
+        if "/repro_torch/" in fn and not any(n in fn for n in
+                                              _NOT_COMPUTATIONS):
             where = f"{fn.rsplit('/repro_torch/', 1)[1]}:{f.f_code.co_name}"
             break
         f = f.f_back
@@ -221,4 +228,4 @@ class CollectiveRecorder(LocalOpMode):
         self.ops.append(CollectiveOp(
             kind=kind, bytes_per_device=nbytes,
             participants=_group_size(args, kwargs), multiplier=1.0,
-            computation=_computation()))
+            computation=computation()))

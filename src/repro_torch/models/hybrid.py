@@ -83,14 +83,13 @@ def _mamba_residual(cfg, shd, x, lp):
 
 
 def _mix_in(x, x0, w, shd: Sharder):
-    """The shared block's input, ``[x | x0] · w_cat``.  On a mesh the
-    input is gathered whole on the sequence first, as for the MLP's
-    up-projection, and the product is placed so too, which places its
-    gradient: a batch- and sequence-split operand would flatten into one
-    strided split in the product or in its backward."""
-    tok = ("batch", "seq", "act_embed")
-    xx = shd.act(torch.cat([x, x0], dim=-1), tok)
-    return shd.act(torch.einsum("bsd,dk->bsk", xx, w), tok)
+    """The shared block's input, ``[x | x0] · w_cat``, placed as the
+    residual stream is (``res_seq``).  On a mesh each rank contracts its
+    own block of the batch and the sequence (``L.project_cols``): the
+    input, twice the model's width, is never gathered."""
+    (out,) = L.project_cols(torch.cat([x, x0], dim=-1), w,
+                            ((0, w.shape[1]),))
+    return shd.act(out, ("batch", "res_seq", "act_embed"))
 
 
 def forward(params, cfg, shd: Sharder, tokens, remat=True):

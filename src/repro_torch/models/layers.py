@@ -20,9 +20,12 @@ GSPMD partitioning): DTensor propagates each op's sharding, the
 ``shd.act`` constraints redistribute, attention (direct or the tiled
 ``flash_attention``) runs per shard through ``local_map`` (its batch and
 KV-head blocks are independent), a KV cache sharded on its sequence
-writes only the positions its rank holds, and ``tp_down_proj`` is the
-reference's Megatron-SP ``shard_map``: a local partial product
-reduce-scattered over ``'model'`` onto the sequence dim.
+writes only the positions its rank holds, and a decode step attends it
+where it lies (``_attend_split_cache``: each rank's softmax partials,
+combined by an all-reduce), ``project_cols`` contracts each rank's own
+batch and sequence block with column blocks of a gathered weight, and
+``tp_down_proj`` is the reference's Megatron-SP ``shard_map``: a local
+partial product reduce-scattered over ``'model'`` onto the sequence dim.
 """
 from __future__ import annotations
 
@@ -235,9 +238,12 @@ def _write_cache(cache, new, cache_index: int):
     update fits (``jax.lax.dynamic_update_slice_in_dim`` semantics).
 
     A DTensor cache (sharded on its sequence by the ``kv_seq`` rule) is
-    written shard by shard: ``new`` is brought to the cache's placements
-    with the sequence whole, and each rank writes the positions of its
-    own block."""
+    written shard by shard, each rank the positions of its own block.  A
+    write of the whole cache (a prefill of ``S_max`` tokens) brings
+    ``new`` to the cache's own placements, so each rank receives only
+    its block (a local slice, or an all-to-all from a head split);
+    otherwise ``new`` (a few tokens) is brought to them with the
+    sequence whole."""
     S, S_max = new.shape[1], cache.shape[1]
     start = min(max(int(cache_index), 0), S_max - S)
     if not is_dtensor(cache):
@@ -245,6 +251,10 @@ def _write_cache(cache, new, cache_index: int):
         return cache
     from torch.distributed.tensor import Replicate, Shard
     mesh = cache.device_mesh
+    if S == S_max:
+        new = new.redistribute(mesh, cache.placements)
+        cache.to_local().copy_(new.to_local().to(cache.dtype))
+        return cache
     pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
                for p in cache.placements)
     new = new.redistribute(mesh, pl)
@@ -313,9 +323,9 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
         ck, cv = kv_cache
         k = _write_cache(ck, k, cache_index)
         v = _write_cache(cv, v, cache_index)
+        new_cache = (k, v)
         qpos = int(cache_index) + torch.arange(S, device=dev)
         causal_mask = True
-        new_cache = (k, v)
     else:
         qpos = torch.arange(S, device=dev)
         causal_mask = causal
@@ -326,7 +336,11 @@ def apply_attention(p, cfg, x, shd: Sharder, *, positions, window=None,
     qpos_arg = None if (kv_cache is None and cross_kv is None) else qpos
     mask_qpos = qpos if causal_mask else None
     m = _group_head_split(q, K, G)
-    if m is not None:
+    if kv_cache is not None and _seq_split_dims(k):
+        # A decode step over a cache split on its sequence: the cache
+        # stays where it lies.
+        out = _attend_split_cache(q, k, v, int(cache_index), window)
+    elif m is not None:
         out = _attend_head_blocks(q, k, v, m, G, mask_qpos, qpos_arg,
                                   window, causal_mask)
     else:
@@ -397,6 +411,41 @@ def project_heads(x, w, shd: Sharder, heads: str):
                                       run_check=False), logical)
 
 
+def project_cols(x, w, cols):
+    """``x`` (B, S, D) · ``w[:, a:b]`` (B, S, b − a) for each ``(a, b)`` of
+    ``cols``.
+
+    Without a mesh: one einsum per block.  On a mesh each rank contracts
+    its own block of x, its batch and sequence splits kept (as GSPMD keeps
+    them under a constraint on the output only), with its copy of the
+    weight gathered whole once: a column block that straddles the weight's
+    shards cannot be sliced from them.  Each product keeps x's splits; the
+    caller places it, and a sequence split turned into a column split is
+    then one all-to-all, never a gather of the whole product.  No flat
+    product of the batch and the sequence is formed, so none is split on
+    two mesh dims (a strided split, which some torch releases refuse).
+    The weight's gradient is a partial sum over x's splits, reduced back
+    onto the weight's own placements."""
+    if not is_dtensor(w):
+        return [torch.einsum("bsd,dk->bsk", x, w[:, a:b]) for a, b in cols]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    x_pl = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                 for p in x.placements)
+    x = x.redistribute(mesh, x_pl)
+    w_grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in x_pl)
+    xl = x.to_local()
+    wl = w.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=w_grad)
+    return [DTensor.from_local(torch.einsum("bsd,dk->bsk", xl, wl[:, a:b]),
+                               mesh, x_pl, run_check=False)
+            for a, b in cols]
+
+
 def merge_heads(y, shd: Sharder, heads: str = "act_heads"):
     """(B, S, N, Dh) → (B, S, N·Dh).  On a mesh the flat result is placed
     by the spec of its head axis (split on 'model' where 'model' divides
@@ -463,6 +512,101 @@ def _attend_head_blocks(q, k, v, m, G, mask_qpos, qpos, window, causal):
               v.redistribute(mesh, kv_pl))
 
 
+def _seq_split_dims(k) -> tuple:
+    """The mesh dims that split the sequence (dim 1) of DTensor ``k``."""
+    if not is_dtensor(k):
+        return ()
+    from torch.distributed.tensor import Shard
+    return tuple(i for i, p in enumerate(k.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
+
+
+def _attend_split_cache(q, k, v, q0: int, window):
+    """Decode attention over a KV cache split on its sequence (the
+    ``kv_seq`` rule): flash-decoding across ranks.  q: (B, S, H, Dh) at
+    positions ``q0 + arange(S)``; k, v: (B, T, K, Dh) DTensors.
+
+    The cache stays where it lies.  Each rank scores its own block of
+    cache positions, only those a query may see (``≤ q0 + S − 1``, and
+    inside the window), so no rank reads a position not yet written, and
+    keeps the online-softmax partials in float32: the running max m, the
+    sum l and the weighted values o.  The partials are combined over the
+    mesh dims that split the sequence: an all-reduce (max) of m, then one
+    all-reduce (sum) of [o·e^(m−M) | l·e^(m−M)], B × H × (Dh + 2) floats
+    a layer in all.  The batch keeps its split, and so do the KV heads
+    (the query heads with them).  A mesh dim that splits the query heads
+    but not the KV heads keeps that split where each rank's query heads
+    lie in one KV group or the dim divides the KV heads: the rank slices
+    its KV heads from its block.  Elsewhere q (one token) is gathered.
+    The output is replicated over the sequence's dims.  Serving only: the
+    combine has no gradient."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k.device_mesh
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    G = H // K
+    kv_pl = tuple(p if isinstance(p, Shard) and p.dim < 3 else Replicate()
+                  for p in k.placements)
+    k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    kv_heads_split = any(p == Shard(2) for p in kv_pl)
+    q_pl, head_dim = [], None
+    for i, (kp, qp) in enumerate(zip(kv_pl, q.placements)):
+        n = mesh.size(i)
+        if kp in (Shard(0), Shard(2)):
+            q_pl.append(kp)
+        elif (kp == Replicate() and qp == Shard(2) and not kv_heads_split
+              and head_dim is None and (K % n == 0 or G % (H // n) == 0)):
+            q_pl.append(qp)
+            head_dim = i
+        else:
+            q_pl.append(Replicate())
+    q_pl = tuple(q_pl)
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = k.to_local(), v.to_local()
+    if head_dim is not None:
+        n, r = mesh.size(head_dim), mesh.get_local_rank(head_dim)
+        kv0, kvn = ((r * K // n, K // n) if K % n == 0
+                    else (r * ql.shape[2] // G, 1))
+        kl, vl = kl[:, :, kv0:kv0 + kvn], vl[:, :, kv0:kv0 + kvn]
+    Bl, _, Hl, _ = ql.shape
+    Kl = kl.shape[2]
+    qg = ql.reshape(Bl, S, Kl, Hl // Kl, Dh)
+    f32, dev = torch.float32, ql.device
+    lo, hi = local_bounds(k, 1)
+    a = lo if window is None else max(lo, q0 - int(window) + 1)
+    b = min(hi, q0 + S)
+    if a < b:
+        ks, vs = kl[:, a - lo:b - lo], vl[:, a - lo:b - lo]
+        s = torch.einsum("bskge,btke->bkgst", qg, ks).to(f32) \
+            * float(1.0 / np.sqrt(Dh))
+        mask = _causal_mask(q0 + torch.arange(S, device=dev),
+                            torch.arange(a, b, device=dev), window)
+        s = torch.where(mask, s, torch.full((), NEG, device=dev))
+        m = torch.amax(s, dim=-1)                                # (B,K,G,S)
+        pr = torch.where(mask, torch.exp(s - m[..., None]),
+                         torch.zeros((), device=dev))
+        l = torch.sum(pr, dim=-1)
+        o = torch.einsum("bkgst,btke->bkgse", pr.to(vs.dtype), vs).to(f32)
+    else:
+        m = torch.full((Bl, Kl, Hl // Kl, S), NEG, dtype=f32, device=dev)
+        l = torch.zeros((Bl, Kl, Hl // Kl, S), dtype=f32, device=dev)
+        o = torch.zeros((Bl, Kl, Hl // Kl, S, Dh), dtype=f32, device=dev)
+    seq = _seq_split_dims(k)
+    m_all = m
+    for i in seq:
+        m_all = funcol.all_reduce(m_all, "max", (mesh, i))
+    c = torch.exp(m - m_all)
+    part = torch.cat([o * c[..., None], (l * c)[..., None]], dim=-1)
+    for i in seq:
+        part = funcol.all_reduce(part, "sum", (mesh, i))
+    out = (part[..., :Dh] / part[..., Dh:]).permute(0, 3, 1, 2, 4)
+    out = out.reshape(Bl, S, Hl, Dh).to(q.dtype)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False,
+                              shape=(B, S, H, Dh),
+                              stride=(S * H * Dh, H * Dh, Dh, 1))
+
+
 def _attend(qg, k, v, mask_qpos, qpos=None, window=None, causal=True):
     """Online-softmax attention.  qg: (B,S,K,G,Dh); k,v: (B,T,K,Dh).
 
@@ -510,31 +654,22 @@ def _attend_blocks(qg, k, v, mask_qpos, qpos, window, causal):
                                    causal), (qg, k, v), split_dims=(0, 2))
 
 
-def local_blocks(fn, blocked, whole=(), split_dims=(0,), n_out=1):
-    """``fn(*blocked, *whole)`` (DTensors on one mesh) on their local
-    tensors, once per rank, through ``local_map``.  A mesh dim keeps its
-    split where every tensor of ``blocked`` is split on the same dim of
+def local_blocks(fn, blocked, split_dims=(0,)):
+    """``fn(*blocked)`` (DTensors on one mesh) on their local tensors, once
+    per rank, through ``local_map``.  A mesh dim keeps its split where
+    every tensor of ``blocked`` is split on the same dim of
     ``split_dims`` (their blocks are independent there); every other
-    placement is gathered.  ``whole``
-    tensors are gathered on every mesh dim, and their gradients are
-    partial sums where the blocks are split.  Each of the ``n_out``
-    outputs takes the blocks' placements."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    placement is gathered.  The output takes the blocks' placements."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = blocked[0].device_mesh
     pl = tuple(ps[0] if isinstance(ps[0], Shard) and ps[0].dim in split_dims
                and all(p == ps[0] for p in ps) else Replicate()
                for ps in zip(*(t.placements for t in blocked)))
-    rep = (Replicate(),) * mesh.ndim
-    grad_whole = tuple(Partial() if isinstance(p, Shard) else Replicate()
-                       for p in pl)
-    fn = local_map(fn, out_placements=list(pl) if n_out == 1
-                   else (pl,) * n_out,
-                   in_placements=(pl,) * len(blocked) + (rep,) * len(whole),
-                   in_grad_placements=(pl,) * len(blocked)
-                   + (grad_whole,) * len(whole), device_mesh=mesh)
-    return fn(*(t.redistribute(mesh, pl) for t in blocked),
-              *(t.redistribute(mesh, rep) for t in whole))
+    fn = local_map(fn, out_placements=list(pl),
+                   in_placements=(pl,) * len(blocked),
+                   in_grad_placements=(pl,) * len(blocked), device_mesh=mesh)
+    return fn(*(t.redistribute(mesh, pl) for t in blocked))
 
 
 def _tile_mask(qp, kp, window: int, causal: bool):
@@ -867,15 +1002,62 @@ def _chunk_loss(xc, lc, head, vocab_size, shd):
         logits = torch.where(pad[None, None],
                              torch.full((), NEG, device=logits.device),
                              logits)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp_vocab(logits)
     if is_dtensor(logits):
-        # The gold logit as a one-hot product: on vocab-sharded logits
-        # DTensor gathers no (B, S, V) copy (the values are the gather's).
-        gold = torch.sum(logits * F.one_hot(lc.to(torch.int64), V).to(
-            logits.dtype), dim=-1)
+        gold = _gold_logit(logits, lc)
     else:
         gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
     return torch.sum(lse - gold)
+
+
+def _logsumexp_vocab(logits):
+    """``logsumexp`` over the vocabulary (the last dim).  Where a mesh dim
+    splits it, each rank reduces its own block around the all-reduced
+    max and the sums are all-reduced: (B, S) floats, where DTensor's own
+    ``logsumexp`` gathers the (B, S, V) logits on every rank."""
+    from torch.distributed.tensor import Shard
+    if not (is_dtensor(logits) and Shard(logits.ndim - 1)
+            in logits.placements):
+        return torch.logsumexp(logits, dim=-1)
+    m = _reduced(torch.amax(logits, dim=-1, keepdim=True).detach())
+    return torch.log(_reduced(torch.sum(torch.exp(logits - m), dim=-1))) \
+        + m[..., 0]
+
+
+def _reduced(x):
+    """DTensor ``x`` with its partial placements reduced to replicas: an
+    all-reduce, where DTensor left to itself may scatter the reduction
+    onto another dim and then gather against it in the backward."""
+    from torch.distributed.tensor import Partial, Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if isinstance(p, Partial) else p for p in x.placements))
+
+
+def _gold_logit(logits, labels):
+    """The gold logit of each position of DTensor ``logits`` (B, S, V):
+    each rank picks it out of its own block of the vocabulary by a
+    one-hot product (a rank that does not hold it adds 0), and the
+    partial sums are reduced over the vocabulary's split.  No rank builds
+    a one-hot of the whole vocabulary or gathers the logits, in either
+    pass (DTensor's own ``one_hot`` of the labels is whole: (B, S, V)
+    int64 on every rank)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, tuple(
+        p if p == Shard(0) else Replicate() for p in pl))
+    v0, v1 = local_bounds(logits, 2)
+    ll = logits.to_local()
+    hot = labels.to_local().to(torch.int64)[..., None] == torch.arange(
+        v0, v1, device=ll.device)
+    part = torch.sum(ll * hot.to(ll.dtype), dim=-1)
+    return _reduced(DTensor.from_local(part, mesh, tuple(
+        Partial() if p == Shard(2) else p for p in pl), run_check=False))
 
 
 def chunked_softmax_xent(x, head, labels, shd: Sharder, n_chunks: int = 8,
@@ -889,6 +1071,10 @@ def chunked_softmax_xent(x, head, labels, shd: Sharder, n_chunks: int = 8,
     while S % n_chunks:
         n_chunks -= 1
     c = S // n_chunks
+    # On a mesh the head's FSDP axes are gathered once, so that each
+    # chunk's logits keep the batch's split (DTensor would otherwise
+    # gather the activations to meet the weight's split contraction).
+    head = gather_fsdp(head)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         sl = slice(i * c, (i + 1) * c)

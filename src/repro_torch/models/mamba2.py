@@ -104,13 +104,10 @@ def ssd_chunked(x, dt, a, Bm, Cm, chunk: int = CHUNK):
 
     x: (B,S,H,P)  dt: (B,S,H)  a: (H,) (negative)  Bm/Cm: (B,S,G,N)
     Returns (y (B,S,H,P), last state (B,H,P,N)).  On a mesh each rank
-    scans its block of the batch (``L.local_blocks``).
+    scans its block of the batch and of the heads (``_ssd_blocks``).
     """
     if is_dtensor(x):
-        return L.local_blocks(
-            lambda x_, dt_, b_, c_, a_: ssd_chunked(x_, dt_, a_, b_, c_,
-                                                    chunk),
-            (x, dt, Bm, Cm), whole=(a,), n_out=2)
+        return _ssd_blocks(x, dt, a, Bm, Cm, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[-2], Bm.shape[-1]
     c = min(chunk, S)
@@ -151,23 +148,101 @@ def ssd_chunked(x, dt, a, Bm, Cm, chunk: int = CHUNK):
     return y, h
 
 
+def _ssd_blocks(x, dt, a, Bm, Cm, chunk):
+    """``ssd_chunked`` on DTensors, one (batch, heads) block a rank: the
+    scan of a (sequence, head) pair is independent of the others.  The
+    batch keeps its split where x and dt share it, and so do the heads
+    where each rank's heads cover whole groups of B and C or lie in one
+    group; every other split is gathered.  B and C come whole on the head
+    split, each rank taking its heads' groups, and ``a`` comes split with
+    the heads; their gradients are partial sums where the blocks split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    H, G = x.shape[2], Bm.shape[2]
+    rep = H // G
+    pl = []
+    for i, (p, q) in enumerate(zip(x.placements, dt.placements)):
+        hl = H // mesh.size(i)
+        heads_ok = hl % rep == 0 or rep % hl == 0
+        pl.append(p if p == q and (p == Shard(0) or (p == Shard(2)
+                                                     and heads_ok))
+                  else Replicate())
+    pl = tuple(pl)
+    x, dt = x.redistribute(mesh, pl), dt.redistribute(mesh, pl)
+    h0, h1 = L.local_bounds(x, 2)
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    bc_pl = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    bc_grad = tuple(Partial() if p == Shard(2) else p for p in pl)
+    a_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in pl)
+    a_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(pl, a_pl))
+    h_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+
+    def scan(x_, dt_, b_, c_, a_):
+        return ssd_chunked(x_, dt_, a_, b_[:, :, g0:g1], c_[:, :, g0:g1],
+                           chunk)
+
+    fn = local_map(scan, out_placements=(pl, h_pl),
+                   in_placements=(pl, pl, bc_pl, bc_pl, a_pl),
+                   in_grad_placements=(pl, pl, bc_grad, bc_grad, a_grad),
+                   device_mesh=mesh)
+    return fn(x, dt, Bm.redistribute(mesh, bc_pl),
+              Cm.redistribute(mesh, bc_pl), a.redistribute(mesh, a_pl))
+
+
+def _head_placed(t, shd: Sharder, heads: int):
+    """``t`` (B, S, heads·P) placed as its heads (B, S, heads, P) are by
+    ``("batch", "seq", "act_heads", None)``: split on 'model' where
+    'model' divides the heads, whole where it does not."""
+    if shd.mesh is None:
+        return t
+    from repro_torch.parallel.sharding import P, spec_placements
+    B, S, n = t.shape
+    spec = shd.spec((B, S, heads, n // heads),
+                    ("batch", "seq", "act_heads", None))
+    return t.redistribute(shd.mesh, spec_placements(shd.mesh, P(*spec[:3])))
+
+
+def _in_proj(p, cfg, x, shd: Sharder):
+    """The input projection's parts (z, x, [B | C], dt), each (B, S, ·),
+    before the conv.
+
+    Where the weight keeps its columns whole (no mesh, or ``d_proj`` not
+    divided by 'model'), it is the reference's one product, sliced (on a
+    mesh x is gathered whole on the sequence first: the product is then
+    placed with the sequence whole, and x is the smaller operand).  Where
+    'model' splits the columns, the parts' offsets straddle its shards,
+    and a slice of the product would gather it whole on every rank: each
+    part is then its own product (``L.project_cols``), z, x and dt placed
+    by their heads (a rank holds only its heads) and [B | C], G·N wide
+    each, whole."""
+    d_in, H, P, G, N, conv_dim, _ = _dims(cfg)
+    if _col_split_dim(p["w_in"]) is None:
+        x = shd.act(x, ("batch", "seq", "act_embed"))
+        zxbcdt = torch.einsum("bsd,dk->bsk", x, p["w_in"])
+        zxbcdt = shd.act(zxbcdt, ("batch", "seq", "act_mlp"))
+        z, xbc, dt = _split_proj(cfg, zxbcdt)
+        return z, xbc[..., :d_in], xbc[..., d_in:], dt
+    z, xs, bc, dt = L.project_cols(x, p["w_in"], (
+        (0, d_in), (d_in, 2 * d_in), (2 * d_in, d_in + conv_dim),
+        (d_in + conv_dim, d_in + conv_dim + H)))
+    return (_head_placed(z, shd, H), _head_placed(xs, shd, H),
+            shd.act(bc, ("batch", "seq", None)), _head_placed(dt, shd, H))
+
+
 def apply_mamba_train(p, cfg, x, shd: Sharder, return_state=False):
-    """x: (B,S,D) → (B,S,D).  Training/prefill path (chunked SSD)."""
+    """x: (B,S,D) → (B,S,D).  Training/prefill path (chunked SSD).  On a
+    mesh each rank convolves, scans and normalises its own heads where
+    the projection's columns are split (``_in_proj``)."""
     B, S, D = x.shape
     d_in, H, P, G, N, conv_dim, _ = _dims(cfg)
-    # On a mesh the sequence is gathered whole first, as for the MLP's
-    # up-projection: the product of a batch- and sequence-split x flattens
-    # (B, S) into one strided split, whose propagation reads index values
-    # on the host.
-    x = shd.act(x, ("batch", "seq", "act_embed"))
-    zxbcdt = torch.einsum("bsd,dk->bsk", x, p["w_in"])
-    zxbcdt = shd.act(zxbcdt, ("batch", "seq", "act_mlp"))
-    z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xs, Bm, Cm = _split_xbc(cfg, xbc)          # conv already applied silu
-    xs = xs.reshape(B, S, H, P)
-    Bm = Bm.reshape(B, S, G, N)
-    Cm = Cm.reshape(B, S, G, N)
+    z, x_raw, bc_raw, dt = _in_proj(p, cfg, x, shd)
+    xs = _causal_conv(x_raw, p["conv_w"], p["conv_b"], 0)
+    bc = _causal_conv(bc_raw, p["conv_w"], p["conv_b"], d_in)
+    xs = xs.reshape(B, S, H, P)                # conv already applied silu
+    Bm = bc[..., :G * N].reshape(B, S, G, N)
+    Cm = bc[..., G * N:].reshape(B, S, G, N)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"])         # (B,S,H)
     a = -torch.exp(p["a_log"])                                   # (H,)
     f32 = torch.float32
@@ -179,20 +254,35 @@ def apply_mamba_train(p, cfg, x, shd: Sharder, return_state=False):
     out = shd.act(out, ("batch", "res_seq", "act_embed"))
     if return_state:
         K = cfg.conv_kernel
-        conv_tail = xbc_raw[:, S - (K - 1):]                     # (B,K-1,C)
+        conv_tail = torch.cat([x_raw[:, S - (K - 1):],
+                               bc_raw[:, S - (K - 1):]], dim=-1)  # (B,K-1,C)
         return out, (conv_tail.to(x.dtype), h_last)
     return out
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal conv1d, kernel K: xbc (B,S,C), w (K,C).  On a mesh
-    it runs on each rank's batch block (``local_blocks``, the weights
-    whole): some torch releases (2.11) fail to redistribute DTensor's
-    ``F.pad``."""
+def _causal_conv(xbc, w, b, col0: int = 0):
+    """Depthwise causal conv1d, kernel K: xbc (B,S,C) holds the channels
+    ``[col0, col0 + C)`` of w (K, ·) and b.  On a mesh it runs on each
+    rank's block of the batch and of the channels, with the rank's
+    columns of the weights (gathered whole: they are K + 1 rows): some
+    torch releases (2.11) fail to redistribute DTensor's ``F.pad``."""
     if is_dtensor(xbc):
-        return L.local_blocks(_causal_conv, (xbc,), whole=(w, b))
-    K = w.shape[0]
-    S = xbc.shape[1]
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        mesh = xbc.device_mesh
+        pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                   else Replicate() for p in xbc.placements)
+        xbc = xbc.redistribute(mesh, pl)
+        lo, hi = L.local_bounds(xbc, 2)
+        rep = (Replicate(),) * mesh.ndim
+        grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                     for p in pl)
+        w = w.redistribute(mesh, rep).to_local(grad_placements=grad)
+        b = b.redistribute(mesh, rep).to_local(grad_placements=grad)
+        out = _causal_conv(xbc.to_local(), w, b, col0 + lo)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
+    K, S, C = w.shape[0], xbc.shape[1], xbc.shape[2]
+    w, b = w[:, col0:col0 + C], b[col0:col0 + C]
     pad = F.pad(xbc, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + S] * w[i][None, None] for i in range(K))
     return F.silu(out + b[None, None])
@@ -269,12 +359,12 @@ def apply_mamba_decode(p, cfg, x, cache: tuple, shd: Sharder,
         zxbcdt = torch.einsum("bd,dk->bk", x, p["w_in"])
         nnz = torch.ones((), dtype=f32, device=x.device)
 
-    z, xbc, dt = _split_proj(cfg, zxbcdt)
+    z, xbc, dt = _decode_proj_parts(cfg, zxbcdt, conv_st, shd)
     conv_in = torch.cat([conv_st, xbc[:, None]], dim=1)          # (B,K,C)
     xbc_c = F.silu(torch.einsum("bkc,kc->bc", conv_in, p["conv_w"])
                    + p["conv_b"][None])
     new_conv = conv_in[:, 1:]
-    xs, Bm, Cm = _split_xbc(cfg, xbc_c)        # conv already applied silu
+    xs, Bm, Cm = _decode_xbc_parts(cfg, xbc_c)  # conv already applied silu
     xs = xs.reshape(B, H, P)
     rep = H // G
     Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1)       # (B,H,N)
@@ -292,6 +382,105 @@ def apply_mamba_decode(p, cfg, x, cache: tuple, shd: Sharder,
     y = _gated_norm(y, z, p["norm_scale"])
     out = torch.einsum("bk,kd->bd", y, p["w_out"])
     return out, (new_conv, new_ssm, x_hat, m_acc), nnz
+
+
+def _decode_proj_parts(cfg, zxbcdt, conv_st, shd: Sharder):
+    """The decode step's (z, [x | B | C], dt) of its projection (B,
+    d_proj).  On a mesh whose 'model' axis splits the projection's
+    columns (the accumulator's ``act_mlp`` placement), its parts' offsets
+    straddle the shards: ``_relayout_cols`` hands z and dt out by heads and
+    [x | B | C] as the conv state is split, in one all-to-all, and no rank
+    gathers the projection."""
+    d_in, H, P, G, N, conv_dim, proj = _dims(cfg)
+    if not is_dtensor(zxbcdt):
+        return _split_proj(cfg, zxbcdt)
+    zxbcdt = shd.act(zxbcdt, ("batch", "act_mlp"))    # reduces a partial
+    m = _col_split_dim(zxbcdt)
+    if m is None:
+        return _split_proj(cfg, zxbcdt)
+    from torch.distributed.tensor import Shard
+    n = zxbcdt.device_mesh.size(m)
+    heads = H % n == 0
+    return _relayout_cols(zxbcdt, m, (
+        (0, d_in, heads),
+        (d_in, d_in + conv_dim, conv_st.placements[m] == Shard(2)),
+        (d_in + conv_dim, proj, heads)))
+
+
+def _decode_xbc_parts(cfg, xbc):
+    """The decode step's (x, B, C) of its conv output (B, conv_dim): on a
+    mesh that splits its columns, x comes out by heads and B, C whole
+    (``_relayout_cols``)."""
+    d_in, H, P, G, N, conv_dim, _ = _dims(cfg)
+    m = _col_split_dim(xbc)
+    if m is None:
+        return _split_xbc(cfg, xbc)
+    return _relayout_cols(xbc, m, (
+        (0, d_in, H % xbc.device_mesh.size(m) == 0),
+        (d_in, d_in + G * N, False), (d_in + G * N, conv_dim, False)))
+
+
+def _col_split_dim(t):
+    """The mesh dim that splits dim 1 of ``t`` (a DTensor), or None."""
+    if not is_dtensor(t):
+        return None
+    from torch.distributed.tensor import Shard
+    return next((i for i, p in enumerate(t.placements) if p == Shard(1)),
+                None)
+
+
+def _relayout_cols(t, m: int, parts):
+    """Parts of DTensor ``t`` (B, C), whose columns mesh dim ``m`` splits
+    into even blocks, each in its own layout, by one all-to-all over
+    ``m``: each rank receives only the columns it lacks.
+
+    ``parts``: ``(a, b, split)`` for the columns ``[a, b)``: split, rank r
+    takes the r-th of n even shares of them (``Shard(1)`` on ``m``; a
+    share needs n | b − a), else every rank takes them all
+    (``Replicate()`` on ``m``).  The other mesh dims keep their
+    placements.  Serving only: the exchange has no gradient."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = t.device_mesh
+    n, r = mesh.size(m), mesh.get_local_rank(m)
+    w = t.shape[1] // n
+    parts = [(a, b, split and (b - a) % n == 0) for a, b, split in parts]
+
+    def wanted(d):
+        return [(a + d * ((b - a) // n), a + (d + 1) * ((b - a) // n))
+                if split else (a, b) for a, b, split in parts]
+
+    def held(iv, src):
+        lo, hi = max(iv[0], src * w), min(iv[1], (src + 1) * w)
+        return (lo, hi) if lo < hi else None
+
+    tl = t.to_local()
+    send, in_sizes = [], []
+    for d in range(n):
+        pieces = [tl[:, o[0] - r * w:o[1] - r * w] for iv in wanted(d)
+                  if (o := held(iv, r))]
+        send.extend(pieces)
+        in_sizes.append(sum(x.shape[1] for x in pieces))
+    mine = wanted(r)
+    out_sizes = [sum(o[1] - o[0] for iv in mine if (o := held(iv, s)))
+                 for s in range(n)]
+    buf = torch.cat(send, dim=1).t().contiguous()
+    recv = funcol.all_to_all_single(buf, out_sizes, in_sizes, (mesh, m))
+    recv = funcol.wait_tensor(recv).t()
+    blocks, off = {}, 0
+    for s in range(n):                    # a source's pieces, part by part
+        for i, iv in enumerate(mine):
+            if (o := held(iv, s)):
+                blocks[i, s] = recv[:, off:off + o[1] - o[0]]
+                off += o[1] - o[0]
+    out = []
+    for i, (_, _, split) in enumerate(parts):
+        local = torch.cat([blocks[i, s] for s in range(n)
+                           if (i, s) in blocks], dim=1).contiguous()
+        pl = tuple((Shard(1) if split else Replicate()) if j == m else p
+                   for j, p in enumerate(t.placements))
+        out.append(DTensor.from_local(local, mesh, pl, run_check=False))
+    return out
 
 
 def _ssm_readout(ssm, c):

@@ -87,7 +87,8 @@ def train_losses(cfg, shd, host_params, tokens, opt_kw, steps=3,
 def qwen2_rank(rank, n, ref, workdir):
     """The reference's three distributed cases at 4 ranks and qwen2-0.5b
     smoke on ``(2, 2)``: 3 AdamW steps in bf16 and float32, prefill + 4
-    decode steps under DECODE_RULES; and the FEW_HEADS configs on
+    decode steps under DECODE_RULES; zamba2 smoke float32 on ``(2, 2)``,
+    the same steps, and gemma3's decode; and the FEW_HEADS configs on
     ``(1, 4)``."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor.debug import CommDebugMode
@@ -128,6 +129,24 @@ def qwen2_rank(rank, n, ref, workdir):
     out["decode"] = logits
     out["cache_sharding"] = (str(c_specs["k"].sharding.spec),
                              str(tuple(cache["k"].placements)))
+    # zamba2 smoke, float32, on (2, 2): 3 AdamW steps and prefill + decode
+    # steps.  Its projection's 296 columns split 148 to a 'model' rank,
+    # the offsets of its parts (128, 288) inside the shards, and the
+    # shared attention's cache is split on its sequence.
+    cfgz = torch_cfg("zamba2-2.7b", torch.float32)
+    losses, params, _ = train_losses(cfgz, shd, ref["params_zamba2"],
+                                     ref["tokens"], OPT_F32)
+    logits, _, cache = decode_logits(cfgz, mesh, ref["params_zamba2"],
+                                     ref["tokens"])
+    out["zamba2"] = (losses, logits,
+                     str(tuple(params["mamba"]["w_in"].placements)),
+                     str(tuple(cache.k.placements)))
+    # gemma3 smoke, float32, on (2, 2): prefill + decode steps whose
+    # local layers' window (8) starts inside the first rank's block of
+    # the sequence-split cache.
+    out["gemma3"] = decode_logits(torch_cfg("gemma3-4b", torch.float32),
+                                  mesh, ref["params_gemma3"],
+                                  ref["tokens"])[0]
     # Heads the 'model' axis does not divide, on (1, 4): 3 float32 steps
     # and the decode logits of each FEW_HEADS config.
     mesh14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))

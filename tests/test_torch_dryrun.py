@@ -11,9 +11,18 @@ reference test's unscanned matmul chain.  Smoke traces: ``run_cell`` at
 smoke width on the CPU, one cell per family on the production meshes;
 each ends ``ok``, carries every key of the reference's record, and its
 analytic fields equal ``repro.launch.costmodel.step_costs`` exactly.
+Against the reference's GSPMD placement: a smoke decode step on the
+production mesh moves at most 2× the collective bytes of the reference's
+compiled step (a subprocess with 512 host devices) and gathers no block
+of its KV cache; a Mamba2 prefill and train step whose projection
+columns split over 'model' at offsets that straddle the shards gather
+none of the projection to split it.
 """
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -209,3 +218,101 @@ def test_a_process_group_already_open_is_refused():
         with pytest.raises(RuntimeError, match="already initialised"):
             with dryrun.fake_world(4):
                 pass
+
+
+# ------------------------------------------ against the reference's GSPMD
+# The reference's collective summary of one smoke cell, compiled by the
+# unchanged JAX package with 512 host devices in a process of its own
+# (XLA fixes the device count at its first use).
+_REF_SMOKE = """
+import json, sys
+from repro.configs import LM_SHAPES, get_smoke_config
+from repro.launch import hlo_analysis
+from repro.launch.mesh import make_production_mesh
+from repro.launch.steps import build_step
+from repro.parallel.sharding import Sharder
+arch, shape, kind = sys.argv[1:4]
+mesh = make_production_mesh(multi_pod=kind == "multi")
+with mesh:
+    fn, specs = build_step(get_smoke_config(arch), LM_SHAPES[shape],
+                           Sharder(mesh=mesh))
+    hlo = fn.lower(*specs).compile().as_text()
+print(json.dumps(hlo_analysis.collective_summary(
+    hlo_analysis.analyze_collectives(hlo, mesh.devices.size))))
+"""
+
+
+def _reference_collectives(arch, shape, mesh):
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
+    out = subprocess.run([sys.executable, "-c", _REF_SMOKE, arch, shape,
+                          mesh], env=env, capture_output=True, text=True,
+                         check=True, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_smoke_decode_attends_the_cache_where_it_lies(tmp_path):
+    """qwen3-32b smoke decode_32k on the (16, 16) mesh: the KV cache is
+    split on its sequence ('model') and batch ('data').  No all-gather of
+    the attention returns one rank's block of a layer's K or V or more,
+    and the step moves at most 2× the reference's collective bytes."""
+    from repro.configs import LM_SHAPES, get_smoke_config
+    arch, shape = "qwen3-32b", "decode_32k"
+    rec = dryrun.run_cell(arch, shape, "single", str(tmp_path),
+                          device="cpu", smoke=True)
+    cfg, sh = get_smoke_config(arch), LM_SHAPES[shape]
+    block = ((sh.global_batch // 16) * (sh.seq_len // 16) * cfg.n_kv_heads
+             * cfg.d_head * 2)
+    calls = json.loads((tmp_path / f"{arch}__{shape}__single.json")
+                       .read_text())
+    gathers = [c for c in calls if c["kind"] == "all-gather"
+               and c["computation"].startswith("models/layers.py")
+               and c["bytes_per_device"] >= block]
+    assert not gathers, gathers
+    ref = _reference_collectives(arch, shape, "single")
+    got = rec["collectives"]["total_bytes"]
+    print(f"collective bytes: port {got:.0f}, reference "
+          f"{ref['total_bytes']:.0f}")
+    assert got <= 2 * ref["total_bytes"], (got, ref)
+
+
+# A Mamba2 width whose projection (2·128 + 2·8 + 16 = 288 columns)
+# splits 18 to a rank over a 16-wide 'model' axis, the offsets of its
+# parts (128, 272) inside shards, and whose 16 heads split 1 to a rank:
+# the full configs' case (zamba2-2.7b: 10,448 = 16 × 653, offsets 5,120
+# and 10,368).
+_STRADDLE = {"ssm_headdim": 8, "ssm_state": 8}
+
+
+@pytest.mark.parametrize("arch,shape", [("zamba2-2.7b", "prefill_32k"),
+                                        ("mamba2-370m", "train_4k"),
+                                        ("zamba2-2.7b", "decode_32k")])
+def test_mamba_projection_is_split_without_a_gather(arch, shape, tmp_path,
+                                                    monkeypatch):
+    """The parts of the input projection (z, x, B | C, dt) come out placed
+    without gathering the projection: no all-gather is recorded in
+    ``_split_proj`` or ``_split_xbc``, forward or backward, nor in the
+    decode step, whose Δ accumulator keeps the projection's column split
+    (its parts are handed out by one all-to-all)."""
+    from repro_torch import configs
+    from repro_torch.models.mamba2 import _dims
+    smoke = configs.get_smoke_config
+    monkeypatch.setattr(configs, "get_smoke_config", lambda a: (
+        dataclasses.replace(smoke(a), **_STRADDLE)))
+    cfg = configs.get_smoke_config(arch)
+    d_in, H, _, _, _, conv_dim, proj = _dims(cfg)
+    assert proj % 16 == 0 and d_in % (proj // 16) and H % 16 == 0
+    rec = dryrun.run_cell(arch, shape, "single", str(tmp_path),
+                          device="cpu", smoke=True)
+    assert rec["status"] == "ok"
+    calls = json.loads((tmp_path / f"{arch}__{shape}__single.json")
+                       .read_text())
+    split = [c for c in calls if c["kind"] == "all-gather" and (
+        c["computation"].endswith(("mamba2.py:_split_proj",
+                                   "mamba2.py:_split_xbc")))]
+    assert not split, split
+    peak = json.loads((tmp_path / f"{arch}__{shape}__single.peak.json")
+                      .read_text())
+    assert peak["peak_bytes"] == rec["memory"]["argument_bytes"] + rec[
+        "memory"]["temp_bytes"]
+    assert 0 < len(peak["largest"]) <= 10 and peak["computation"]

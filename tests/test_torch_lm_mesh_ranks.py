@@ -6,6 +6,10 @@ on the port; the parent computes the JAX references first with
 ``Sharder(mesh=None)`` (GSPMD placement does not change the math, so no
 virtual devices are needed) and hands the ranks the reference's weights.
 
+zamba2 smoke float32 runs the same steps on ``(2, 2)``: its Mamba2
+projection's columns split over 'model' at offsets inside the shards,
+and its shared attention's cache is split on the sequence.
+
 The reference's three ``tests/test_distributed.py`` cases run at 4 ranks
 instead of its 8 virtual devices: the sharded equivalence on ``(2, 2)``
 (its ``(4, 2)``), the elastic restore ``(4,)`` → ``(2, 2)`` (its ``(8,)``
@@ -93,9 +97,16 @@ def runs(tmp_path_factory):
         p16 = jax.tree.map(np.asarray, get_api(cfg16, Sharder()).init(key)[0])
         p32 = jax.tree.map(np.asarray, get_api(cfg32, Sharder()).init(key)[0])
         tokens = H.np_tokens(cfg16.vocab_size, 0)
+        cfgz = _jax_cfg("zamba2-2.7b", jnp.float32)
+        pz = jax.tree.map(np.asarray, get_api(cfgz, Sharder()).init(key)[0])
+        cfgg = _jax_cfg("gemma3-4b", jnp.float32)
+        pg = jax.tree.map(np.asarray, get_api(cfgg, Sharder()).init(key)[0])
         ref = {"bf16": _jax_train(cfg16, p16, tokens, H.OPT),
                "f32": _jax_train(cfg32, p32, tokens, H.OPT_F32),
                "decode": _jax_decode(cfg32, p32, tokens),
+               "zamba2": (_jax_train(cfgz, pz, tokens, H.OPT_F32)[0],
+                          _jax_decode(cfgz, pz, tokens)),
+               "gemma3": _jax_decode(cfgg, pg, tokens),
                "multipod": _jax_multipod_grad()}
         few = {}
         for name, kw in H.FEW_HEADS.items():
@@ -111,6 +122,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_mesh_ranks")
     ranks = run_ranks(H.qwen2_rank, 4, {"params_bf16": p16,
                                         "params_f32": p32,
+                                        "params_zamba2": pz,
+                                        "params_gemma3": pg,
                                         "tokens": tokens,
                                         "few_heads": few},
                       str(tmp / "ckpt"), device="cpu", workdir=tmp)
@@ -155,7 +168,9 @@ def test_microbatched_step_on_a_batch_sharded_batch(runs):
 def test_decode_under_decode_rules(runs):
     """Prefill + 4 decode steps with build_serve_step's DECODE_RULES,
     float32 logits within 1e-4 of max|·|; the cache sharded on the
-    batch ('data') and its sequence ('model')."""
+    batch ('data') and its sequence ('model'), so each decode step
+    attends the cache where it lies and combines the ranks' softmax
+    partials."""
     ref, ranks = runs
     for got, want in zip(ranks[0]["decode"], ref["decode"]):
         assert got.shape == want.shape
@@ -163,6 +178,37 @@ def test_decode_under_decode_rules(runs):
     spec, placements = ranks[0]["cache_sharding"]
     assert spec == "PartitionSpec(None, 'data', 'model', None, None)"
     assert placements == "(Shard(dim=1), Shard(dim=2))"
+
+
+def test_zamba2_split_projection_and_split_cache(runs):
+    """zamba2 smoke float32 on (2, 2): the Mamba2 projection's columns
+    split over 'model' at offsets inside the shards (each part its own
+    product, no gather of the projection), the shared attention's cache
+    split on its sequence; 3 AdamW steps within 1e-4 relative and the
+    prefill and 4 decode steps' logits within 1e-4 of max|·| of JAX's,
+    unsharded."""
+    ref, ranks = runs
+    want_losses, want_logits = ref["zamba2"]
+    for r in ranks:
+        losses, logits, w_in, cache_k = r["zamba2"]
+        np.testing.assert_allclose(losses, want_losses, rtol=F32_TOL)
+        for got, want in zip(logits, want_logits):
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
+        assert w_in == "(Shard(dim=1), Shard(dim=2))"       # data, model
+        assert cache_k == "(Shard(dim=1), Shard(dim=2))"    # batch, seq
+
+
+def test_window_decode_on_the_sequence_split_cache(runs):
+    """gemma3 smoke float32 on (2, 2): its local layers' window of 8
+    starts inside the first 'model' rank's block of the sequence-split
+    cache, so each rank scores only the positions the window and the
+    causal mask let a query see; the prefill and 4 decode steps' logits
+    within 1e-4 of max|·| of JAX's, unsharded."""
+    ref, ranks = runs
+    for got, want in zip(ranks[0]["gemma3"], ref["gemma3"]):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= F32_TOL * np.abs(want).max()
 
 
 @pytest.mark.parametrize("name", sorted(H.FEW_HEADS))
